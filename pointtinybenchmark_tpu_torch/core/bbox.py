@@ -1,0 +1,56 @@
+"""DeltaXYWH box decoding (mmdet delta_xywh_bbox_coder.py::delta2bbox).
+
+Counterpart of pointtinybenchmark_tpu/core/bbox.py::delta2bbox and
+`delta_coder_fns`, in the same operation order.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+__all__ = ["delta2bbox", "delta_decoder"]
+
+
+def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
+               means: Sequence[float] = (0., 0., 0., 0.),
+               stds: Sequence[float] = (1., 1., 1., 1.),
+               max_shape: Optional[Tuple[int, int]] = None,
+               wh_ratio_clip: float = 16 / 1000) -> torch.Tensor:
+    """Apply (dx, dy, dw, dh) deltas to (..., 4) xyxy rois; dw and dh are
+    clamped to |log(wh_ratio_clip)|."""
+    means = deltas.new_tensor(means)
+    stds = deltas.new_tensor(stds)
+    d = deltas * stds + means
+    dx, dy, dw, dh = d.unbind(-1)
+    max_ratio = abs(math.log(wh_ratio_clip))
+    dw = dw.clamp(-max_ratio, max_ratio)
+    dh = dh.clamp(-max_ratio, max_ratio)
+    px = (rois[..., 0] + rois[..., 2]) * 0.5
+    py = (rois[..., 1] + rois[..., 3]) * 0.5
+    pw = rois[..., 2] - rois[..., 0]
+    ph = rois[..., 3] - rois[..., 1]
+    gw = pw * torch.exp(dw)
+    gh = ph * torch.exp(dh)
+    gx = px + pw * dx
+    gy = py + ph * dy
+    x1 = gx - gw * 0.5
+    y1 = gy - gh * 0.5
+    x2 = gx + gw * 0.5
+    y2 = gy + gh * 0.5
+    if max_shape is not None:
+        x1 = x1.clamp(0, max_shape[1])
+        y1 = y1.clamp(0, max_shape[0])
+        x2 = x2.clamp(0, max_shape[1])
+        y2 = y2.clamp(0, max_shape[0])
+    return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def delta_decoder(coder_cfg: Optional[dict]):
+    """The decode function for a bbox_coder config. Only DeltaXYWHBBoxCoder
+    is ported; the MMDet V1.x legacy coder raises."""
+    kind = (coder_cfg or {}).get("type", "DeltaXYWHBBoxCoder")
+    if kind != "DeltaXYWHBBoxCoder":
+        raise NotImplementedError(f"bbox coder {kind} is not ported")
+    return delta2bbox

@@ -1,0 +1,101 @@
+"""ResNet backbone with bottleneck blocks (mmdet resnet.py, style='pytorch').
+
+Counterpart of pointtinybenchmark_tpu/models/backbones/resnet.py (`ResNet`,
+`Bottleneck`) for depths 50/101/152. The stride sits on the 3x3 conv; BN
+always uses its running statistics (`norm_eval`, the TinyPerson configs
+freeze backbone BN). Padding matches the flax model: the 1x1 stride-2
+downsample pads nothing (flax SAME is 0 there), and the stem max-pool pads
+with -inf, as MaxPool2d(3, 2, 1) does.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..utils import kaiming_init
+
+__all__ = ["ResNet", "Bottleneck"]
+
+ARCH_SETTINGS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        out = planes * self.expansion
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(out)
+        self.downsample = (nn.Sequential(
+            nn.Conv2d(inplanes, out, 1, stride=stride, bias=False),
+            nn.BatchNorm2d(out)) if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        identity = x if self.downsample is None else self.downsample(x)
+        return torch.relu(y + identity)
+
+
+class ResNet(nn.Module):
+
+    def __init__(self, depth: int = 50, num_stages: int = 4,
+                 out_indices: Sequence[int] = (0, 1, 2, 3),
+                 strides: Sequence[int] = (1, 2, 2, 2),
+                 base_channels: int = 64, norm_eval: bool = True):
+        super().__init__()
+        if depth not in ARCH_SETTINGS:
+            raise NotImplementedError(f"ResNet depth {depth} is not ported")
+        if not norm_eval:
+            raise NotImplementedError("only norm_eval=True is ported")
+        self.out_indices = tuple(out_indices)
+        self.conv1 = nn.Conv2d(3, base_channels, 7, stride=2, padding=3,
+                               bias=False)
+        self.bn1 = nn.BatchNorm2d(base_channels)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        inplanes, planes = base_channels, base_channels
+        self.res_layers = []
+        for i in range(num_stages):
+            blocks = []
+            for j in range(ARCH_SETTINGS[depth][i]):
+                s = strides[i] if j == 0 else 1
+                need_down = j == 0 and (s != 1 or
+                                        inplanes != planes * Bottleneck.expansion)
+                blocks.append(Bottleneck(inplanes, planes, s, need_down))
+                inplanes = planes * Bottleneck.expansion
+            name = f"layer{i + 1}"
+            self.add_module(name, nn.Sequential(*blocks))
+            self.res_layers.append(name)
+            planes *= 2
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                kaiming_init(m, generator)
+
+    def train(self, mode: bool = True) -> "ResNet":
+        # norm_eval: BN keeps using its running statistics
+        super().train(mode)
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.eval()
+        return self
+
+    def forward(self, x: torch.Tensor):
+        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        outs = []
+        for i, name in enumerate(self.res_layers):
+            x = getattr(self, name)(x)
+            if i in self.out_indices:
+                outs.append(x)
+        return tuple(outs)

@@ -1,0 +1,56 @@
+"""Shared model building blocks and seeded initialisers."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+__all__ = ["ConvModule", "bias_init_with_prob", "normal_init",
+           "kaiming_init", "xavier_init"]
+
+
+def bias_init_with_prob(prior_prob: float) -> float:
+    """Bias so sigmoid(bias) == prior_prob (RetinaNet focal init)."""
+    return float(-math.log((1 - prior_prob) / prior_prob))
+
+
+def normal_init(m: nn.Conv2d, std: float, generator: torch.Generator,
+                bias: float = 0.0) -> None:
+    nn.init.normal_(m.weight, 0.0, std, generator=generator)
+    if m.bias is not None:
+        nn.init.constant_(m.bias, bias)
+
+
+def kaiming_init(m: nn.Conv2d, generator: torch.Generator) -> None:
+    nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu",
+                            generator=generator)
+    if m.bias is not None:
+        nn.init.zeros_(m.bias)
+
+
+def xavier_init(m: nn.Conv2d, generator: torch.Generator) -> None:
+    nn.init.xavier_uniform_(m.weight, generator=generator)
+    if m.bias is not None:
+        nn.init.zeros_(m.bias)
+
+
+class ConvModule(nn.Module):
+    """conv -> (relu), NCHW; mmcv ConvModule names (`.conv`). Counterpart of
+    pointtinybenchmark_tpu/models/utils.py::ConvModule without a norm layer,
+    the only form the ported models use."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, padding: int = 1,
+                 norm: Optional[str] = None, act: bool = True):
+        super().__init__()
+        if norm is not None:
+            raise NotImplementedError(f"ConvModule norm={norm!r} is not ported")
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
+                              stride=stride, padding=padding, bias=True)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        return torch.relu(x) if self.act else x

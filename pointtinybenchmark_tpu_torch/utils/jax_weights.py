@@ -1,0 +1,126 @@
+"""Load the JAX package's variables (numpy trees) into a ported model.
+
+The inverse of tools/model_converters/torch2jax.py::
+convert_detector_state_dict for the ported modules: flax's names become
+mmdet's (`backbone_m/layer1_block0/Conv_0` -> `backbone.layer1.0.conv1`,
+the downsample in the block's last Conv_/BatchNorm_ slot ->
+`downsample.0/1`; `neck_m/extra_conv{k}` -> `neck.fpn_convs.{n_lateral+k}`;
+`bbox_head_m/cls_conv{i}/Conv_0` -> `bbox_head.cls_convs.{i}.conv`), conv
+kernels go HWIO -> OIHW, and BN (scale, bias, mean, var) go to (weight,
+bias, running_mean, running_var). Every leaf of the trees must be used and
+every entry of the model's state_dict filled; BN's `num_batches_tracked`
+has no JAX counterpart and is left as it is.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["load_jax_variables", "jax_to_state_dict"]
+
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+       "var": "running_var"}
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def _backbone_module(scope: Tuple[str, ...]) -> Optional[str]:
+    """('Conv_0',) -> 'conv1'; ('layer2_block0', 'BatchNorm_3') ->
+    'layer2.0.downsample.1'."""
+    if len(scope) == 1:
+        m = re.fullmatch(r"(Conv|BatchNorm)_0", scope[0])
+        return None if m is None else ("conv1" if m[1] == "Conv" else "bn1")
+    if len(scope) != 2:
+        return None
+    blk = re.fullmatch(r"layer(\d+)_block(\d+)", scope[0])
+    layer = re.fullmatch(r"(Conv|BatchNorm)_(\d)", scope[1])
+    if blk is None or layer is None:
+        return None
+    k = int(layer[2])
+    base = f"layer{blk[1]}.{blk[2]}"
+    if k < 3:
+        return f"{base}.{'conv' if layer[1] == 'Conv' else 'bn'}{k + 1}"
+    if k == 3:
+        return f"{base}.downsample.{0 if layer[1] == 'Conv' else 1}"
+    return None
+
+
+def _torch_key(path: Tuple[str, ...], n_lateral: int) -> Optional[str]:
+    top, *scope, leaf = path
+    if top == "backbone_m":
+        mod = _backbone_module(tuple(scope))
+        if mod is None:
+            return None
+        if leaf == "kernel":
+            return f"backbone.{mod}.weight"
+        return f"backbone.{mod}.{_BN[leaf]}" if leaf in _BN else None
+    name = {"kernel": "weight", "bias": "bias"}.get(leaf)
+    if name is None:
+        return None
+    if top == "neck_m" and len(scope) == 1:
+        m = re.fullmatch(r"(lateral|fpn|extra)_conv(\d+)", scope[0])
+        if m is None:
+            return None
+        i = int(m[2]) + (n_lateral if m[1] == "extra" else 0)
+        group = "lateral_convs" if m[1] == "lateral" else "fpn_convs"
+        return f"neck.{group}.{i}.conv.{name}"
+    if top == "bbox_head_m":
+        if len(scope) == 2 and scope[1] == "Conv_0":
+            m = re.fullmatch(r"(cls|reg)_conv(\d+)", scope[0])
+            return None if m is None else \
+                f"bbox_head.{m[1]}_convs.{m[2]}.conv.{name}"
+        if len(scope) == 1 and scope[0] in ("retina_cls", "retina_reg",
+                                            "conv_cls", "conv_reg"):
+            return f"bbox_head.{scope[0]}.{name}"
+    return None
+
+
+def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """Flax trees -> {mmdet name: tensor}. Raises on any leaf it cannot
+    place."""
+    n_lateral = sum(1 for k in params.get("neck_m", {})
+                    if str(k).startswith("lateral_conv"))
+    out: Dict[str, torch.Tensor] = {}
+    unused = []
+    for tree in (params, batch_stats or {}):
+        for path, val in _leaves(tree):
+            key = _torch_key(path, n_lateral)
+            if key is None or key in out:
+                unused.append("/".join(path))
+                continue
+            arr = np.array(val, np.float32)
+            if path[-1] == "kernel":
+                arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    if unused:
+        raise KeyError(f"{len(unused)} JAX leaves not consumed: {unused[:8]}")
+    return out
+
+
+def load_jax_variables(model: torch.nn.Module, params: Mapping,
+                       batch_stats: Optional[Mapping] = None) -> None:
+    """Copy JAX variables into `model` in place."""
+    sd = jax_to_state_dict(params, batch_stats)
+    own = {k: v for k, v in model.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    missing = sorted(set(own) - set(sd))
+    extra = sorted(set(sd) - set(own))
+    if missing or extra:
+        raise KeyError(f"state_dict mismatch: missing {missing[:8]}, "
+                       f"unexpected {extra[:8]}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{k}: JAX shape {tuple(v.shape)} vs "
+                             f"{tuple(own[k].shape)}")
+    model.load_state_dict(sd, strict=False)
