@@ -16,7 +16,10 @@ Builds the NMS kernel pair from ops/csrc with nvcc, then:
    work, the boxes must be sane, the card's forward must agree with the CPU
    forward on one tile, and the detections must equal those with the plain
    NMS;
-3. timing: protocol and forward-only img/s, and per-tile and global NMS ms.
+3. timing: protocol and forward-only img/s, and per-tile and global NMS ms;
+4. profile: warm protocol calls under torch.profiler, the card's idle
+   share of the wall time and its time by kernel family (the Chrome trace
+   goes to build/protocol_trace.json).
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
@@ -24,6 +27,8 @@ in TF32). Every failure raises; there is no CPU mode. The last line is
 launches on the main path, its error against the plain version and both
 times.
 """
+import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -44,6 +49,18 @@ PLAIN_ITERS = 3
 NMS_SHAPES = (("per-tile", 12, 8720, 1), ("global", 2, 12000, 3))
 KERNEL_SOURCE = "pointtinybenchmark_tpu_torch/ops/csrc/nms_kernel.cu"
 REPLACES = "pointtinybenchmark_tpu/ops/pallas_kernels.py:55"
+PROFILE_CALLS = 5
+# substrings of device kernel names, first match wins
+KERNEL_FAMILIES = (
+    ("iou_bitmask", "NMS kernel A iou_bitmask"),
+    ("greedy_reduce", "NMS kernel B greedy_reduce"),
+    ("nhwctonchw", "cuDNN layout transpose"),
+    ("nchwtonhwc", "cuDNN layout transpose"),
+    ("memcpy", "memcpy"), ("memset", "memset"),
+    ("batch_norm", "BN inference"), ("bn_", "BN inference"),
+    ("xmma", "convolution"), ("conv", "convolution"), ("gemm", "convolution"),
+    ("fft", "convolution"), ("winograd", "convolution"),
+    ("elementwise", "elementwise"), ("vectorized", "elementwise"))
 
 
 def time_ms(fn, iters):
@@ -60,10 +77,12 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def synthetic_boxes(rng, b, n, n_classes):
-    """10-40 px boxes around cluster centres in a 640x512 tile (real
-    suppression), scores on a 1e-3 grid (exact ties), ~5% invalid rows."""
-    n_clusters = n // 8
+def synthetic_boxes(rng, b, n, n_classes=1):
+    """TinyPerson-like NMS input as numpy: 10-40 px boxes around cluster
+    centres in a 640x512 tile (real suppression), scores on a 1e-3 grid
+    (exact ties), ~5% invalid rows. Returns boxes (b, n, 4) f32, scores
+    (b, n) f32, valid (b, n) bool, labels (b, n) int32."""
+    n_clusters = max(n // 8, 1)
     centres = rng.rand(b, n_clusters, 2) * np.asarray([640.0, 512.0])
     pick = rng.randint(0, n_clusters, (b, n))
     c = np.take_along_axis(centres, pick[..., None], 1) + rng.randn(b, n, 2) * 6
@@ -72,8 +91,23 @@ def synthetic_boxes(rng, b, n, n_classes):
     scores = (rng.randint(0, 1000, (b, n)) / 1000.0).astype(np.float32)
     valid = rng.rand(b, n) > 0.05
     labels = rng.randint(0, n_classes, (b, n)).astype(np.int32)
-    return [torch.from_numpy(x).to(DEVICE)
-            for x in (boxes, scores, valid, labels)]
+    return boxes, scores, valid, labels
+
+
+@contextlib.contextmanager
+def plain_nms():
+    """Inside this block ops/nms.py runs the plain versions of the two
+    kernels, on whatever device its tensors are: the reference a kernel
+    run is held against. The package itself has no such switch."""
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda
+
+    saved = nms_cuda.iou_bitmask, nms_cuda.greedy_reduce
+    nms_cuda.iou_bitmask = nms_cuda.iou_bitmask_plain
+    nms_cuda.greedy_reduce = nms_cuda.greedy_reduce_plain
+    try:
+        yield
+    finally:
+        nms_cuda.iou_bitmask, nms_cuda.greedy_reduce = saved
 
 
 def phase_kernels(card):
@@ -82,13 +116,15 @@ def phase_kernels(card):
     rng = np.random.RandomState(0)
     records = {}
     for name, b, n, n_classes in NMS_SHAPES:
-        boxes, scores, valid, labels = synthetic_boxes(rng, b, n, n_classes)
+        boxes, scores, valid, labels = (
+            torch.from_numpy(x).to(DEVICE)
+            for x in synthetic_boxes(rng, b, n, n_classes))
 
         def run():
             return nms.batched_nms(boxes, scores, labels, 0.5, 1000,
                                    valid_mask=valid)
         got = run()
-        with nms_cuda.plain_reference():
+        with plain_nms():
             want = run()
         torch.cuda.synchronize()
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
@@ -99,7 +135,7 @@ def phase_kernels(card):
         if not all(0 < k for k in kept):
             raise AssertionError(f"{name}: NMS kept nothing")
         ms = time_ms(run, ITERS)
-        with nms_cuda.plain_reference():
+        with plain_nms():
             plain_ms = time_ms(run, PLAIN_ITERS)
         print(f"phase 1 {name} NMS: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
               f" [{card}]")
@@ -168,7 +204,7 @@ def phase_slice(card):
     if launches != {"iou_bitmask": 2, "greedy_reduce": 2}:
         raise AssertionError(f"expected one per-tile and one global launch of "
                              f"each kernel, got {launches}")
-    with nms_cuda.plain_reference():
+    with plain_nms():
         results_plain = inference_detector_tiled(handle, list(frames))
     torch.backends.cudnn.deterministic = False
     h, w = FRAME_HW
@@ -226,7 +262,6 @@ def phase_timing(card, handle, frames, tiles, stage):
         inference_detector_tiled
     from pointtinybenchmark_tpu_torch.core.post_processing import \
         multiclass_nms
-    from pointtinybenchmark_tpu_torch.ops import nms, nms_cuda
 
     boxes, scores, nms_args, dets, eng = stage
     frame_list = list(frames)
@@ -247,20 +282,14 @@ def phase_timing(card, handle, frames, tiles, stage):
 
     v = eng.pre.n_views
     m = dets.bboxes.shape[1]
-    gboxes = (dets.bboxes[..., :4].reshape(N_FRAMES, v, m, 4)
-              + eng._shift).reshape(N_FRAMES, v * m, 4)
-    gargs = (gboxes, dets.bboxes[..., 4].reshape(N_FRAMES, v * m),
-             dets.labels.reshape(N_FRAMES, v * m), eng.merge_iou_threshold,
-             eng.max_per_img)
-    gvalid = dets.valid.reshape(N_FRAMES, v * m)
 
     def per_tile():
         return multiclass_nms(boxes, scores, *nms_args)
 
     def merge():
-        return nms.batched_nms(*gargs, valid_mask=gvalid)
+        return eng.merge(dets)
     tile_ms, merge_ms = time_ms(per_tile, ITERS), time_ms(merge, ITERS)
-    with nms_cuda.plain_reference():
+    with plain_nms():
         tile_plain, merge_plain = (time_ms(per_tile, PLAIN_ITERS),
                                    time_ms(merge, PLAIN_ITERS))
     print(f"phase 3 protocol ({N_FRAMES} frames of {v} tiles, host in the "
@@ -270,8 +299,67 @@ def phase_timing(card, handle, frames, tiles, stage):
     print(f"phase 3 per-tile NMS (multiclass_nms, B={tiles.shape[0]}, "
           f"N={boxes.shape[1]}): kernel {tile_ms:.4f} ms, plain "
           f"{tile_plain:.4f} ms [{card}]")
-    print(f"phase 3 global merge (batched_nms, B={N_FRAMES}, N={v * m}): "
-          f"kernel {merge_ms:.4f} ms, plain {merge_plain:.4f} ms [{card}]")
+    print(f"phase 3 global merge (engine merge: shift + batched_nms, "
+          f"B={N_FRAMES}, N={v * m}): kernel {merge_ms:.4f} ms, plain "
+          f"{merge_plain:.4f} ms [{card}]")
+
+
+def _busy_us(events):
+    """Length of the union of the events' [ts, ts + dur) intervals, in us."""
+    busy, cur = 0.0, None
+    for s, e in sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in events):
+        if cur is not None and s <= cur[1]:
+            cur[1] = max(cur[1], e)
+        else:
+            busy += cur[1] - cur[0] if cur is not None else 0.0
+            cur = [s, e]
+    return busy + (cur[1] - cur[0] if cur is not None else 0.0)
+
+
+def phase_profile(card, handle, frames):
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointtinybenchmark_tpu_torch.apis.inference import \
+        inference_detector_tiled
+
+    frame_list = list(frames)
+    inference_detector_tiled(handle, frame_list)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_CALLS):
+            inference_detector_tiled(handle, frame_list)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_CALLS
+    trace = REPO / "build" / "protocol_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "dur" in e]
+    if not events:
+        raise AssertionError("the profiler traced no device activity")
+    busy_ms = _busy_us(events) / 1e3 / PROFILE_CALLS
+    family, by_name, count = (collections.Counter() for _ in range(3))
+    for e in events:
+        low = e["name"].lower()
+        family[next((f for key, f in KERNEL_FAMILIES if key in low),
+                    "rest")] += e["dur"]
+        by_name[e["name"][:90]] += e["dur"]
+        count[e["name"][:90]] += 1
+    print(f"phase 4 profile ({PROFILE_CALLS} warm protocol calls of "
+          f"{N_FRAMES} frames, profiler on, trace {trace}): per call wall "
+          f"{wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.4f} [{card}]")
+    print("phase 4 device ms per call by family (share of busy):")
+    for name, us in family.most_common():
+        ms = us / 1e3 / PROFILE_CALLS
+        print(f"  {name:28s} {ms:10.4f} ms  {ms / busy_ms:.4f}")
+    print("phase 4 top kernels (ms per call, launches per call):")
+    for name, us in by_name.most_common(15):
+        print(f"  {us / 1e3 / PROFILE_CALLS:9.4f}  "
+              f"{count[name] / PROFILE_CALLS:6.1f}  {name}")
 
 
 def main():
@@ -299,6 +387,7 @@ def main():
     records = phase_kernels(card)
     launches, handle, frames, tiles, stage = phase_slice(card)
     phase_timing(card, handle, frames, tiles, stage)
+    phase_profile(card, handle, frames)
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNEL_SOURCE, replaces=REPLACES,

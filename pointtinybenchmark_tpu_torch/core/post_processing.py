@@ -28,9 +28,7 @@ def multiclass_nms(multi_bboxes: torch.Tensor,
                    score_thr: float,
                    iou_threshold: float,
                    max_per_img: int,
-                   valid_mask: Optional[torch.Tensor] = None,
-                   pre_nms_limit: int = 20000,
-                   score_factors: Optional[torch.Tensor] = None) -> DetResult:
+                   valid_mask: Optional[torch.Tensor] = None) -> DetResult:
     """
     Args:
         multi_bboxes: (B, N, 4) class-agnostic or (B, N, C*4).
@@ -39,9 +37,6 @@ def multiclass_nms(multi_bboxes: torch.Tensor,
         iou_threshold: NMS IoU threshold.
         max_per_img: static output size.
         valid_mask: (B, N) bool for padded rows.
-        pre_nms_limit: cap on the flattened (N*C) candidates fed to NMS.
-        score_factors: (B, N) multiplier (centerness / objectness) applied
-            after the score threshold; the output score is the product.
     """
     b, n = multi_scores.shape[:2]
     num_classes = multi_scores.shape[2] - 1
@@ -58,22 +53,7 @@ def multiclass_nms(multi_bboxes: torch.Tensor,
     ok = flat_scores > score_thr
     if valid_mask is not None:
         ok = ok & valid_mask.repeat_interleave(num_classes, dim=1)
-    if score_factors is not None:
-        flat_scores = flat_scores * score_factors.repeat_interleave(
-            num_classes, dim=1)
     flat_scores = torch.where(ok, flat_scores, -1.0)
-
-    k = min(pre_nms_limit, flat_scores.shape[1])
-    if k < flat_scores.shape[1]:
-        # a stable sort, sliced: lax.top_k takes the lower index on ties,
-        # torch.topk on CUDA fixes no order among them
-        _, top_idx = torch.sort(flat_scores, dim=1, descending=True,
-                                stable=True)
-        top_idx = top_idx[:, :k]
-        flat_scores = flat_scores.gather(1, top_idx)
-        flat_boxes = flat_boxes.gather(1, top_idx[..., None].expand(-1, -1, 4))
-        flat_labels = flat_labels.gather(1, top_idx)
-        ok = ok.gather(1, top_idx)
 
     keep_idx, _ = batched_nms(flat_boxes, flat_scores, flat_labels,
                               iou_threshold, max_per_img, valid_mask=ok)

@@ -11,7 +11,7 @@ are rows [i*V, (i+1)*V).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,20 +26,17 @@ class DevicePreprocessor:
     """Args:
         frame_hw: (H, W) of the decoded input frames.
         mean / std: per-channel normalization.
-        tile_hw: optional (tile_h, tile_w); the output is then
-            (N * n_views, tile_h, tile_w, 3) and `tile_offsets` holds each
-            tile's (x, y) shift.
+        tile_hw: (tile_h, tile_w); the output is (N * n_views, tile_h,
+            tile_w, 3) and `tile_offsets` holds each tile's (x, y) shift.
         tile_overlap: (overlap_w, overlap_h) of the grid.
-        pad_divisor: when not tiling, pad H and W up to a multiple.
         pad_val: fill value, in normalized space.
         device: where the work runs.
     """
 
     def __init__(self, frame_hw: Tuple[int, int],
                  mean: Sequence[float], std: Sequence[float],
-                 tile_hw: Optional[Tuple[int, int]] = None,
+                 tile_hw: Tuple[int, int],
                  tile_overlap: Tuple[int, int] = (0, 0),
-                 pad_divisor: Optional[int] = None,
                  pad_val: float = 0.0, *,
                  device: Union[str, torch.device]):
         self.device = torch.device(device)
@@ -51,25 +48,17 @@ class DevicePreprocessor:
         ).to(self.device)
         self._pad_val = float(pad_val)
         h, w = self.frame_hw
-        if tile_hw is not None:
-            th, tw = int(tile_hw[0]), int(tile_hw[1])
-            self.rects = tile_grid(w, h, tw, th, int(tile_overlap[0]),
-                                   int(tile_overlap[1]))
-            self.tile_hw = (th, tw)
-            self.tile_offsets = np.asarray(
-                [(l, u) for (l, u, _, _) in self.rects], np.float32)
-            self._pad_to = (max(h, th), max(w, tw))
-        else:
-            self.tile_hw = None
-            self.rects = None
-            self.tile_offsets = np.zeros((1, 2), np.float32)
-            d = int(pad_divisor) if pad_divisor else 1
-            self._pad_to = (-(-h // d) * d, -(-w // d) * d)
-        self.out_hw = self.tile_hw if self.tile_hw else self._pad_to
+        th, tw = int(tile_hw[0]), int(tile_hw[1])
+        self.rects = tile_grid(w, h, tw, th, int(tile_overlap[0]),
+                               int(tile_overlap[1]))
+        self.tile_hw = (th, tw)
+        self.tile_offsets = np.asarray(
+            [(l, u) for (l, u, _, _) in self.rects], np.float32)
+        self._pad_to = (max(h, th), max(w, tw))
 
     @property
     def n_views(self) -> int:
-        return len(self.rects) if self.rects else 1
+        return len(self.rects)
 
     def __call__(self, frames) -> torch.Tensor:
         """frames: (N, H, W, 3) or (H, W, 3), uint8 (or castable to f32),
@@ -84,9 +73,7 @@ class DevicePreprocessor:
         ph, pw = self._pad_to
         if (ph, pw) != (h, w):
             x = F.pad(x, (0, 0, 0, pw - w, 0, ph - h), value=self._pad_val)
-        if self.tile_hw is not None:
-            th, tw = self.tile_hw
-            x = torch.stack([x[:, u:u + th, l:l + tw]
-                             for (l, u, _, _) in self.rects], dim=1)
-            x = x.reshape(-1, th, tw, 3)
-        return x
+        th, tw = self.tile_hw
+        x = torch.stack([x[:, u:u + th, l:l + tw]
+                         for (l, u, _, _) in self.rects], dim=1)
+        return x.reshape(-1, th, tw, 3)

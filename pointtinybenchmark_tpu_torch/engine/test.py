@@ -10,11 +10,12 @@ axis of the NMS kernels takes the frames).
 from __future__ import annotations
 
 import logging
-from typing import Iterable, List, Optional, Union
+from typing import Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..core.post_processing import DetResult
 from ..data.device_pipeline import DevicePreprocessor
 from ..ops.nms import batched_nms
 
@@ -53,15 +54,14 @@ class DeviceTiledInference:
         self._img_shape = torch.tensor(tile_hw, dtype=torch.int32,
                                        device=self.device)
 
-    @torch.no_grad()
-    def __call__(self, frames) -> List[dict]:
-        """frames: (n_images, H, W, 3) or (H, W, 3) uint8. Returns one dict
-        per frame: bboxes (n, 5) in the frame's coordinates, labels (n,)."""
-        tiles = self.pre(frames)
+    def merge(self, dets: DetResult) -> Tuple[torch.Tensor, ...]:
+        """The global merge of the per-tile detections (n_img * V rows,
+        image-major): shift each tile's boxes by its offset, then one
+        class-aware NMS per frame, batched over frames. Returns boxes
+        (n_img, V*M, 4), scores and labels (n_img, V*M), and keep
+        (n_img, max_per_img) indices into them, padded with -1."""
         v = self.pre.n_views
-        n_img = tiles.shape[0] // v
-        dets = self.model.simple_test(
-            tiles, self._img_shape.expand(tiles.shape[0], 2))
+        n_img = dets.bboxes.shape[0] // v
         m = dets.bboxes.shape[1]
         boxes = (dets.bboxes[..., :4].reshape(n_img, v, m, 4)
                  + self._shift).reshape(n_img, v * m, 4)
@@ -70,10 +70,19 @@ class DeviceTiledInference:
         keep, _ = batched_nms(boxes, scores, labels, self.merge_iou_threshold,
                               self.max_per_img,
                               valid_mask=dets.valid.reshape(n_img, v * m))
-        boxes, scores, labels, keep = (t.cpu().numpy() for t in
-                                       (boxes, scores, labels, keep))
+        return boxes, scores, labels, keep
+
+    @torch.no_grad()
+    def __call__(self, frames) -> List[dict]:
+        """frames: (n_images, H, W, 3) or (H, W, 3) uint8. Returns one dict
+        per frame: bboxes (n, 5) in the frame's coordinates, labels (n,)."""
+        tiles = self.pre(frames)
+        dets = self.model.simple_test(
+            tiles, self._img_shape.expand(tiles.shape[0], 2))
+        boxes, scores, labels, keep = (t.cpu().numpy()
+                                       for t in self.merge(dets))
         results = []
-        for i in range(n_img):
+        for i in range(keep.shape[0]):
             sel = keep[i][keep[i] >= 0]
             results.append(dict(
                 bboxes=np.concatenate([boxes[i][sel], scores[i][sel][:, None]],

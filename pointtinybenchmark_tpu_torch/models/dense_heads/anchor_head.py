@@ -84,9 +84,7 @@ class AnchorHead(nn.Module):
                 for g in grids]
         return self._anchor_cache[key]
 
-    def candidates(self, cls_outs, bbox_outs, img_shapes: torch.Tensor,
-                   scale_factors: Optional[torch.Tensor] = None,
-                   rescale: bool = False
+    def candidates(self, cls_outs, bbox_outs, img_shapes: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Everything before NMS: (B, K, 4) boxes clipped to `img_shapes`
         (B, 2) (h, w), and (B, K, C+1) scores with a zero background column.
@@ -125,17 +123,13 @@ class AnchorHead(nn.Module):
                 1, idx[..., None].expand(-1, -1, self.cls_out_channels)))
         boxes = torch.cat(all_boxes, dim=1)
         scores = torch.cat(all_scores, dim=1)
-        if rescale and scale_factors is not None:
-            boxes = boxes / scale_factors[:, None, :]
         scores = torch.cat([scores, scores.new_zeros(scores.shape[:2] + (1,))],
                            dim=-1)
         return boxes, scores
 
-    def get_bboxes(self, cls_outs, bbox_outs, img_shapes: torch.Tensor,
-                   scale_factors: Optional[torch.Tensor] = None,
-                   rescale: bool = False) -> DetResult:
-        boxes, scores = self.candidates(cls_outs, bbox_outs, img_shapes,
-                                        scale_factors, rescale)
+    def get_bboxes(self, cls_outs, bbox_outs,
+                   img_shapes: torch.Tensor) -> DetResult:
+        boxes, scores = self.candidates(cls_outs, bbox_outs, img_shapes)
         cfg = self.test_cfg
         return multiclass_nms(
             boxes, scores, float(cfg.get("score_thr", 0.05)),

@@ -40,9 +40,7 @@ class SingleStageDetector(nn.Module):
         """img (B, H, W, 3) -> per-level (cls_outs, reg_outs), NCHW."""
         return self.bbox_head(self.extract_feat(img))
 
-    def simple_test(self, img: torch.Tensor, img_shapes: torch.Tensor,
-                    scale_factors: Optional[torch.Tensor] = None,
-                    rescale: bool = False) -> DetResult:
+    def simple_test(self, img: torch.Tensor,
+                    img_shapes: torch.Tensor) -> DetResult:
         cls_outs, reg_outs = self(img)
-        return self.bbox_head.get_bboxes(cls_outs, reg_outs, img_shapes,
-                                         scale_factors, rescale)
+        return self.bbox_head.get_bboxes(cls_outs, reg_outs, img_shapes)

@@ -8,13 +8,11 @@ repository root, under a name keyed by a hash of the source and the flags,
 and loaded with ctypes. A failed build raises: there is no fallback.
 
 `launches` counts kernel launches by name, so a run can show that it went
-through the kernels. `plain_reference()` sends CUDA tensors to the plain
-version for the duration of a ``with`` block; it exists only so that a
-kernel can be held against its plain version on the same card.
+through the kernels. To hold a kernel against its plain version on the
+card, call the `*_plain` functions directly.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,8 +25,7 @@ import numpy as np
 import torch
 
 __all__ = ["iou_bitmask", "greedy_reduce", "iou_bitmask_plain",
-           "greedy_reduce_plain", "launches", "plain_reference",
-           "build_library", "SOURCE"]
+           "greedy_reduce_plain", "launches", "build_library", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "nms_kernel.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -41,18 +38,6 @@ launches = {"iou_bitmask": 0, "greedy_reduce": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
-_plain_on_device = False
-
-
-@contextlib.contextmanager
-def plain_reference():
-    """Run CUDA tensors through the plain version inside this block."""
-    global _plain_on_device
-    prev, _plain_on_device = _plain_on_device, True
-    try:
-        yield
-    finally:
-        _plain_on_device = prev
 
 
 def _nvcc() -> str:
@@ -102,7 +87,7 @@ def _route(t: torch.Tensor) -> str:
     if t.device.type == "cpu":
         return "plain"
     if t.device.type == "cuda":
-        return "plain" if _plain_on_device else "kernel"
+        return "kernel"
     raise RuntimeError(f"no NMS kernel for device {t.device}")
 
 

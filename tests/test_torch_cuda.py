@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import plain_nms, synthetic_boxes
 from pointtinybenchmark_tpu_torch.ops import nms, nms_cuda
 
 
@@ -22,18 +23,9 @@ def cuda():
 
 
 def _inputs(rng, b, n, n_classes, device):
-    c = rng.rand(b, max(n // 8, 1), 2) * [640.0, 512.0]
-    pick = rng.randint(0, c.shape[1], (b, n))
-    ctr = np.take_along_axis(c, pick[..., None], 1) + rng.randn(b, n, 2) * 6
-    wh = rng.uniform(10, 40, (b, n, 2))
-    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
-    scores = rng.randint(0, 1000, (b, n)) / 1000.0
-    valid = rng.rand(b, n) > 0.05
-    labels = rng.randint(0, n_classes, (b, n))
-    return (torch.tensor(boxes, dtype=torch.float32, device=device),
-            torch.tensor(scores, dtype=torch.float32, device=device),
-            torch.tensor(labels, dtype=torch.int32, device=device),
-            torch.tensor(valid, device=device))
+    boxes, scores, valid, labels = synthetic_boxes(rng, b, n, n_classes)
+    return [torch.from_numpy(x).to(device)
+            for x in (boxes, scores, labels, valid)]
 
 
 @pytest.mark.cuda
@@ -51,7 +43,7 @@ def test_kernels_match_plain(cuda, b, n, n_classes, max_out):
                           valid_mask=valid)
     assert nms_cuda.launches["iou_bitmask"] == before["iou_bitmask"] + 1
     assert nms_cuda.launches["greedy_reduce"] == before["greedy_reduce"] + 1
-    with nms_cuda.plain_reference():
+    with plain_nms():
         want = nms.batched_nms(boxes, scores, labels, 0.5, max_out,
                                valid_mask=valid)
     torch.cuda.synchronize()

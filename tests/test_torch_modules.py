@@ -129,7 +129,7 @@ def test_config_matches_jax():
     ((1080, 1920, 3), dict(tile_hw=(512, 640), tile_overlap=(100, 100))),
     ((2, 256, 384, 3), dict(tile_hw=(128, 192))),
     ((100, 150, 3), dict(tile_hw=(128, 192), pad_val=0.0)),
-    ((500, 700, 3), dict(pad_divisor=32)),
+    ((500, 700, 3), dict(tile_hw=(256, 320), tile_overlap=(40, 30))),
 ])
 def test_device_preprocessor_bit_exact(frames_shape, kw):
     frames = np.random.RandomState(0).randint(0, 256, frames_shape, np.uint8)
@@ -255,8 +255,10 @@ def test_get_bboxes_matches_jax(pair):
 
 
 def test_multiclass_nms_cap_and_factors():
-    """pre_nms_limit below N*C (the stable top-k path), score factors,
-    class-specific boxes."""
+    """The max_per_img cap over class-specific (N, C*4) boxes with a
+    validity mask. The port takes no score factors and no pre-NMS cap (no
+    caller of it uses either), so the JAX function runs with its defaults,
+    under which neither applies."""
     rng = np.random.RandomState(5)
     n, c = 400, 3
     ctr = rng.uniform(20, 200, (n, 1, 2))
@@ -264,17 +266,12 @@ def test_multiclass_nms_cap_and_factors():
     boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).reshape(n, c * 4)
     boxes = boxes.astype(np.float32)
     scores = rng.rand(n, c + 1).astype(np.float32)
-    factors = rng.uniform(0.5, 1.0, n).astype(np.float32)
     valid = rng.rand(n) > 0.1
     want = jpost.multiclass_nms(jnp.asarray(boxes), jnp.asarray(scores), 0.3,
-                                0.5, 80, valid_mask=jnp.asarray(valid),
-                                pre_nms_limit=500,
-                                score_factors=jnp.asarray(factors))
+                                0.5, 80, valid_mask=jnp.asarray(valid))
     got = multiclass_nms(torch.from_numpy(boxes)[None],
                          torch.from_numpy(scores)[None], 0.3, 0.5, 80,
-                         valid_mask=torch.from_numpy(valid)[None],
-                         pre_nms_limit=500,
-                         score_factors=torch.from_numpy(factors)[None])
+                         valid_mask=torch.from_numpy(valid)[None])
     want = [np.asarray(x)[None] for x in want]
     assert int(want[2].sum()) == 80
     assert_dets_match(_dets_np(want, 0), _dets_np(got, 0))

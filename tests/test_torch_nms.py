@@ -7,6 +7,7 @@ host greedy walk); tests/test_torch_cuda.py holds the CUDA kernels
 against it on the card.
 """
 import importlib
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ import torch
 
 import jax.numpy as jnp
 
+from chip_smoke import plain_nms, synthetic_boxes
 from pointtinybenchmark_tpu.ops.pallas_kernels import iou_suppression_matrix
 from pointtinybenchmark_tpu_torch.ops import nms_cuda
 from pointtinybenchmark_tpu_torch.ops import nms as tnms
@@ -22,17 +24,10 @@ from pointtinybenchmark_tpu_torch.ops import nms as tnms
 jnms = importlib.import_module("pointtinybenchmark_tpu.ops.nms")
 
 
-def _boxes(rng, n, n_clusters=None, extent=(640, 512)):
-    """TinyPerson-like 10-40 px boxes around cluster centres (so that real
-    suppression happens), scores on a 1e-3 grid (exact ties), ~5% invalid."""
-    n_clusters = n_clusters or max(n // 8, 1)
-    centres = rng.rand(n_clusters, 2) * np.asarray(extent)
-    c = centres[rng.randint(0, n_clusters, n)] + rng.randn(n, 2) * 6.0
-    wh = rng.uniform(10, 40, (n, 2))
-    boxes = np.concatenate([c - wh / 2, c + wh / 2], 1).astype(np.float32)
-    scores = (rng.randint(0, 1000, n) / 1000.0).astype(np.float32)
-    valid = rng.rand(n) > 0.05
-    return boxes, scores, valid
+def _boxes(rng, n, n_classes=1):
+    """One item of the smoke's synthetic input: boxes, scores, valid,
+    labels."""
+    return [x[0] for x in synthetic_boxes(rng, 1, n, n_classes)]
 
 
 def _t(*arrs):
@@ -52,7 +47,7 @@ def _assert_same(jax_out, torch_out):
                                   "truncated"])
 def test_nms_matches_every_jax_route(jax_fn, case):
     rng = np.random.RandomState(0)
-    boxes, scores, valid = _boxes(rng, 700)
+    boxes, scores, valid, _ = _boxes(rng, 700)
     kw = {}
     max_out = 1000
     if case == "valid_mask":
@@ -78,8 +73,7 @@ def test_batched_nms_class_offsets(n, jax_fn):
     """Multi-class offsets, invalid rows, and N = 5000 above FIXPOINT_MAX_N
     (JAX then takes nms_vblocked / nms_blocked)."""
     rng = np.random.RandomState(n)
-    boxes, scores, valid = _boxes(rng, n)
-    labels = rng.randint(0, 3, n).astype(np.int32)
+    boxes, scores, valid, labels = _boxes(rng, n, n_classes=3)
     want = jax_fn(jnp.asarray(boxes), jnp.asarray(scores),
                   jnp.asarray(labels), 0.5, 1000,
                   valid_mask=jnp.asarray(valid))
@@ -92,10 +86,7 @@ def test_batched_nms_class_offsets(n, jax_fn):
 def test_batched_call_equals_per_item_jax():
     """One (B, N) call, as the per-tile NMS and the global merge make it,
     equals the JAX function run on each batch item."""
-    rng = np.random.RandomState(3)
-    items = [_boxes(rng, 400) for _ in range(3)]
-    labels = rng.randint(0, 2, (3, 400)).astype(np.int32)
-    b, s, v = (np.stack([it[i] for it in items]) for i in range(3))
+    b, s, v, labels = synthetic_boxes(np.random.RandomState(3), 3, 400, 2)
     keep, num = tnms.batched_nms(*_t(b, s, labels), 0.6, 150,
                                  valid_mask=torch.from_numpy(v))
     for i in range(3):
@@ -115,7 +106,7 @@ def test_plain_bitmask_equals_pairwise_iou():
     """Bit j of row i is exactly `_pairwise_iou(b, b)[i, j] > thr` for
     j > i, and 0 elsewhere (division form, the main path's semantics)."""
     rng = np.random.RandomState(4)
-    boxes, _, _ = _boxes(rng, 777)
+    boxes = _boxes(rng, 777)[0]
     got = _unpack(nms_cuda.iou_bitmask_plain(torch.from_numpy(boxes)[None],
                                              0.5), 777)[0]
     iou = np.asarray(jnms._pairwise_iou(jnp.asarray(boxes),
@@ -131,7 +122,7 @@ def test_plain_bitmask_agrees_with_pallas_k1():
     differently at the threshold, so they must agree wherever
     |iou - thr| > 1e-6."""
     rng = np.random.RandomState(5)
-    boxes, _, _ = _boxes(rng, 256)
+    boxes = _boxes(rng, 256)[0]
     k1 = np.asarray(iou_suppression_matrix(jnp.asarray(boxes), 0.5,
                                            interpret=True))
     got = _unpack(nms_cuda.iou_bitmask_plain(torch.from_numpy(boxes)[None],
@@ -150,3 +141,17 @@ def test_device_without_kernel_raises():
     boxes = torch.zeros((1, 8, 4), device="meta")
     with pytest.raises(RuntimeError, match="no NMS kernel"):
         nms_cuda.iou_bitmask(boxes, 0.5)
+
+
+def test_cuda_tensors_always_route_to_the_kernel():
+    """The dispatch has no switch: a CUDA tensor goes to the kernel, also
+    while the smoke's `plain_nms` swap is active (which rebinds the
+    module's entry points from outside instead)."""
+    on_card = SimpleNamespace(device=torch.device("cuda", 0))
+    assert nms_cuda._route(on_card) == "kernel"
+    kernels = nms_cuda.iou_bitmask, nms_cuda.greedy_reduce
+    with plain_nms():
+        assert nms_cuda._route(on_card) == "kernel"
+        assert nms_cuda.iou_bitmask is nms_cuda.iou_bitmask_plain
+        assert nms_cuda.greedy_reduce is nms_cuda.greedy_reduce_plain
+    assert (nms_cuda.iou_bitmask, nms_cuda.greedy_reduce) == kernels
