@@ -3,29 +3,41 @@
 
     python3 chip_smoke.py
 
-Builds the NMS kernel pair from ops/csrc with nvcc, then:
+Builds the kernels of ops/csrc with nvcc (one nvcc per source, started
+together), then runs two main paths, the tiled TinyPerson protocol of Adap
+RetinaNet-c and of Adap Faster R-CNN, each on two 1920x1080 uint8 frames:
 
-1. kernel vs plain: the IoU-bitmask and greedy-reduce kernels against their
-   plain PyTorch version on the card, on synthetic TinyPerson-like boxes, at
-   the per-tile shape (B=12, N=8,720) and the global-merge shape (B=2,
-   N=12,000, class offsets); keep sets must be identical;
-2. the slice at full width: Adap RetinaNet-c (ResNet-50, FPN-256,
-   RetinaHead) built from its config with seeded weights, two 1920x1080
-   uint8 frames through `inference_detector_tiled` (24 tiles, per-tile NMS,
-   global merge); the kernels must have been launched, NMS must do real
-   work, the boxes must be sane, the card's forward must agree with the CPU
-   forward on one tile, and the detections must equal those with the plain
-   NMS;
-3. timing: protocol and forward-only img/s, and per-tile and global NMS ms;
-4. profile: warm protocol calls under torch.profiler, the card's idle
-   share of the wall time and its time by kernel family (the Chrome trace
-   goes to build/protocol_trace.json).
+1. kernel vs plain, NMS: the IoU-bitmask and greedy-reduce kernels against
+   their plain PyTorch version on the card, on synthetic TinyPerson-like
+   boxes, at the per-tile shape (B=12, N=8,720) and the global-merge shape
+   (B=2, N=12,000, class offsets); keep sets must be identical;
+2. kernel vs plain, RoIAlign: the multilevel RoIAlign kernel against its
+   plain version on synthetic channels-last FPN maps of 256 channels and
+   TinyPerson-sized rois (plus large and off-edge ones, so that every level
+   is hit), at the Faster R-CNN shape (24 tiles, R=24,000, S=7, sr=1) and
+   the Mask R-CNN mask-crop shape (12 tiles, R=1,200, S=14, sr=2);
+3. the RetinaNet slice at full width (ResNet-50, FPN-256, RetinaHead, built
+   from its config with seeded weights) through `inference_detector_tiled`:
+   launches counted from zero around it, NMS doing real work, sane boxes,
+   the card's forward against the CPU's on one tile, detections equal to
+   those with the plain NMS; then protocol and forward-only img/s and the
+   NMS times, and a torch.profiler trace of warm protocol calls (idle share
+   and device time by kernel family; Chrome trace in build/);
+4. the Faster R-CNN slice at full width (ResNet-50, FPN-256 with max-pool
+   P6, RPN, RoIAlign, 2-FC head, built from its config with seeded
+   weights): the same checks (launches {iou_bitmask: 3, greedy_reduce: 3,
+   roi_align: 1}; RPN, RoIAlign and both NMS stages doing work; backbone,
+   neck, RPN and RoI-head outputs against the CPU on one tile; detections
+   against those with every kernel swapped for its plain version), then
+   img/s, the RoIAlign kernel on the slice's own rois and levels, and the
+   profile.
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
-{"ok": true, "device": {...}}; the line before it lists each kernel with its
-launches on the main path, its error against the plain version and both
-times.
+{"ok": true, "device": {...}}; the line before it is the card's name and
+power limit, and the line before that lists each kernel with its launches on
+the main paths, its error against the plain version, its time, the plain
+version's time and its bound.
 """
 import collections
 import contextlib
@@ -40,6 +52,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs/tinyperson/retinanet_r50_fpns4_1x_tinyperson640_clipg.py"
+FRCNN_CONFIG = REPO / "configs/tinyperson/faster_rcnn_r50_fpn_1x_tinyperson640.py"
 DEVICE = "cuda"
 FRAME_HW = (1080, 1920)
 N_FRAMES = 2
@@ -47,19 +60,38 @@ ITERS = 10
 PLAIN_ITERS = 3
 # (name, B, N, classes): the per-tile NMS of one frame and the global merge
 NMS_SHAPES = (("per-tile", 12, 8720, 1), ("global", 2, 12000, 3))
-KERNEL_SOURCE = "pointtinybenchmark_tpu_torch/ops/csrc/nms_kernel.cu"
-REPLACES = "pointtinybenchmark_tpu/ops/pallas_kernels.py:55"
+# (name, tiles, rois, S, sr): the Faster R-CNN bbox extractor and the Mask
+# R-CNN mask extractor the JAX bench runs on the Pallas kernel
+ROI_SHAPES = (("faster_rcnn", 24, 24000, 7, 1), ("mask_rcnn", 12, 1200, 14, 2))
+ROI_LEVELS = ((128, 160), (64, 80), (32, 40), (16, 20))   # 512x640 tiles
+ROI_STRIDES = (4, 8, 16, 32)
+ROI_CHANNELS = 256
+FRCNN_LAUNCHES = {"iou_bitmask": 3, "greedy_reduce": 3, "roi_align": 1}
+KERNELS = {
+    "iou_bitmask": ("pointtinybenchmark_tpu_torch/ops/csrc/nms_kernel.cu",
+                    "pointtinybenchmark_tpu/ops/pallas_kernels.py:55"),
+    "greedy_reduce": ("pointtinybenchmark_tpu_torch/ops/csrc/nms_kernel.cu",
+                      "pointtinybenchmark_tpu/ops/pallas_kernels.py:55"),
+    "roi_align": ("pointtinybenchmark_tpu_torch/ops/csrc/roi_align_kernel.cu",
+                  "pointtinybenchmark_tpu/ops/roi_align_pallas.py:359"),
+}
+# published H100 SXM peaks (on-chip-measurement guide): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
 PROFILE_CALLS = 5
 # substrings of device kernel names, first match wins
 KERNEL_FAMILIES = (
     ("iou_bitmask", "NMS kernel A iou_bitmask"),
     ("greedy_reduce", "NMS kernel B greedy_reduce"),
+    ("roi_align", "RoIAlign kernel"),
     ("nhwctonchw", "cuDNN layout transpose"),
     ("nchwtonhwc", "cuDNN layout transpose"),
     ("memcpy", "memcpy"), ("memset", "memset"),
     ("batch_norm", "BN inference"), ("bn_", "BN inference"),
-    ("xmma", "convolution"), ("conv", "convolution"), ("gemm", "convolution"),
-    ("fft", "convolution"), ("winograd", "convolution"),
+    ("fprop", "convolution"), ("conv", "convolution"), ("fft", "convolution"),
+    ("winograd", "convolution"),
+    ("gemm", "matrix product (cuBLAS)"), ("xmma", "convolution"),
     ("elementwise", "elementwise"), ("vectorized", "elementwise"))
 
 
@@ -75,6 +107,13 @@ def time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, flops):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    float32 operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def synthetic_boxes(rng, b, n, n_classes=1):
@@ -94,6 +133,22 @@ def synthetic_boxes(rng, b, n, n_classes=1):
     return boxes, scores, valid, labels
 
 
+def synthetic_rois(rng, b, r, tile_hw=(512, 640)):
+    """RoIAlign input as numpy (R, 5) f32 rows (tile, x1, y1, x2, y2):
+    80% TinyPerson-sized (10-60 px sides), 20% log-uniform up to the tile
+    (every FPN level gets rois), centres spread past the tile's edges by
+    up to 40 px so that some rois hang off the map."""
+    h, w = tile_hw
+    big = rng.rand(r) < 0.2
+    side = np.where(big[:, None], np.exp(rng.uniform(np.log(60), np.log(w),
+                                                     (r, 2))),
+                    rng.uniform(10, 60, (r, 2)))
+    ctr = rng.uniform(-40, 40, (r, 2)) + rng.rand(r, 2) * [w, h]
+    tiles = rng.randint(0, b, r)
+    return np.concatenate([tiles[:, None], ctr - side / 2, ctr + side / 2],
+                          1).astype(np.float32)
+
+
 @contextlib.contextmanager
 def plain_nms():
     """Inside this block ops/nms.py runs the plain versions of the two
@@ -108,6 +163,67 @@ def plain_nms():
         yield
     finally:
         nms_cuda.iou_bitmask, nms_cuda.greedy_reduce = saved
+
+
+@contextlib.contextmanager
+def plain_roi_align():
+    """Inside this block ops/roi_align.py runs the plain RoIAlign on CUDA
+    tensors too, in place of the kernel."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
+
+    saved = roi_align_cuda.roi_align_forward
+    roi_align_cuda.roi_align_forward = roi_align.roi_align_multilevel_plain
+    try:
+        yield
+    finally:
+        roi_align_cuda.roi_align_forward = saved
+
+
+def reset_launches():
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda, roi_align_cuda
+
+    for counts in (nms_cuda.launches, roi_align_cuda.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches():
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda, roi_align_cuda
+
+    return {**nms_cuda.launches, **roi_align_cuda.launches}
+
+
+def greedy_reduce_bytes(b, n, max_out, order, keep):
+    """Bytes the greedy walk needs on this data: from each kept row's mask,
+    the words from its own onward; ok, order and the outputs once."""
+    words = -(-n // 64)
+    pos = torch.empty_like(order)
+    pos.scatter_(1, order.long(), torch.arange(n, device=order.device,
+                                               dtype=order.dtype).expand(b, n))
+    kept = keep >= 0
+    row = torch.gather(pos, 1, keep.clamp(min=0).long())
+    mask_words = int(((words - row // 64) * kept).sum())
+    return 8 * mask_words + b * n * (1 + 4) + 4 * b * max_out + 4 * b
+
+
+def roi_align_bound(feats, rois, lvls, out, sr):
+    """(ms, bounded by): the output written once, rois and levels read once,
+    and every feature cell that an in-bounds tap reads, read once; 8 * sr^2
+    float32 operations per output value (4 products and 3 sums per sample,
+    the sample sum, the scale)."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align
+
+    scale, hf, wf, base, width = roi_align.level_tables(feats, rois, lvls,
+                                                        ROI_STRIDES)
+    y0, y1, x0, x1, *_, inb = roi_align.sample_taps(rois, scale, hf, wf, out,
+                                                    sr, True)
+    base, width = base[:, None, None], width[:, None, None]
+    cells = torch.cat([(base + yy * width + xx)[inb]
+                       for yy, xx in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))])
+    r, c = rois.shape[0], feats[0].shape[1]
+    nbytes = 4 * (r * c * out * out + torch.unique(cells).numel() * c
+                  + r * 5 + r)
+    return bound(nbytes, 8 * sr * sr * r * c * out * out)
 
 
 def phase_kernels(card):
@@ -158,6 +274,14 @@ def phase_kernels(card):
             if mask_err or keep_err or not torch.equal(keep[1], keep_plain[1]):
                 raise AssertionError(f"kernel vs plain: bitmask {mask_err}, "
                                      f"reduce {keep_err}")
+            words = -(-n // 64)
+            # per pair above the diagonal: 4 min/max, 2 differences, 2
+            # clamps, the product, union (add, subtract, max), divide, compare
+            bounds = {
+                "iou_bitmask": bound(b * n * 16 + b * n * words * 8,
+                                     15 * b * n * (n - 1) / 2),
+                "greedy_reduce": bound(greedy_reduce_bytes(
+                    b, n, 1000, order, keep[0]), 0)}
             times = {
                 "iou_bitmask": (time_ms(lambda: nms_cuda.iou_bitmask(
                     sboxes, 0.5), ITERS), time_ms(
@@ -169,18 +293,92 @@ def phase_kernels(card):
                                                          1000),
                     PLAIN_ITERS), keep_err)}
             for k, (kms, pms, err) in times.items():
+                bms, by = bounds[k]
                 print(f"phase 1 {k} B={b} N={n}: kernel {kms:.4f} ms, plain "
-                      f"{pms:.4f} ms, max_abs_err {err} [{card}]")
-                records[k] = dict(ms=kms, plain_ms=pms, max_abs_err=err)
+                      f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), max_abs_err "
+                      f"{err} [{card}]")
+                records[k] = dict(max_abs_err=err, ms=kms, plain_ms=pms,
+                                  bound_ms=bms, bound_by=by)
     return records
 
 
-def phase_slice(card):
+def compare_roi_align(feats, rois, lvls, out, sr):
+    """Kernel vs plain on the same inputs: (kernel out, max abs err, bit
+    exact). Fails beyond 1e-5 * max|feat|."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
+
+    got = roi_align_cuda.roi_align_forward(feats, rois, lvls, ROI_STRIDES,
+                                           out, sr)
+    want = roi_align.roi_align_multilevel_plain(feats, rois, lvls,
+                                                ROI_STRIDES, out, sr)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = 1e-5 * max(float(f.abs().max()) for f in feats)
+    if not err <= tol:
+        raise AssertionError(f"RoIAlign kernel vs plain: {err} > {tol}")
+    return got, err, torch.equal(got, want)
+
+
+def time_roi_align(feats, rois, lvls, out, sr):
+    from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
+
+    ms = time_ms(lambda: roi_align_cuda.roi_align_forward(
+        feats, rois, lvls, ROI_STRIDES, out, sr), ITERS)
+    plain_ms = time_ms(lambda: roi_align.roi_align_multilevel_plain(
+        feats, rois, lvls, ROI_STRIDES, out, sr), PLAIN_ITERS)
+    return ms, plain_ms
+
+
+def phase_roi_align(card):
+    from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
+        map_roi_levels
+
+    rng = np.random.RandomState(2)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    for name, b, r, out, sr in ROI_SHAPES:
+        # channels-last maps, as the FPN's convolutions leave them
+        feats = [torch.randn((b, h, w, ROI_CHANNELS), generator=gen,
+                             device=DEVICE).permute(0, 3, 1, 2)
+                 for h, w in ROI_LEVELS]
+        rois = torch.from_numpy(synthetic_rois(rng, b, r)).to(DEVICE)
+        lvls = map_roi_levels(rois, len(ROI_LEVELS))
+        per_level = torch.bincount(lvls, minlength=len(ROI_LEVELS)).tolist()
+        if min(per_level) == 0:
+            raise AssertionError(f"{name}: a level got no roi: {per_level}")
+        got, err, exact = compare_roi_align(feats, rois, lvls, out, sr)
+        ms, plain_ms = time_roi_align(feats, rois, lvls, out, sr)
+        bms, by = roi_align_bound(feats, rois, lvls, out, sr)
+        print(f"phase 2 RoIAlign {name} R={r} S={out} sr={sr} C={ROI_CHANNELS}"
+              f" ({b} tiles, rois per level {per_level}): out "
+              f"{tuple(got.shape)}, max_abs_err {err} (bit-exact: {exact}); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}) [{card}]")
+
+
+def check_frames(results, label):
+    h, w = FRAME_HW
+    for i, r in enumerate(results):
+        bb = r["bboxes"]
+        n = bb.shape[0]
+        print(f"{label} frame {i}: {n} boxes kept by the global merge")
+        if not 1 <= n <= 1000 or bb.shape != (n, 5):
+            raise AssertionError(f"frame {i}: {bb.shape} detections")
+        if not (np.isfinite(bb).all() and (bb[:, 0] >= 0).all()
+                and (bb[:, 1] >= 0).all() and (bb[:, 2] <= w).all()
+                and (bb[:, 3] <= h).all()):
+            raise AssertionError(f"frame {i}: boxes outside the frame")
+
+
+def rel_err(got, ref):
+    return max(float((g.cpu() - r).abs().max() / r.abs().max())
+               for g, r in zip(got, ref))
+
+
+def phase_slice(card, frames):
     from pointtinybenchmark_tpu_torch.apis.inference import (
         inference_detector_tiled, init_detector)
     from pointtinybenchmark_tpu_torch.core.post_processing import \
         multiclass_nms
-    from pointtinybenchmark_tpu_torch.ops import nms_cuda
 
     handle = init_detector(str(CONFIG), device=DEVICE, seed=0)
     model = handle.model
@@ -190,38 +388,26 @@ def phase_slice(card):
     # no candidate at all. A zero bias puts scores near 0.5.
     with torch.no_grad():
         head.retina_cls.bias.zero_()
-    print("phase 2: retina_cls.bias set to 0 so that candidates pass "
+    print("phase 3: retina_cls.bias set to 0 so that candidates pass "
           "score_thr (with the focal prior no score of random weights does)")
-    frames = np.random.RandomState(1).randint(
-        0, 256, (N_FRAMES,) + FRAME_HW + (3,), np.uint8)
 
     torch.backends.cudnn.deterministic = True   # the two runs must match bit for bit
-    for k in nms_cuda.launches:
-        nms_cuda.launches[k] = 0
+    reset_launches()
     results = inference_detector_tiled(handle, list(frames))
-    launches = dict(nms_cuda.launches)
-    print(f"phase 2 launches on the main path: {launches}")
-    if launches != {"iou_bitmask": 2, "greedy_reduce": 2}:
+    launches = read_launches()
+    print(f"phase 3 launches on the RetinaNet path: {launches}")
+    if launches != {"iou_bitmask": 2, "greedy_reduce": 2, "roi_align": 0}:
         raise AssertionError(f"expected one per-tile and one global launch of "
-                             f"each kernel, got {launches}")
+                             f"each NMS kernel, got {launches}")
     with plain_nms():
         results_plain = inference_detector_tiled(handle, list(frames))
     torch.backends.cudnn.deterministic = False
-    h, w = FRAME_HW
+    check_frames(results, "phase 3")
     for i, (r, p) in enumerate(zip(results, results_plain)):
-        bb = r["bboxes"]
-        n = bb.shape[0]
-        print(f"phase 2 frame {i}: {n} boxes kept by the global merge")
-        if not 1 <= n <= 1000 or bb.shape != (n, 5):
-            raise AssertionError(f"frame {i}: {bb.shape} detections")
-        if not (np.isfinite(bb).all() and (bb[:, 0] >= 0).all()
-                and (bb[:, 1] >= 0).all() and (bb[:, 2] <= w).all()
-                and (bb[:, 3] <= h).all()):
-            raise AssertionError(f"frame {i}: boxes outside the frame")
-        if not (np.array_equal(bb, p["bboxes"])
+        if not (np.array_equal(r["bboxes"], p["bboxes"])
                 and np.array_equal(r["labels"], p["labels"])):
             raise AssertionError(f"frame {i}: kernel and plain NMS disagree")
-    print("phase 2: detections with the kernels == detections with plain NMS")
+    print("phase 3: detections with the kernels == detections with plain NMS")
 
     eng = next(iter(handle.tiled_engines.values()))
     tiles = eng.pre(frames)
@@ -237,9 +423,9 @@ def phase_slice(card):
         dets = multiclass_nms(boxes, scores, *nms_args)
     cands = (scores[..., :-1] > score_thr).sum((1, 2)).tolist()
     kept = dets.valid.sum(1).tolist()
-    print(f"phase 2 per-tile NMS input: {boxes.shape[1]} candidates per tile, "
+    print(f"phase 3 per-tile NMS input: {boxes.shape[1]} candidates per tile, "
           f"valid {cands}")
-    print(f"phase 2 per-tile NMS kept: {kept}")
+    print(f"phase 3 per-tile NMS kept: {kept}")
     if min(cands) <= 0 or min(kept) <= 0:
         raise AssertionError("NMS got no work")
 
@@ -248,38 +434,19 @@ def phase_slice(card):
     with torch.no_grad():
         cpu_model.bbox_head.retina_cls.bias.zero_()
         ref = cpu_model(tiles[:1].cpu())
-    err = max(float((g[:1].cpu() - r).abs().max() / r.abs().max())
-              for g, r in zip(cls_outs + reg_outs, ref[0] + ref[1]))
-    print(f"phase 2 forward, card vs CPU on one tile: max rel err {err:.3e}")
+    err = rel_err([g[:1] for g in cls_outs + reg_outs], ref[0] + ref[1])
+    print(f"phase 3 forward, card vs CPU on one tile: max rel err {err:.3e}")
     if err > 1e-4:
         raise AssertionError(f"card forward differs from CPU: {err}")
-    return launches, handle, frames, tiles, (boxes, scores, nms_args, dets,
-                                             eng)
+    return launches, handle, tiles, (boxes, scores, nms_args, dets, eng)
 
 
 def phase_timing(card, handle, frames, tiles, stage):
-    from pointtinybenchmark_tpu_torch.apis.inference import \
-        inference_detector_tiled
     from pointtinybenchmark_tpu_torch.core.post_processing import \
         multiclass_nms
 
     boxes, scores, nms_args, dets, eng = stage
-    frame_list = list(frames)
-    inference_detector_tiled(handle, frame_list)
-    t0 = time.perf_counter()
-    for _ in range(ITERS):
-        inference_detector_tiled(handle, frame_list)
-    protocol = N_FRAMES * ITERS / (time.perf_counter() - t0)
-
-    with torch.no_grad():
-        handle.model(tiles)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(ITERS):
-            handle.model(tiles)
-        torch.cuda.synchronize()
-        forward = N_FRAMES * ITERS / (time.perf_counter() - t0)
-
+    protocol, forward = throughput(handle, frames, tiles)
     v = eng.pre.n_views
     m = dets.bboxes.shape[1]
 
@@ -304,6 +471,137 @@ def phase_timing(card, handle, frames, tiles, stage):
           f"{merge_plain:.4f} ms [{card}]")
 
 
+def throughput(handle, frames, tiles):
+    """(protocol img/s with the host in the loop, forward-only img/s)."""
+    from pointtinybenchmark_tpu_torch.apis.inference import \
+        inference_detector_tiled
+
+    frame_list = list(frames)
+    inference_detector_tiled(handle, frame_list)
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        inference_detector_tiled(handle, frame_list)
+    protocol = N_FRAMES * ITERS / (time.perf_counter() - t0)
+    with torch.no_grad():
+        handle.model(tiles)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            handle.model(tiles)
+        torch.cuda.synchronize()
+        forward = N_FRAMES * ITERS / (time.perf_counter() - t0)
+    return protocol, forward
+
+
+def phase_frcnn(card, frames):
+    from pointtinybenchmark_tpu_torch.apis.inference import (
+        inference_detector_tiled, init_detector)
+    from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
+        map_roi_levels
+
+    handle = init_detector(str(FRCNN_CONFIG), device=DEVICE, seed=0)
+    model = handle.model
+    torch.backends.cudnn.deterministic = True   # the two runs must match bit for bit
+    reset_launches()
+    results = inference_detector_tiled(handle, list(frames))
+    launches = read_launches()
+    print(f"phase 4 launches on the Faster R-CNN path: {launches}")
+    if launches != FRCNN_LAUNCHES:
+        raise AssertionError(f"expected {FRCNN_LAUNCHES}, got {launches}")
+    check_frames(results, "phase 4")
+
+    # the stages of one call, kept for the work checks and the timings
+    eng = next(iter(handle.tiled_engines.values()))
+    tiles = eng.pre(frames)
+    b = tiles.shape[0]
+    img_shapes = torch.tensor([eng.pre.tile_hw], dtype=torch.int32,
+                              device=DEVICE).expand(b, 2)
+    rpn_cfg = model.rpn_head.test_cfg
+    with torch.no_grad():
+        feats = model.extract_feat(tiles)
+        rpn_outs = model.rpn_head(feats)
+        props, prop_scores, valid = model.rpn_head.get_proposals(
+            *rpn_outs, img_shapes, rpn_cfg)
+        dets = model.roi_head.simple_test(feats, props, valid, img_shapes)
+    n_cands = sum(min(int(rpn_cfg["nms_pre"]), c[0].numel())
+                  for c in rpn_outs[0])
+    sig = torch.cat([c.flatten(1) for c in rpn_outs[0]], 1).sigmoid()
+    print(f"phase 4 RPN: {n_cands} candidates per tile, objectness "
+          f"{float(sig.min()):.4f}..{float(sig.max()):.4f}; proposals kept "
+          f"per tile {valid.sum(1).min().item()}..{valid.sum(1).max().item()}")
+    rois = torch.cat([torch.arange(b, dtype=props.dtype, device=DEVICE)
+                      .repeat_interleave(props.shape[1])[:, None],
+                      props.reshape(-1, 4)], 1)
+    lvls = map_roi_levels(rois, len(ROI_STRIDES))
+    per_level = torch.bincount(lvls, minlength=len(ROI_STRIDES)).tolist()
+    kept = dets.valid.sum(1)
+    scores = dets.bboxes[..., 4][dets.valid]
+    print(f"phase 4 RoIAlign: {rois.shape[0]} rois, per level {per_level}; "
+          f"RoI-head NMS kept per tile {kept.min().item()}..{kept.max().item()}"
+          f", scores {float(scores.min()):.4f}..{float(scores.max()):.4f}")
+    if valid.sum(1).min() <= 0 or kept.min() <= 0:
+        raise AssertionError("an NMS stage got no work")
+
+    # the RoIAlign kernel on the slice's own levels and rois
+    k_feats = list(feats[:len(ROI_STRIDES)])
+    _, k2_err, k2_exact = compare_roi_align(k_feats, rois, lvls, 7, 1)
+    print(f"phase 4 RoIAlign kernel vs plain on the slice's rois: max_abs_err "
+          f"{k2_err} (bit-exact: {k2_exact})")
+
+    with plain_nms(), plain_roi_align():
+        results_plain = inference_detector_tiled(handle, list(frames))
+    torch.backends.cudnn.deterministic = False
+    for i, (r, p) in enumerate(zip(results, results_plain)):
+        rb, pb = r["bboxes"], p["bboxes"]
+        same = (np.array_equal(rb, pb)
+                and np.array_equal(r["labels"], p["labels"]))
+        close = (not k2_exact and rb.shape == pb.shape
+                 and np.array_equal(r["labels"], p["labels"])
+                 and np.allclose(rb[:, :4], pb[:, :4], atol=2e-3, rtol=0)
+                 and np.allclose(rb[:, 4], pb[:, 4], atol=1e-4, rtol=0))
+        if not (same or close):
+            raise AssertionError(f"frame {i}: kernels and plain disagree")
+    print(f"phase 4: detections with the kernels "
+          f"{'==' if k2_exact else 'match (box atol 2e-3, score atol 1e-4)'} "
+          f"detections with every kernel swapped for its plain version")
+
+    # the card against the CPU on one tile: backbone, neck, RPN, and the RoI
+    # head on the card's own proposals of that tile
+    cpu_model = init_detector(str(FRCNN_CONFIG), device="cpu", seed=0).model
+    with torch.no_grad():
+        t0 = tiles[:1]
+        c_back = cpu_model.backbone(t0.cpu().permute(0, 3, 1, 2))
+        g_back = model.backbone(t0.permute(0, 3, 1, 2))
+        c_feats = cpu_model.neck(c_back)
+        c_rpn = cpu_model.rpn_head(c_feats)
+        c_roi = cpu_model.roi_head(c_feats, props[:1].cpu())
+        g_roi = model.roi_head([f[:1] for f in feats], props[:1])
+    errs = {"backbone": rel_err(g_back, c_back),
+            "neck": rel_err([f[:1] for f in feats], c_feats),
+            "rpn": rel_err([o[:1] for o in rpn_outs[0] + rpn_outs[1]],
+                           c_rpn[0] + c_rpn[1]),
+            "roi_head": rel_err(g_roi, c_roi)}
+    print("phase 4 card vs CPU on one tile, max rel err: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if max(errs.values()) > 1e-4:
+        raise AssertionError(f"card differs from CPU: {errs}")
+
+    protocol, forward = throughput(handle, frames, tiles)
+    ms, plain_ms = time_roi_align(k_feats, rois, lvls, 7, 1)
+    bms, by = roi_align_bound(k_feats, rois, lvls, 7, 1)
+    print(f"phase 4 protocol ({N_FRAMES} frames of {eng.pre.n_views} tiles, "
+          f"host in the loop): {protocol:.4f} img/s [{card}]")
+    print(f"phase 4 forward only (whole network incl. proposals, RoI head and "
+          f"per-tile NMS, {b} tiles, f32, TF32 off): {forward:.4f} img/s "
+          f"[{card}]")
+    print(f"phase 4 RoIAlign in the slice (R={rois.shape[0]}, S=7, sr=1): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}) [{card}]")
+    record = dict(max_abs_err=k2_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                  bound_by=by)
+    return launches, handle, record
+
+
 def _busy_us(events):
     """Length of the union of the events' [ts, ts + dur) intervals, in us."""
     busy, cur = 0.0, None
@@ -316,7 +614,7 @@ def _busy_us(events):
     return busy + (cur[1] - cur[0] if cur is not None else 0.0)
 
 
-def phase_profile(card, handle, frames):
+def phase_profile(card, handle, frames, label):
     from torch.profiler import ProfilerActivity, profile
 
     from pointtinybenchmark_tpu_torch.apis.inference import \
@@ -332,7 +630,7 @@ def phase_profile(card, handle, frames):
             inference_detector_tiled(handle, frame_list)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_CALLS
-    trace = REPO / "build" / "protocol_trace.json"
+    trace = REPO / "build" / f"protocol_trace_{label}.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
@@ -348,15 +646,15 @@ def phase_profile(card, handle, frames):
                     "rest")] += e["dur"]
         by_name[e["name"][:90]] += e["dur"]
         count[e["name"][:90]] += 1
-    print(f"phase 4 profile ({PROFILE_CALLS} warm protocol calls of "
+    print(f"profile {label} ({PROFILE_CALLS} warm protocol calls of "
           f"{N_FRAMES} frames, profiler on, trace {trace}): per call wall "
           f"{wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.4f} [{card}]")
-    print("phase 4 device ms per call by family (share of busy):")
+    print(f"profile {label} device ms per call by family (share of busy):")
     for name, us in family.most_common():
         ms = us / 1e3 / PROFILE_CALLS
         print(f"  {name:28s} {ms:10.4f} ms  {ms / busy_ms:.4f}")
-    print("phase 4 top kernels (ms per call, launches per call):")
+    print(f"profile {label} top kernels (ms per call, launches per call):")
     for name, us in by_name.most_common(15):
         print(f"  {us / 1e3 / PROFILE_CALLS:9.4f}  "
               f"{count[name] / PROFILE_CALLS:6.1f}  {name}")
@@ -366,7 +664,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script runs on a CUDA card only")
-    from pointtinybenchmark_tpu_torch.ops import nms_cuda
+    from pointtinybenchmark_tpu_torch.ops import (cuda_build, nms_cuda,
+                                                  roi_align_cuda)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -378,21 +677,34 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(card)
     t0 = time.perf_counter()
+    cuda_build.compile_sources([nms_cuda.SOURCE, roi_align_cuda.SOURCE])
     nms_cuda.build_library()
-    print(f"kernel build (nvcc, sm_90a) + load: "
+    roi_align_cuda.build_library()
+    print(f"kernel build (nvcc, sm_90a, both sources in parallel) + load: "
           f"{time.perf_counter() - t0:.2f} s")
-    for log in sorted(nms_cuda.BUILD_DIR.glob("*.log")):
+    for log in sorted(cuda_build.BUILD_DIR.glob("*.log")):
         print(log.read_text().strip())
 
     records = phase_kernels(card)
-    launches, handle, frames, tiles, stage = phase_slice(card)
+    phase_roi_align(card)
+    frames = np.random.RandomState(1).randint(
+        0, 256, (N_FRAMES,) + FRAME_HW + (3,), np.uint8)
+    retina_launches, handle, tiles, stage = phase_slice(card, frames)
     phase_timing(card, handle, frames, tiles, stage)
-    phase_profile(card, handle, frames)
+    phase_profile(card, handle, frames, "retinanet")
+    del handle, tiles, stage
+    torch.cuda.empty_cache()
+    frcnn_launches, handle, records["roi_align"] = phase_frcnn(card, frames)
+    phase_profile(card, handle, frames, "faster_rcnn")
 
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=KERNEL_SOURCE, replaces=REPLACES,
-             launches=launches[name], **records[name])
-        for name in ("iou_bitmask", "greedy_reduce")]}))
+        dict(name=name, route="cuda", source=KERNELS[name][0],
+             replaces=KERNELS[name][1],
+             launches=retina_launches[name] + frcnn_launches[name],
+             launches_by_path={"adap_retinanet_c": retina_launches[name],
+                               "faster_rcnn": frcnn_launches[name]},
+             library_ms=None, **records[name])
+        for name in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,9 +29,10 @@ class DetectorHandle:
 
 
 def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
-                  *, device: Union[str, torch.device],
+                  *, device: Union[str, torch.device] = "cuda",
                   seed: int = 0) -> DetectorHandle:
-    """Build the config's detector on `device`. Weights are drawn from
+    """Build the config's detector on `device`, the card unless the caller
+    asks for the CPU. Weights are drawn from
     `seed`, or loaded from `checkpoint`: a `state_dict` of this package's
     model saved with `torch.save`."""
     if isinstance(config, str):

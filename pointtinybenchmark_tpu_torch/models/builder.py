@@ -18,8 +18,12 @@ from torch import nn
 from .backbones.resnet import ResNet
 from .dense_heads.anchor_head import AnchorHead
 from .dense_heads.retina_head import RetinaHead
+from .dense_heads.rpn_head import RPNHead
 from .detectors.single_stage import SingleStageDetector
+from .detectors.two_stage import TwoStageDetector
 from .necks.fpn import FPN
+from .roi_heads.bbox_head import Shared2FCBBoxHead
+from .roi_heads.standard_roi_head import StandardRoIHead
 
 logger = logging.getLogger("ptb_torch")
 
@@ -30,7 +34,12 @@ MODULES = {
     "FPN": FPN,
     "AnchorHead": AnchorHead,
     "RetinaHead": RetinaHead,
+    "RPNHead": RPNHead,
+    "StandardRoIHead": StandardRoIHead,
+    "Shared2FCBBoxHead": Shared2FCBBoxHead,
 }
+SINGLE_STAGE = ("SingleStageDetector", "RetinaNet")
+TWO_STAGE = ("TwoStageDetector", "FasterRCNN")
 
 
 def build_module(cfg: dict) -> nn.Module:
@@ -48,21 +57,35 @@ def build_module(cfg: dict) -> nn.Module:
 
 def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
                    test_cfg: Optional[dict] = None, *,
-                   device: Union[str, torch.device],
-                   seed: int = 0) -> SingleStageDetector:
+                   device: Union[str, torch.device] = "cuda",
+                   seed: int = 0) -> Union[SingleStageDetector,
+                                           TwoStageDetector]:
     """Build a detector with seeded random weights, in eval mode, on
-    `device`. Weights are drawn on the CPU from `torch.Generator` seeded
-    with `seed`, so a seed gives the same weights on every device."""
+    `device` (the card unless the caller asks for the CPU). Weights are
+    drawn on the CPU from `torch.Generator` seeded with `seed`, so a seed
+    gives the same weights on every device. A two-stage detector's RPN gets
+    `test_cfg["rpn"]` and its RoI head `test_cfg["rcnn"]`."""
     del train_cfg  # inference only
     cfg = dict(cfg)
     kind = cfg.pop("type")
-    if kind not in ("SingleStageDetector", "RetinaNet"):
+    test_cfg = cfg.get("test_cfg") or test_cfg
+    backbone = build_module(cfg["backbone"])
+    neck = build_module(cfg["neck"]) if cfg.get("neck") else None
+    if kind in SINGLE_STAGE:
+        head_cfg = dict(cfg["bbox_head"])
+        head_cfg.setdefault("test_cfg", test_cfg)
+        model = SingleStageDetector(backbone=backbone, neck=neck,
+                                    bbox_head=build_module(head_cfg))
+    elif kind in TWO_STAGE:
+        rpn_cfg = dict(cfg["rpn_head"])
+        rpn_cfg.setdefault("test_cfg", (test_cfg or {}).get("rpn"))
+        roi_cfg = dict(cfg["roi_head"])
+        roi_cfg.setdefault("test_cfg", (test_cfg or {}).get("rcnn"))
+        roi_cfg["bbox_head"] = build_module(roi_cfg["bbox_head"])
+        model = TwoStageDetector(backbone=backbone, neck=neck,
+                                 rpn_head=build_module(rpn_cfg),
+                                 roi_head=build_module(roi_cfg))
+    else:
         raise KeyError(f"detector {kind} is not ported")
-    head_cfg = dict(cfg["bbox_head"])
-    head_cfg.setdefault("test_cfg", cfg.get("test_cfg") or test_cfg)
-    model = SingleStageDetector(
-        backbone=build_module(cfg["backbone"]),
-        neck=build_module(cfg["neck"]) if cfg.get("neck") else None,
-        bbox_head=build_module(head_cfg))
     model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(device).eval()

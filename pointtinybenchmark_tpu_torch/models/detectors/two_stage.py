@@ -1,0 +1,60 @@
+"""Two-stage detector (Faster R-CNN): backbone -> neck -> RPN -> RoI head.
+
+Counterpart of pointtinybenchmark_tpu/models/detectors/two_stage.py::
+TwoStageDetector / FasterRCNN, inference only. The RPN proposes with
+`test_cfg["rpn"]` and the RoI head detects with `test_cfg["rcnn"]` (each
+head holds its part). Public functions take NHWC images, like the JAX
+model and the single-stage detector.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ...core.post_processing import DetResult
+from ..dense_heads.rpn_head import RPNHead
+from ..roi_heads.standard_roi_head import StandardRoIHead
+
+__all__ = ["TwoStageDetector"]
+
+DEFAULT_PROPOSAL_CFG = dict(nms_pre=1000, max_per_img=1000,
+                            nms=dict(iou_threshold=0.7), min_bbox_size=0)
+
+
+class TwoStageDetector(nn.Module):
+
+    def __init__(self, backbone: nn.Module, rpn_head: RPNHead,
+                 roi_head: StandardRoIHead, neck: Optional[nn.Module] = None):
+        super().__init__()
+        self.backbone = backbone
+        self.neck = neck
+        self.rpn_head = rpn_head
+        self.roi_head = roi_head
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for m in (self.backbone, self.neck, self.rpn_head, self.roi_head):
+            if m is not None:
+                m.init_weights(generator)
+
+    def extract_feat(self, img: torch.Tensor):
+        """img (B, H, W, 3) -> tuple of NCHW feature maps."""
+        x = self.backbone(img.permute(0, 3, 1, 2))
+        return self.neck(x) if self.neck is not None else x
+
+    def forward(self, img: torch.Tensor) -> DetResult:
+        """The whole network on (B, H, W, 3) images, each image's shape its
+        own (JAX `__call__`): the per-tile detections before any merge."""
+        b, h, w = img.shape[:3]
+        img_shapes = torch.tensor([[h, w]], dtype=torch.int32,
+                                  device=img.device).expand(b, 2)
+        return self.simple_test(img, img_shapes)
+
+    def simple_test(self, img: torch.Tensor,
+                    img_shapes: torch.Tensor) -> DetResult:
+        feats = self.extract_feat(img)
+        proposals, _, valid = self.rpn_head.get_proposals(
+            *self.rpn_head(feats), img_shapes,
+            self.rpn_head.test_cfg or DEFAULT_PROPOSAL_CFG)
+        return self.roi_head.simple_test(feats, proposals, valid, img_shapes)

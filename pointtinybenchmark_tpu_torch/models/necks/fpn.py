@@ -3,9 +3,11 @@
 Counterpart of pointtinybenchmark_tpu/models/necks/fpn.py::FPN: lateral 1x1
 convs, a top-down nearest-neighbour pathway, 3x3 output convs, `start_level`
 (the Adap recipe keeps stride 4 with start_level=0) and extra stride-2
-levels computed from the last input (`add_extra_convs="on_input"`), the form
-the ported configs use. Module names follow mmdet: the extra convs sit in
-`fpn_convs` after the per-lateral output convs.
+levels. With `add_extra_convs=False`, the default as in the JAX FPN, each
+extra level is the last output subsampled by 2 (a 1x1 max-pool of stride
+2, the RPN configs' form); with "on_input" (or True) it is a stride-2 conv
+on the last input (the RetinaNet configs' form). Module names follow mmdet:
+the extra convs sit in `fpn_convs` after the per-lateral output convs.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
                  out_channels: int = 256, num_outs: int = 5,
                  start_level: int = 0, end_level: int = -1,
-                 add_extra_convs: Union[bool, str] = "on_input",
+                 add_extra_convs: Union[bool, str] = False,
                  relu_before_extra_convs: bool = False):
         super().__init__()
         self.in_channels = list(in_channels)
@@ -33,16 +35,17 @@ class FPN(nn.Module):
         self.start_level = start_level
         self.end = len(in_channels) if end_level == -1 else end_level + 1
         n_used = self.end - start_level
-        if num_outs > n_used and add_extra_convs not in ("on_input", True):
+        if add_extra_convs and add_extra_convs not in ("on_input", True):
             raise NotImplementedError(
                 f"add_extra_convs={add_extra_convs!r} is not ported")
+        self.extra_convs = bool(add_extra_convs)
         self.relu_before_extra_convs = relu_before_extra_convs
         self.lateral_convs = nn.ModuleList(
             ConvModule(self.in_channels[start_level + i], out_channels, 1,
                        padding=0, act=False) for i in range(n_used))
         convs = [ConvModule(out_channels, out_channels, 3, act=False)
                  for _ in range(min(n_used, num_outs))]
-        for k in range(num_outs - n_used):
+        for k in range(num_outs - n_used if self.extra_convs else 0):
             cin = self.in_channels[self.end - 1] if k == 0 else out_channels
             convs.append(ConvModule(cin, out_channels, 3, stride=2, act=False))
         self.fpn_convs = nn.ModuleList(convs)
@@ -67,6 +70,12 @@ class FPN(nn.Module):
                 mode="nearest-exact")
         n_out = min(n_used, self.num_outs)
         outs = [self.fpn_convs[i](laterals[i]) for i in range(n_out)]
+        if not self.extra_convs:
+            # nn.max_pool(x, (1, 1), strides=(2, 2)) of the JAX FPN: VALID
+            # padding keeps ceil(H / 2) rows, as [::2] does
+            for _ in range(self.num_outs - n_used):
+                outs.append(outs[-1][:, :, ::2, ::2])
+            return tuple(outs)
         x = inputs[self.end - 1]
         for k in range(self.num_outs - n_used):
             if k > 0 and self.relu_before_extra_convs:

@@ -1,1 +1,3 @@
-"""NMS on the hand-written IoU-bitmask kernel pair (nms, nms_cuda)."""
+"""Hand-written CUDA kernels and their plain PyTorch versions: NMS (nms,
+nms_cuda) and multilevel RoIAlign (roi_align, roi_align_cuda), built by
+cuda_build."""

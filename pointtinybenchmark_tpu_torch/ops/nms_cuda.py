@@ -3,9 +3,8 @@ the dispatch between them.
 
 `iou_bitmask` and `greedy_reduce` take a CUDA tensor to the hand-written
 kernel and a CPU tensor to the plain version; any other device raises. The
-library is compiled with nvcc at first use into ``build/kernels/`` at the
-repository root, under a name keyed by a hash of the source and the flags,
-and loaded with ctypes. A failed build raises: there is no fallback.
+library is compiled with nvcc at first use (`cuda_build`) and loaded with
+ctypes. A failed build raises: there is no fallback.
 
 `launches` counts kernel launches by name, so a run can show that it went
 through the kernels. To hold a kernel against its plain version on the
@@ -14,9 +13,6 @@ card, call the `*_plain` functions directly.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import Tuple
@@ -24,13 +20,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from . import cuda_build
+
 __all__ = ["iou_bitmask", "greedy_reduce", "iou_bitmask_plain",
            "greedy_reduce_plain", "launches", "build_library", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "nms_kernel.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 WORD = 64                         # mask bits per uint64 word
 PLAIN_ROW_CHUNK = 512             # rows of the plain IoU matrix per pass
 
@@ -40,35 +35,13 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
 def build_library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        key = hashlib.sha256(SOURCE.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"libptb_nms_{key}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-                   str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            (BUILD_DIR / f"libptb_nms_{key}.log").write_text(
-                proc.stdout + proc.stderr)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        lib = cuda_build.load(SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.ptb_iou_bitmask.argtypes = [vp, ci, ci, ctypes.c_float, vp, vp]
         lib.ptb_iou_bitmask.restype = ci

@@ -5,11 +5,17 @@ convert_detector_state_dict for the ported modules: flax's names become
 mmdet's (`backbone_m/layer1_block0/Conv_0` -> `backbone.layer1.0.conv1`,
 the downsample in the block's last Conv_/BatchNorm_ slot ->
 `downsample.0/1`; `neck_m/extra_conv{k}` -> `neck.fpn_convs.{n_lateral+k}`;
-`bbox_head_m/cls_conv{i}/Conv_0` -> `bbox_head.cls_convs.{i}.conv`), conv
-kernels go HWIO -> OIHW, and BN (scale, bias, mean, var) go to (weight,
-bias, running_mean, running_var). Every leaf of the trees must be used and
-every entry of the model's state_dict filled; BN's `num_batches_tracked`
-has no JAX counterpart and is left as it is.
+`bbox_head_m/cls_conv{i}/Conv_0` -> `bbox_head.cls_convs.{i}.conv`;
+`rpn_head_m/rpn_conv` -> `rpn_head.rpn_conv`; `roi_head_m/bbox_head_m/
+shared_fc{i}` -> `roi_head.bbox_head.shared_fcs.{i}`), conv kernels go
+HWIO -> OIHW, dense kernels (in, out) -> Linear weights (out, in), and BN
+(scale, bias, mean, var) go to (weight, bias, running_mean, running_var).
+The first shared FC also has its input rows permuted: the JAX head
+flattens (S, S, C) RoI features as (h, w, c), the port's (C, S, S) ones as
+(c, h, w) (the inverse of tools/model_converters/torch2jax.py). Every leaf
+of the trees must be used and every entry of the model's state_dict
+filled; BN's `num_batches_tracked` has no JAX counterpart and is left as
+it is.
 """
 from __future__ import annotations
 
@@ -74,6 +80,15 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int) -> Optional[str]:
         i = int(m[2]) + (n_lateral if m[1] == "extra" else 0)
         group = "lateral_convs" if m[1] == "lateral" else "fpn_convs"
         return f"neck.{group}.{i}.conv.{name}"
+    if top == "rpn_head_m" and len(scope) == 1 and scope[0] in (
+            "rpn_conv", "rpn_cls", "rpn_reg"):
+        return f"rpn_head.{scope[0]}.{name}"
+    if top == "roi_head_m" and len(scope) == 2 and scope[0] == "bbox_head_m":
+        m = re.fullmatch(r"shared_fc(\d+)|fc_cls|fc_reg", scope[1])
+        if m is None:
+            return None
+        mod = f"shared_fcs.{m[1]}" if m[1] is not None else scope[1]
+        return f"roi_head.bbox_head.{mod}.{name}"
     if top == "bbox_head_m":
         if len(scope) == 2 and scope[1] == "Conv_0":
             m = re.fullmatch(r"(cls|reg)_conv(\d+)", scope[0])
@@ -85,10 +100,11 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int) -> Optional[str]:
     return None
 
 
-def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
-                      ) -> Dict[str, torch.Tensor]:
-    """Flax trees -> {mmdet name: tensor}. Raises on any leaf it cannot
-    place."""
+def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
+                      roi_feat_size: int = 7) -> Dict[str, torch.Tensor]:
+    """Flax trees -> {mmdet name: tensor}. `roi_feat_size` is the RoI
+    head's S (the first shared FC's input is S * S * C). Raises on any leaf
+    it cannot place."""
     n_lateral = sum(1 for k in params.get("neck_m", {})
                     if str(k).startswith("lateral_conv"))
     out: Dict[str, torch.Tensor] = {}
@@ -100,8 +116,14 @@ def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
                 unused.append("/".join(path))
                 continue
             arr = np.array(val, np.float32)
-            if path[-1] == "kernel":
+            if path[-1] == "kernel" and arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+            elif path[-1] == "kernel" and path[-2] == "shared_fc0":
+                s = roi_feat_size                        # rows (h, w, c)
+                arr = arr.reshape(s, s, -1, arr.shape[1]).transpose(
+                    3, 2, 0, 1).reshape(arr.shape[1], -1)  # (out, c*h*w)
+            elif path[-1] == "kernel":
+                arr = arr.T                              # (in, out) -> (out, in)
             out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     if unused:
         raise KeyError(f"{len(unused)} JAX leaves not consumed: {unused[:8]}")
@@ -111,7 +133,10 @@ def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
 def load_jax_variables(model: torch.nn.Module, params: Mapping,
                        batch_stats: Optional[Mapping] = None) -> None:
     """Copy JAX variables into `model` in place."""
-    sd = jax_to_state_dict(params, batch_stats)
+    roi_head = getattr(model, "roi_head", None)
+    sd = jax_to_state_dict(params, batch_stats,
+                           roi_head.bbox_head.roi_feat_size if roi_head
+                           is not None else 7)
     own = {k: v for k, v in model.state_dict().items()
            if not k.endswith("num_batches_tracked")}
     missing = sorted(set(own) - set(sd))

@@ -275,3 +275,157 @@ def test_multiclass_nms_cap_and_factors():
     want = [np.asarray(x)[None] for x in want]
     assert int(want[2].sum()) == 80
     assert_dets_match(_dets_np(want, 0), _dets_np(got, 0))
+
+
+# ------------------------------------------------------------ Faster R-CNN
+FRCNN_CFG = dict(
+    type="FasterRCNN",
+    backbone=dict(type="ResNet", depth=50, base_channels=8,
+                  frozen_stages=1, norm_eval=True),
+    neck=dict(type="FPN", in_channels=[32, 64, 128, 256], out_channels=16,
+              num_outs=5),
+    rpn_head=dict(
+        type="RPNHead", num_classes=1, in_channels=16, feat_channels=16,
+        anchor_generator=dict(type="AnchorGenerator", scales=[2],
+                              ratios=[0.5, 1.0, 2.0],
+                              strides=[4, 8, 16, 32, 64]),
+        bbox_coder=dict(type="DeltaXYWHBBoxCoder", target_means=[0, 0, 0, 0],
+                        target_stds=[1.0, 1.0, 1.0, 1.0]),
+        loss_cls=dict(type="CrossEntropyLoss", use_sigmoid=True)),
+    roi_head=dict(
+        type="StandardRoIHead",
+        bbox_roi_extractor=dict(
+            roi_layer=dict(type="RoIAlign", output_size=7, sampling_ratio=1),
+            out_channels=16, featmap_strides=[4, 8, 16, 32]),
+        bbox_head=dict(
+            type="Shared2FCBBoxHead", num_classes=2, in_channels=16,
+            fc_out_channels=32, roi_feat_size=7,
+            bbox_coder=dict(type="DeltaXYWHBBoxCoder",
+                            target_means=[0, 0, 0, 0],
+                            target_stds=[0.1, 0.1, 0.2, 0.2]),
+            loss_cls=dict(type="CrossEntropyLoss", use_sigmoid=False))))
+RPN_CFG = dict(nms_pre=300, max_per_img=500,
+               nms=dict(type="nms", iou_threshold=0.7), min_bbox_size=2.0)
+FRCNN_TEST_CFG = dict(
+    rpn=RPN_CFG,
+    rcnn=dict(score_thr=0.05, nms=dict(type="nms", iou_threshold=0.5),
+              max_per_img=500))
+FRCNN_SIZES = [(16, 24), (8, 12), (4, 6), (2, 3), (1, 2)]
+
+
+@pytest.fixture(scope="module")
+def frcnn_pair():
+    """JAX Faster R-CNN + variables (norms, biases and fc_cls redrawn from
+    numpy), and the port with those weights."""
+    jm = jax_build(dict(FRCNN_CFG), None, dict(FRCNN_TEST_CFG))
+    img = np.random.RandomState(12).randn(2, 64, 96, 3).astype(np.float32)
+    variables = jax.jit(lambda r, x: jm.init(r, x, train=False))(
+        jax.random.PRNGKey(0), jnp.asarray(img))
+    variables = randomize_norm_and_bias(
+        jax.tree_util.tree_map(np.asarray, variables), seed=13)
+    cls = variables["params"]["roi_head_m"]["bbox_head_m"]["fc_cls"]
+    cls["kernel"] = jnp.asarray(np.random.RandomState(14).randn(
+        *cls["kernel"].shape), jnp.float32)
+    tm = build_detector(dict(FRCNN_CFG), None, dict(FRCNN_TEST_CFG),
+                        device="cpu")
+    load_jax_variables(tm, variables["params"], variables["batch_stats"])
+    return jm, variables, tm, img
+
+
+def test_fpn_maxpool_extras_match_jax(frcnn_pair):
+    """add_extra_convs=False (the JAX default): P6 is P5 subsampled by 2."""
+    jm, variables, tm, img = frcnn_pair
+    with torch.no_grad():
+        got = tm.extract_feat(torch.from_numpy(img))
+    want = jm.apply(variables, jnp.asarray(img),
+                    method=lambda m, i: m.extract_feat(i))
+    assert [tuple(g.shape[-2:]) for g in got] == FRCNN_SIZES
+    assert not any(k.startswith("neck.fpn_convs.4") for k in tm.state_dict())
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_nhwc(g), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_rpn_head_forward_matches_jax(frcnn_pair):
+    jm, variables, tm, _ = frcnn_pair
+    feats = [np.random.RandomState(15).randn(2, h, w, 16).astype(np.float32)
+             for h, w in FRCNN_SIZES]
+    with torch.no_grad():
+        cls, reg = tm.rpn_head([torch.from_numpy(f).permute(0, 3, 1, 2)
+                                for f in feats])
+    jc, jr = jm.apply(variables, [jnp.asarray(f) for f in feats],
+                      method=lambda m, f: m.rpn_head_m(f))
+    for g, w in zip(cls + reg, list(jc) + list(jr)):
+        np.testing.assert_allclose(_nhwc(g), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_rpn_get_proposals_matches_jax(frcnn_pair):
+    """Proposals from the same raw RPN outputs, drawn with numpy so scores
+    spread: nms_pre cuts the first level, min_bbox_size drops small boxes,
+    and the empty slots (filled with the first candidate, score 0) count."""
+    jm, _, tm, _ = frcnn_pair
+    rng = np.random.RandomState(16)
+    cls = [(rng.randn(3, h, w, 3) * 2).astype(np.float32)
+           for h, w in FRCNN_SIZES]
+    reg = [(rng.randn(3, h, w, 12) * 0.5).astype(np.float32)
+           for h, w in FRCNN_SIZES]
+    shapes = np.asarray([[60, 90], [64, 96], [50, 70]], np.int32)
+    from pointtinybenchmark_tpu.models.dense_heads.rpn_head import \
+        RPNHead as JaxRPN
+    hcfg = {k: v for k, v in FRCNN_CFG["rpn_head"].items() if k != "type"}
+    want = JaxRPN(**hcfg).get_proposals(
+        [jnp.asarray(c) for c in cls], [jnp.asarray(r) for r in reg],
+        jnp.asarray(shapes), (64, 96), RPN_CFG)
+    got = tm.rpn_head.get_proposals(
+        [torch.from_numpy(c).permute(0, 3, 1, 2) for c in cls],
+        [torch.from_numpy(r).permute(0, 3, 1, 2) for r in reg],
+        torch.from_numpy(shapes), RPN_CFG)
+    wb, ws, wv = (np.asarray(x) for x in want)
+    gb, gs, gv = (x.numpy() for x in got)
+    assert 100 < wv.sum(1).min() and (~wv).any()    # some slots stay empty
+    np.testing.assert_array_equal(gv, wv)
+    np.testing.assert_allclose(gs, ws, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(gb, wb, atol=2e-3, rtol=1e-4)
+
+
+def test_bbox_head_matches_jax(frcnn_pair):
+    """Shared2FCBBoxHead on (R, C, 7, 7) features: the permuted
+    shared_fc0 gives the JAX head's (h, w, c) flatten the same product."""
+    jm, variables, tm, _ = frcnn_pair
+    x = np.random.RandomState(17).randn(40, 7, 7, 16).astype(np.float32)
+    with torch.no_grad():
+        got = tm.roi_head.bbox_head(torch.from_numpy(x).permute(0, 3, 1, 2))
+    want = jm.apply(variables, jnp.asarray(x),
+                    method=lambda m, r: m.roi_head_m.bbox_head_m(r))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_roi_head_simple_test_matches_jax(frcnn_pair):
+    """RoIAlign over four levels, the 2-FC head, softmax, class-wise
+    decode, clip and batched multiclass NMS, with invalid proposal slots."""
+    jm, variables, tm, _ = frcnn_pair
+    rng = np.random.RandomState(18)
+    feats = [rng.randn(2, h, w, 16).astype(np.float32)
+             for h, w in FRCNN_SIZES]
+    ctr = rng.uniform(0, 96, (2, 150, 2)) * [1.0, 64 / 96]
+    wh = np.exp(rng.uniform(np.log(4), np.log(90), (2, 150, 2)))
+    props = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    props = np.clip(props, 0, [96, 64, 96, 64]).astype(np.float32)
+    valid = rng.rand(2, 150) > 0.1
+    shapes = np.asarray([[64, 96], [60, 90]], np.int32)
+    want = jm.apply(variables, [jnp.asarray(f) for f in feats],
+                    jnp.asarray(props), jnp.asarray(valid),
+                    jnp.asarray(shapes),
+                    method=lambda m, *a: m.roi_head_m.simple_test(*a))
+    with torch.no_grad():
+        got = tm.roi_head.simple_test(
+            [torch.from_numpy(f).permute(0, 3, 1, 2) for f in feats],
+            torch.from_numpy(props), torch.from_numpy(valid),
+            torch.from_numpy(shapes))
+    for i in range(2):
+        ref = _dets_np(want, i)
+        assert ref[0].shape[0] > 10 and len(np.unique(ref[1])) == 2
+        assert_dets_match(ref, _dets_np(got, i))

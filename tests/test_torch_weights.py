@@ -34,6 +34,25 @@ MODEL_CFG = dict(
                               strides=[4, 8, 16, 32, 64]),
         loss_cls=dict(type="FocalLoss", use_sigmoid=True)))
 
+FRCNN_CFG = dict(
+    type="FasterRCNN",
+    backbone=dict(type="ResNet", depth=50, base_channels=8),
+    neck=dict(type="FPN", in_channels=[32, 64, 128, 256], out_channels=16,
+              num_outs=5),
+    rpn_head=dict(
+        type="RPNHead", num_classes=1, in_channels=16, feat_channels=16,
+        anchor_generator=dict(type="AnchorGenerator", scales=[2],
+                              ratios=[0.5, 1.0, 2.0],
+                              strides=[4, 8, 16, 32, 64]),
+        loss_cls=dict(type="CrossEntropyLoss", use_sigmoid=True)),
+    roi_head=dict(
+        type="StandardRoIHead",
+        bbox_roi_extractor=dict(
+            roi_layer=dict(type="RoIAlign", output_size=7, sampling_ratio=1),
+            featmap_strides=[4, 8, 16, 32]),
+        bbox_head=dict(type="Shared2FCBBoxHead", num_classes=1,
+                       in_channels=16, fc_out_channels=32, roi_feat_size=7)))
+
 
 def _to_jax(model):
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
@@ -97,3 +116,52 @@ def test_port_imports_no_jax():
             "if m.split('.')[0] == 'pointtinybenchmark_tpu']")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def _flat_shapes(tree):
+    return {jax.tree_util.keystr(p): tuple(np.shape(v)) for p, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def test_faster_rcnn_state_dict_round_trip():
+    """RPN and RoI-head weights, the row-permuted shared_fc0 included, go
+    through torch2jax and back unchanged, every JAX leaf consumed."""
+    src = build_detector(dict(FRCNN_CFG), device="cpu", seed=1)
+    _randomize_buffers(src, 2)
+    dst = build_detector(dict(FRCNN_CFG), device="cpu", seed=3)
+    load_jax_variables(dst, *_to_jax(src))
+    want, got = src.state_dict(), dst.state_dict()
+    assert want.keys() == got.keys()
+    assert "roi_head.bbox_head.shared_fcs.0.weight" in want
+    assert "rpn_head.rpn_conv.weight" in want
+    for k in want:
+        assert torch.equal(want[k], got[k]), k
+
+
+def test_faster_rcnn_tree_is_the_jax_models_tree():
+    params, stats = _to_jax(build_detector(dict(FRCNN_CFG), device="cpu"))
+    jm = jax_build(dict(FRCNN_CFG))
+    shapes = jax.eval_shape(lambda r, x: jm.init(r, x, train=False),
+                            jax.random.PRNGKey(0),
+                            jnp.zeros((1, 64, 64, 3), jnp.float32))
+    assert _flat_shapes(params) == _flat_shapes(shapes["params"])
+    assert _flat_shapes(stats) == _flat_shapes(shapes["batch_stats"])
+
+
+def test_shared_fc0_gives_the_jax_product():
+    """The JAX head's first FC on (R, 7, 7, C) features flattened (h, w, c)
+    equals the port's on the same features as (R, C, 7, 7), flattened
+    (c, h, w), with the kernel carried across by `load_jax_variables`."""
+    model = build_detector(dict(FRCNN_CFG), device="cpu")
+    params, stats = _to_jax(model)
+    rng = np.random.RandomState(4)
+    fc0 = params["roi_head_m"]["bbox_head_m"]["shared_fc0"]
+    fc0["kernel"] = rng.randn(*fc0["kernel"].shape).astype(np.float32)
+    fc0["bias"] = rng.randn(*fc0["bias"].shape).astype(np.float32)
+    load_jax_variables(model, params, stats)
+    x = rng.randn(5, 7, 7, 16).astype(np.float32)
+    want = x.reshape(5, -1) @ fc0["kernel"] + fc0["bias"]
+    with torch.no_grad():
+        got = model.roi_head.bbox_head.shared_fcs[0](
+            torch.from_numpy(x).permute(0, 3, 1, 2).flatten(1))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
