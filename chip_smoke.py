@@ -75,7 +75,7 @@ KERNELS = {
     "roi_align": ("pointtinybenchmark_tpu_torch/ops/csrc/roi_align_kernel.cu",
                   "pointtinybenchmark_tpu/ops/roi_align_pallas.py:359"),
 }
-# published H100 SXM peaks (on-chip-measurement guide): HBM bytes/s and
+# published H100 SXM peaks: HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
