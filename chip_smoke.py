@@ -9,8 +9,12 @@ RetinaNet-c and of Adap Faster R-CNN, each on two 1920x1080 uint8 frames:
 
 1. kernel vs plain, NMS: the IoU-bitmask and greedy-reduce kernels against
    their plain PyTorch version on the card, on synthetic TinyPerson-like
-   boxes, at the per-tile shape (B=12, N=8,720) and the global-merge shape
-   (B=2, N=12,000, class offsets); keep sets must be identical;
+   boxes: `batched_nms` at the per-tile shape (B=12, N=8,720) and the
+   global-merge shape (B=2, N=12,000, class offsets), keep sets identical;
+   then each kernel alone at every launch shape of both main paths
+   (K1_SHAPES), kernel A's defined bits and kernel B's keep sets identical,
+   with times, bounds and the walk's serial steps; and on box pairs whose
+   IoU is the threshold or one of its float neighbours;
 2. kernel vs plain, RoIAlign: the multilevel RoIAlign kernel against its
    plain version on synthetic channels-last FPN maps of 256 channels and
    TinyPerson-sized rois (plus large and off-edge ones, so that every level
@@ -60,6 +64,14 @@ ITERS = 10
 PLAIN_ITERS = 3
 # (name, B, N, classes): the per-tile NMS of one frame and the global merge
 NMS_SHAPES = (("per-tile", 12, 8720, 1), ("global", 2, 12000, 3))
+# (name, B, N, classes, IoU threshold): the NMS kernel pair's launch shapes
+# on both main paths, after the B=12 row of the kernels' first measurements
+K1_SHAPES = (("per-tile B=12", 12, 8720, 1, 0.5),
+             ("RetinaNet-c per-tile", 24, 8720, 1, 0.5),
+             ("global merge", 2, 12000, 3, 0.5),
+             ("Faster R-CNN RPN", 24, 7200, 5, 0.7),
+             ("Faster R-CNN RoI head", 24, 1000, 1, 0.5))
+MAX_OUT = 1000
 # (name, tiles, rois, S, sr): the Faster R-CNN bbox extractor and the Mask
 # R-CNN mask extractor the JAX bench runs on the Pallas kernel
 ROI_SHAPES = (("faster_rcnn", 24, 24000, 7, 1), ("mask_rcnn", 12, 1200, 14, 2))
@@ -79,6 +91,10 @@ KERNELS = {
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# kernel A's f32 operations per pair: the overlap test, and the exact IoU
+# of a pair that overlaps (iou_bitmask_work)
+OVERLAP_OPS = 4
+IOU_OPS = 15
 PROFILE_CALLS = 5
 # substrings of device kernel names, first match wins
 KERNEL_FAMILIES = (
@@ -131,6 +147,35 @@ def synthetic_boxes(rng, b, n, n_classes=1):
     valid = rng.rand(b, n) > 0.05
     labels = rng.randint(0, n_classes, (b, n)).astype(np.int32)
     return boxes, scores, valid, labels
+
+
+def threshold_tie_boxes(thr, per_target=4):
+    """Box pairs whose float32 IoU, computed as ops/nms.py::_pairwise_iou
+    does, is exactly thr or one of its two float neighbours: numpy (2P, 4)
+    f32, pair p an outer box (row 2p) and an inner one (2p + 1) nested on
+    the 1-px band y in [2p, 2p + 1], so that no two pairs overlap. With
+    integer widths o > i below 2**24, inter = i and union = (o + i) - i in
+    float32, which the search below repeats. Returns (boxes, iou (P,) f32)."""
+    t = np.float32(thr)
+    targets = (np.nextafter(t, np.float32(-1)), t,
+               np.nextafter(t, np.float32(2)))
+    outer = np.arange(12_000_000, 12_200_000, dtype=np.float32)
+    pairs = []
+    for target in targets:
+        found = []
+        for d in (-1, 0, 1):
+            inner = np.rint(outer * t) + np.float32(d)
+            iou = inner / ((outer + inner) - inner)
+            hit = iou == target
+            found += list(zip(outer[hit], inner[hit], iou[hit]))
+        if len(found) < per_target:
+            raise AssertionError(f"no IoU of {target!r} among the widths")
+        pairs += found[:per_target]
+    boxes = np.zeros((2 * len(pairs), 4), np.float32)
+    for p, (o, i, _) in enumerate(pairs):
+        boxes[2 * p] = (0, 2 * p, o, 2 * p + 1)
+        boxes[2 * p + 1] = (0, 2 * p, i, 2 * p + 1)
+    return boxes, np.asarray([q for *_, q in pairs], np.float32)
 
 
 def synthetic_rois(rng, b, r, tile_hw=(512, 640)):
@@ -193,17 +238,91 @@ def read_launches():
     return {**nms_cuda.launches, **roi_align_cuda.launches}
 
 
-def greedy_reduce_bytes(b, n, max_out, order, keep):
-    """Bytes the greedy walk needs on this data: from each kept row's mask,
-    the words from its own onward; ok, order and the outputs once."""
-    words = -(-n // 64)
+def sorted_nms_inputs(boxes, scores, labels, valid):
+    """What ops/nms.py::batched_nms hands the kernel pair: class-offset boxes
+    sorted by masked score, ok, order (int32) and n_valid."""
+    from pointtinybenchmark_tpu_torch.ops import nms
+
+    masked = nms._masked_scores(scores, valid, float("-inf"))
+    sboxes, ok, order, n_valid = nms._sort(nms._offset_boxes(boxes, labels),
+                                           masked)
+    return sboxes, ok, order.to(torch.int32), n_valid
+
+
+def kept_rows(order, keep):
+    """(B, max_out) sorted-order row of each kept box (-1 past num_kept)."""
+    b, n = order.shape
     pos = torch.empty_like(order)
     pos.scatter_(1, order.long(), torch.arange(n, device=order.device,
                                                dtype=order.dtype).expand(b, n))
-    kept = keep >= 0
     row = torch.gather(pos, 1, keep.clamp(min=0).long())
-    mask_words = int(((words - row // 64) * kept).sum())
-    return 8 * mask_words + b * n * (1 + 4) + 4 * b * max_out + 4 * b
+    return torch.where(keep >= 0, row, -1)
+
+
+def greedy_reduce_bytes(max_out, order, keep, n_valid):
+    """Bytes the greedy walk needs on this data: from each kept row's mask,
+    the words from its own up to the last valid one; ok, order of the valid
+    rows, n_valid and the outputs once."""
+    b = order.shape[0]
+    row = kept_rows(order, keep)
+    last_word = (n_valid.long()[:, None] + 63) // 64
+    mask_words = int(((last_word - row // 64) * (row >= 0)).sum())
+    return (8 * mask_words + int(n_valid.sum()) * (1 + 4)
+            + 4 * b * max_out + 8 * b)
+
+
+def overlapping_pairs(sboxes, n_valid):
+    """Valid pairs i < j < n_valid whose boxes overlap, min(x2) > max(x1)
+    and min(y2) > max(y1) (false with a NaN or an empty box), summed over
+    the batch: the pairs whose bit needs the exact IoU on these inputs."""
+    b, n, _ = sboxes.shape
+    x1, y1, x2, y2 = sboxes.unbind(-1)
+    dev = sboxes.device
+    cols = torch.arange(n, device=dev)
+    past = cols[None, None, :] < n_valid.long()[:, None, None]
+    total = 0
+    for r0 in range(0, n, 512):
+        sl = slice(r0, min(r0 + 512, n))
+        ov = ((torch.minimum(x2[:, sl, None], x2[:, None])
+               > torch.maximum(x1[:, sl, None], x1[:, None]))
+              & (torch.minimum(y2[:, sl, None], y2[:, None])
+                 > torch.maximum(y1[:, sl, None], y1[:, None])))
+        ov &= cols[None, None, :] > cols[sl][None, :, None]
+        total += int((ov & past).sum())
+    return total
+
+
+def iou_bitmask_work(sboxes, n_valid):
+    """(bytes, valid pairs above the diagonal, overlapping pairs among them)
+    for kernel A on these inputs. The bytes: each valid box read once, each
+    word the reduce can read (rows i < n_valid, words i // 64 up to the last
+    valid one) written once. The operations: 4 f32 compares settle a pair
+    that does not overlap (OVERLAP_OPS); one that overlaps takes the 15 f32
+    operations of the exact IoU (IOU_OPS: 4 min/max, 2 differences, 2
+    clamps, the product, union: add, subtract, max, the divide, the
+    compare)."""
+    nbytes, pairs = 0, 0
+    for nv in n_valid.tolist():
+        words = -(-nv // 64)
+        nbytes += 16 * nv + 8 * sum(min(64, nv - 64 * k) * (words - k)
+                                    for k in range(words))
+        pairs += nv * (nv - 1) // 2
+    return nbytes, pairs, overlapping_pairs(sboxes, n_valid)
+
+
+def iou_bitmask_ops(pairs, overlaps):
+    """f32 operations kernel A needs: the overlap test for every pair and
+    the exact IoU for the overlapping ones."""
+    return OVERLAP_OPS * pairs + IOU_OPS * overlaps
+
+
+def reduce_steps(order, keep, num_kept, n_valid, max_out):
+    """Serial steps (64-row blocks) of each walk: up to the block of the
+    max_out-th kept row, else all valid rows."""
+    last = kept_rows(order, keep)[:, -1]
+    full = (n_valid.long() + 63) // 64
+    return torch.where(num_kept >= max_out, last.long() // 64 + 1,
+                       full).tolist()
 
 
 def roi_align_bound(feats, rois, lvls, out, sr):
@@ -226,18 +345,83 @@ def roi_align_bound(feats, rois, lvls, out, sr):
     return bound(nbytes, 8 * sr * sr * r * c * out * out)
 
 
+def k1_row(card, name, sboxes, ok, order, n_valid, thr):
+    """Each kernel of the pair alone against its plain version at one launch
+    shape: kernel A's defined bits and kernel B's keep set must be equal.
+    Returns {kernel: record} with times, bound and, for B, the walk's
+    serial steps."""
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda
+
+    b, n, _ = sboxes.shape
+    mask = nms_cuda.iou_bitmask(sboxes, thr, n_valid)
+    mask_plain = nms_cuda.iou_bitmask_plain(sboxes, thr)
+    keep, num = nms_cuda.greedy_reduce(mask, ok, order, MAX_OUT, n_valid)
+    keep_plain, num_plain = nms_cuda.greedy_reduce_plain(mask_plain, ok,
+                                                         order, MAX_OUT)
+    torch.cuda.synchronize()
+    bits_err = float((nms_cuda.defined_words(mask, n_valid)
+                      != nms_cuda.defined_words(mask_plain, n_valid)).sum())
+    keep_err = float((keep - keep_plain).abs().max())
+    if bits_err or keep_err or not torch.equal(num, num_plain):
+        raise AssertionError(f"{name}: kernel vs plain: {bits_err} bitmask "
+                             f"bits, keep {keep_err}")
+    if int(num.min()) <= 0:
+        raise AssertionError(f"{name}: NMS kept nothing")
+    steps = reduce_steps(order, keep, num, n_valid, MAX_OUT)
+    a_bytes, pairs, overlaps = iou_bitmask_work(sboxes, n_valid)
+    times = {
+        "iou_bitmask": (
+            time_ms(lambda: nms_cuda.iou_bitmask(sboxes, thr, n_valid), ITERS),
+            time_ms(lambda: nms_cuda.iou_bitmask_plain(sboxes, thr),
+                    PLAIN_ITERS), bits_err,
+            bound(a_bytes, iou_bitmask_ops(pairs, overlaps))),
+        "greedy_reduce": (
+            time_ms(lambda: nms_cuda.greedy_reduce(mask, ok, order, MAX_OUT,
+                                                   n_valid), ITERS),
+            time_ms(lambda: nms_cuda.greedy_reduce_plain(mask_plain, ok, order,
+                                                         MAX_OUT),
+                    PLAIN_ITERS), keep_err,
+            bound(greedy_reduce_bytes(MAX_OUT, order, keep, n_valid), 0))}
+    nv = n_valid.tolist()
+    print(f"phase 1 {name} B={b} N={n} thr={thr}: n_valid {min(nv)}..{max(nv)},"
+          f" kept {int(num.min())}..{int(num.max())} (kernel == plain: "
+          f"defined bits and keep sets)")
+    out = {}
+    for k, (kms, pms, err, (bms, by)) in times.items():
+        rec = dict(shape=name, B=b, N=n, thr=thr, max_abs_err=err, ms=kms,
+                   plain_ms=pms, bound_ms=bms, bound_by=by)
+        extra = ""
+        if k == "iou_bitmask":
+            # the bound of the first measurements, comparable with their
+            # rows: the exact IoU for every valid pair
+            all_ms = bound(a_bytes, IOU_OPS * pairs)[0]
+            rec.update(pairs=pairs, overlapping_pairs=overlaps,
+                       bound_ms_15_ops_per_pair=all_ms)
+            extra = (f", {overlaps} of {pairs} pairs overlap; bound with "
+                     f"{IOU_OPS} operations for every pair {all_ms:.4f} ms, "
+                     f"share {all_ms / kms:.3f}")
+        if k == "greedy_reduce":
+            rec.update(steps=max(steps), ns_per_step=kms * 1e6 / max(steps))
+            extra = (f", {max(steps)} serial steps per walk (64 rows each), "
+                     f"{rec['ns_per_step']:.1f} ns per step")
+        print(f"phase 1 {k} {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}), share of bound "
+              f"{bms / kms:.3f}{extra} [{card}]")
+        out[k] = rec
+    return out
+
+
 def phase_kernels(card):
     from pointtinybenchmark_tpu_torch.ops import nms, nms_cuda
 
     rng = np.random.RandomState(0)
-    records = {}
     for name, b, n, n_classes in NMS_SHAPES:
         boxes, scores, valid, labels = (
             torch.from_numpy(x).to(DEVICE)
             for x in synthetic_boxes(rng, b, n, n_classes))
 
         def run():
-            return nms.batched_nms(boxes, scores, labels, 0.5, 1000,
+            return nms.batched_nms(boxes, scores, labels, 0.5, MAX_OUT,
                                    valid_mask=valid)
         got = run()
         with plain_nms():
@@ -256,50 +440,52 @@ def phase_kernels(card):
         print(f"phase 1 {name} NMS: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
               f" [{card}]")
 
-        if name == "per-tile":
-            # each kernel alone, against its plain version, on the same input
-            masked = torch.where(valid, scores, nms.NEG_INF)
-            _, order = torch.sort(masked, dim=1, descending=True, stable=True)
-            sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
-            sboxes = sboxes.contiguous()
-            ok = torch.gather(valid, 1, order)
-            order = order.to(torch.int32)
-            mask = nms_cuda.iou_bitmask(sboxes, 0.5)
-            mask_plain = nms_cuda.iou_bitmask_plain(sboxes, 0.5)
-            keep = nms_cuda.greedy_reduce(mask, ok, order, 1000)
-            keep_plain = nms_cuda.greedy_reduce_plain(mask, ok, order, 1000)
-            torch.cuda.synchronize()
-            mask_err = float((mask != mask_plain).any())
-            keep_err = float((keep[0] - keep_plain[0]).abs().max())
-            if mask_err or keep_err or not torch.equal(keep[1], keep_plain[1]):
-                raise AssertionError(f"kernel vs plain: bitmask {mask_err}, "
-                                     f"reduce {keep_err}")
-            words = -(-n // 64)
-            # per pair above the diagonal: 4 min/max, 2 differences, 2
-            # clamps, the product, union (add, subtract, max), divide, compare
-            bounds = {
-                "iou_bitmask": bound(b * n * 16 + b * n * words * 8,
-                                     15 * b * n * (n - 1) / 2),
-                "greedy_reduce": bound(greedy_reduce_bytes(
-                    b, n, 1000, order, keep[0]), 0)}
-            times = {
-                "iou_bitmask": (time_ms(lambda: nms_cuda.iou_bitmask(
-                    sboxes, 0.5), ITERS), time_ms(
-                    lambda: nms_cuda.iou_bitmask_plain(sboxes, 0.5),
-                    PLAIN_ITERS), mask_err),
-                "greedy_reduce": (time_ms(lambda: nms_cuda.greedy_reduce(
-                    mask, ok, order, 1000), ITERS), time_ms(
-                    lambda: nms_cuda.greedy_reduce_plain(mask, ok, order,
-                                                         1000),
-                    PLAIN_ITERS), keep_err)}
-            for k, (kms, pms, err) in times.items():
-                bms, by = bounds[k]
-                print(f"phase 1 {k} B={b} N={n}: kernel {kms:.4f} ms, plain "
-                      f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), max_abs_err "
-                      f"{err} [{card}]")
-                records[k] = dict(max_abs_err=err, ms=kms, plain_ms=pms,
-                                  bound_ms=bms, bound_by=by)
-    return records
+    # each kernel alone at every launch shape of the main paths
+    rows = []
+    for name, b, n, n_classes, thr in K1_SHAPES:
+        boxes, scores, valid, labels = (
+            torch.from_numpy(x).to(DEVICE)
+            for x in synthetic_boxes(rng, b, n, n_classes))
+        rows.append(k1_row(card, name, *sorted_nms_inputs(
+            boxes, scores, labels, valid), thr))
+
+    # kernel A at the first shape on boxes of which no two overlap: the
+    # branch-free overlap test alone, without the exact IoU of close pairs
+    _, b, n, _, thr = K1_SHAPES[0]
+    i = torch.arange(n, dtype=torch.float32, device=DEVICE)
+    x, y = (i % 128) * 50, torch.div(i, 128, rounding_mode="floor") * 50
+    apart = torch.stack([x, y, x + 10, y + 10], -1).expand(b, n, 4).contiguous()
+    every = torch.full((b,), n, dtype=torch.int32, device=DEVICE)
+    if nms_cuda.defined_words(nms_cuda.iou_bitmask(apart, thr, every),
+                              every).any():
+        raise AssertionError("boxes apart: a suppression bit is set")
+    ms = time_ms(lambda: nms_cuda.iou_bitmask(apart, thr, every), ITERS)
+    a_bytes, pairs, overlaps = iou_bitmask_work(apart, every)
+    if overlaps:
+        raise AssertionError(f"boxes apart: {overlaps} pairs overlap")
+    bms, by = bound(a_bytes, iou_bitmask_ops(pairs, overlaps))
+    rows[0]["iou_bitmask"]["ms_no_overlap"] = ms
+    print(f"phase 1 iou_bitmask B={b} N={n}, no two boxes overlapping: kernel "
+          f"{ms:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+
+    # IoUs on the threshold and its float neighbours
+    for thr in (0.5, 0.7):
+        tie, iou = threshold_tie_boxes(thr)
+        tie = torch.from_numpy(tie)[None].to(DEVICE)
+        every = torch.tensor([tie.shape[1]], dtype=torch.int32, device=DEVICE)
+        got = nms_cuda.defined_words(nms_cuda.iou_bitmask(tie, thr, every),
+                                     every)
+        want = nms_cuda.defined_words(nms_cuda.iou_bitmask_plain(tie, thr),
+                                      every)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"threshold ties at {thr}: kernel != plain")
+        print(f"phase 1 threshold ties at {thr}: {len(iou)} pairs with IoU "
+              f"{np.unique(iou).tolist()}, kernel bits == plain bits")
+
+    # the JSON line keeps the B=12 row, comparable with earlier measurements
+    return {k: dict(rows[0][k], by_shape=[r[k] for r in rows])
+            for k in ("iou_bitmask", "greedy_reduce")}
 
 
 def compare_roi_align(feats, rois, lvls, out, sr):

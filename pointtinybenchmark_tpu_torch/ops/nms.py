@@ -34,16 +34,28 @@ def _masked_scores(scores: torch.Tensor, valid_mask: Optional[torch.Tensor],
     return torch.where(scores > score_threshold, scores, NEG_INF)
 
 
+def _sort(boxes: torch.Tensor, scores: torch.Tensor):
+    """boxes (B, N, 4), masked scores (B, N) -> sorted boxes (B, N, 4) f32,
+    ok (B, N) bool, order (B, N) int64, n_valid (B,) int32. The masked
+    scores hold no NaN and ok is `score > NEG_INF` of the sort key, so the
+    ok rows are the first n_valid of the descending order."""
+    # stable: equal scores keep index order, as jnp.argsort / lax.top_k do
+    sorted_scores, order = torch.sort(scores, dim=-1, descending=True,
+                                      stable=True)
+    sorted_boxes = torch.gather(boxes.float(), 1,
+                                order[..., None].expand(-1, -1, 4))
+    ok = sorted_scores > NEG_INF
+    return (sorted_boxes.contiguous(), ok, order,
+            ok.sum(1, dtype=torch.int32))
+
+
 def _greedy(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
             max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """boxes (B, N, 4), masked scores (B, N) -> keep (B, max_out), (B,)."""
-    # stable: equal scores keep index order, as jnp.argsort / lax.top_k do
-    _, order = torch.sort(scores, dim=-1, descending=True, stable=True)
-    sorted_boxes = torch.gather(boxes.float(), 1,
-                                order[..., None].expand(-1, -1, 4))
-    ok = torch.gather(scores > NEG_INF, 1, order)
-    mask = nms_cuda.iou_bitmask(sorted_boxes.contiguous(), iou_threshold)
-    return nms_cuda.greedy_reduce(mask, ok, order.to(torch.int32), max_out)
+    sorted_boxes, ok, order, n_valid = _sort(boxes, scores)
+    mask = nms_cuda.iou_bitmask(sorted_boxes, iou_threshold, n_valid)
+    return nms_cuda.greedy_reduce(mask, ok, order.to(torch.int32), max_out,
+                                  n_valid)
 
 
 def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
@@ -72,8 +84,11 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor, idxs: torch.Tensor,
     entry points, `batched_nms` and `batched_nms_large`. The offset is the
     largest finite coordinate of each batch item plus one, taken over all
     rows, padded ones included, as in the JAX package."""
+    return nms(_offset_boxes(boxes, idxs), scores, iou_threshold, max_out,
+               valid_mask, score_threshold)
+
+
+def _offset_boxes(boxes: torch.Tensor, idxs: torch.Tensor) -> torch.Tensor:
     finite = torch.where(torch.isfinite(boxes), boxes, 0.0)
     max_coord = finite.amax(dim=(-2, -1), keepdim=True) + 1.0
-    offsets = idxs.to(boxes.dtype)[..., None] * max_coord
-    return nms(boxes + offsets, scores, iou_threshold, max_out, valid_mask,
-               score_threshold)
+    return boxes + idxs.to(boxes.dtype)[..., None] * max_coord

@@ -15,7 +15,7 @@ import torch
 
 import jax.numpy as jnp
 
-from chip_smoke import plain_nms, synthetic_boxes
+from chip_smoke import plain_nms, synthetic_boxes, threshold_tie_boxes
 from pointtinybenchmark_tpu.ops.pallas_kernels import iou_suppression_matrix
 from pointtinybenchmark_tpu_torch.ops import nms_cuda
 from pointtinybenchmark_tpu_torch.ops import nms as tnms
@@ -140,7 +140,7 @@ def test_device_without_kernel_raises():
     to the plain version."""
     boxes = torch.zeros((1, 8, 4), device="meta")
     with pytest.raises(RuntimeError, match="no NMS kernel"):
-        nms_cuda.iou_bitmask(boxes, 0.5)
+        nms_cuda.iou_bitmask(boxes, 0.5, torch.full((1,), 8, device="meta"))
 
 
 def test_cuda_tensors_always_route_to_the_kernel():
@@ -155,3 +155,96 @@ def test_cuda_tensors_always_route_to_the_kernel():
         assert nms_cuda.iou_bitmask is nms_cuda.iou_bitmask_plain
         assert nms_cuda.greedy_reduce is nms_cuda.greedy_reduce_plain
     assert (nms_cuda.iou_bitmask, nms_cuda.greedy_reduce) == kernels
+
+
+@pytest.mark.parametrize("case", ["valid_mask", "score_threshold", "nan",
+                                  "neg_inf", "all_invalid"])
+def test_valid_rows_are_a_prefix_of_the_sorted_order(case):
+    """The kernels skip every row and column at or past n_valid: that is
+    exact only because `_sort` puts the rows that may be kept first."""
+    rng = np.random.RandomState(6)
+    boxes, scores, valid, _ = synthetic_boxes(rng, 3, 500)
+    valid_mask, thr = None, float("-inf")
+    if case == "valid_mask":
+        valid_mask = torch.from_numpy(valid)
+    elif case == "score_threshold":
+        thr = 0.4
+    elif case == "nan":
+        scores[rng.rand(3, 500) < 0.2] = np.nan
+    elif case == "neg_inf":
+        scores[rng.rand(3, 500) < 0.2] = -np.inf
+        scores[:, :5] = (-2e30, -1e30, np.inf, 0.0, -0.0)
+    else:
+        valid_mask = torch.zeros((3, 500), dtype=torch.bool)
+    masked = tnms._masked_scores(torch.from_numpy(scores), valid_mask, thr)
+    _, ok, order, n_valid = tnms._sort(torch.from_numpy(boxes), masked)
+    assert n_valid.dtype == torch.int32
+    for b in range(3):
+        nv = int(n_valid[b])
+        assert ok[b, :nv].all() and not ok[b, nv:].any()
+        if case != "all_invalid":
+            assert 0 < nv < 500
+    # ok is the JAX package's notion of a live row, in sorted order
+    want = np.take_along_axis(np.asarray(masked) > jnms.NEG_INF,
+                              order.numpy(), 1)
+    np.testing.assert_array_equal(ok.numpy(), want)
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 130, 700, 777])
+def test_defined_words_of_plain_mask_equal_pairwise_iou(n_valid):
+    """The bits the kernel defines (rows and columns < n_valid, words from
+    the row's diagonal word on) of the plain mask are the upper triangle of
+    the JAX `_pairwise_iou > thr`; every other bit is cleared."""
+    rng = np.random.RandomState(n_valid)
+    boxes = _boxes(rng, 777)[0]
+    nv = torch.tensor([n_valid], dtype=torch.int32)
+    plain = nms_cuda.iou_bitmask_plain(torch.from_numpy(boxes)[None], 0.5)
+    got = _unpack(nms_cuda.defined_words(plain, nv), 777)[0]
+    iou = np.asarray(jnms._pairwise_iou(jnp.asarray(boxes),
+                                        jnp.asarray(boxes)))
+    live = np.arange(777) < n_valid
+    want = (iou > 0.5) & np.triu(np.ones((777, 777), bool), k=1) \
+        & live[:, None] & live[None, :]
+    np.testing.assert_array_equal(got, want)
+    # on garbage, only the defined bits survive
+    noise = torch.from_numpy(rng.randint(-2**62, 2**62, plain.shape,
+                                         dtype=np.int64))
+    bits = _unpack(nms_cuda.defined_words(noise, nv), 777)[0]
+    rows, cols = np.nonzero(bits)
+    assert (rows < n_valid).all() and (cols < n_valid).all()
+    assert (cols // 64 >= rows // 64).all()
+    if n_valid > 64:
+        assert bits.sum() > 0
+
+
+@pytest.mark.parametrize("thr", [0.5, 0.7])
+def test_threshold_ties_match_jax_division(thr):
+    """Pairs whose float32 IoU is exactly thr or one of its float
+    neighbours: a bit is set iff the rounded quotient is above thr, as the
+    JAX division form decides, and the keep sets agree with the JAX NMS."""
+    boxes, iou = threshold_tie_boxes(thr)
+    t = np.float32(thr)
+    assert {(iou < t).sum(), (iou == t).sum(), (iou > t).sum()} == {4}
+    n = boxes.shape[0]
+    got = _unpack(nms_cuda.iou_bitmask_plain(torch.from_numpy(boxes)[None],
+                                             thr), n)[0]
+    jiou = np.asarray(jnms._pairwise_iou(jnp.asarray(boxes),
+                                         jnp.asarray(boxes)))
+    np.testing.assert_array_equal(np.diag(jiou, 1)[::2], iou)
+    want = (jiou > thr) & np.triu(np.ones((n, n), bool), k=1)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(np.diag(got, 1)[::2], iou > t)
+    scores = np.linspace(1.0, 0.5, n, dtype=np.float32)
+    _assert_same(jnms.nms(jnp.asarray(boxes), jnp.asarray(scores), thr, n),
+                 tnms.nms(*_t(boxes, scores), thr, n))
+
+
+@pytest.mark.parametrize("thr", [-0.1, -1e-30, float("nan")])
+def test_bitmask_refuses_negative_threshold(thr):
+    """A pair that does not overlap skips the IoU as 0 > thr is false,
+    which needs thr >= 0."""
+    boxes = torch.zeros((1, 8, 4))
+    with pytest.raises(ValueError, match="iou_threshold"):
+        nms_cuda.iou_bitmask(boxes, thr, torch.full((1,), 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="iou_threshold"):
+        tnms.nms(boxes[0], torch.ones(8), thr, 8)
