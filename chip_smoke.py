@@ -16,10 +16,15 @@ RetinaNet-c and of Adap Faster R-CNN, each on two 1920x1080 uint8 frames:
    with times, bounds and the walk's serial steps; and on box pairs whose
    IoU is the threshold or one of its float neighbours;
 2. kernel vs plain, RoIAlign: the multilevel RoIAlign kernel against its
-   plain version on synthetic channels-last FPN maps of 256 channels and
-   TinyPerson-sized rois (plus large and off-edge ones, so that every level
-   is hit), at the Faster R-CNN shape (24 tiles, R=24,000, S=7, sr=1) and
-   the Mask R-CNN mask-crop shape (12 tiles, R=1,200, S=14, sr=2);
+   plain version, bit for bit (torch.equal), on synthetic channels-last FPN
+   maps of 256 channels and TinyPerson-sized rois of many tiles in shuffled
+   order (plus large ones, so that every level is hit, and `edge_rois`: a
+   whole-tile roi and 1:8 rois at level 0, whose windows exceed the
+   kernel's shared-memory budget, zero-area, inverted and off-edge rois),
+   at the Faster R-CNN shape (24 tiles, R=24,000, S=7, sr=1) and the Mask
+   R-CNN mask-crop shape (12 tiles, R=1,200, S=14, sr=2): the rois on each
+   kernel path, times in the shuffled order and in tile-major order (the
+   order of the main path's rois), bound;
 3. the RetinaNet slice at full width (ResNet-50, FPN-256, RetinaHead, built
    from its config with seeded weights) through `inference_detector_tiled`:
    launches counted from zero around it, NMS doing real work, sane boxes,
@@ -32,16 +37,19 @@ RetinaNet-c and of Adap Faster R-CNN, each on two 1920x1080 uint8 frames:
    weights): the same checks (launches {iou_bitmask: 3, greedy_reduce: 3,
    roi_align: 1}; RPN, RoIAlign and both NMS stages doing work; backbone,
    neck, RPN and RoI-head outputs against the CPU on one tile; detections
-   against those with every kernel swapped for its plain version), then
-   img/s, the RoIAlign kernel on the slice's own rois and levels, and the
-   profile.
+   equal to those with every kernel swapped for its plain version), the
+   RoIAlign kernel bit for bit against its plain version on the slice's own
+   rois and levels (rois per level, rois per kernel path, whether the
+   wrapper's channels-last view of each FPN map copied it), then img/s, the
+   kernel's time on those rois, and the profile.
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
 {"ok": true, "device": {...}}; the line before it is the card's name and
 power limit, and the line before that lists each kernel with its launches on
 the main paths, its error against the plain version, its time, the plain
-version's time and its bound.
+version's time and its bound (for RoIAlign also `by_shape`: the two phase-2
+shapes and the slice's rois).
 """
 import collections
 import contextlib
@@ -176,6 +184,31 @@ def threshold_tie_boxes(thr, per_target=4):
         boxes[2 * p] = (0, 2 * p, o, 2 * p + 1)
         boxes[2 * p + 1] = (0, 2 * p, i, 2 * p + 1)
     return boxes, np.asarray([q for *_, q in pairs], np.float32)
+
+
+def edge_rois(b, tile_hw=(512, 640)):
+    """RoIAlign rows that stress the kernel's paths, as numpy (13 b, 5) f32,
+    13 per tile: the whole tile (level 3 of `map_roi_levels`), 1:8 and 8:1
+    rois at level 0 (24 x 192 px: windows over the shared-memory budget), a
+    zero-area and an inverted roi, rois hanging off each edge and two
+    corners, and two wholly outside the map."""
+    h, w = tile_hw
+    rows = ((0, 0, w, h), (10, 10, 34, 202), (100, 20, 292, 44),
+            (50, 50, 50, 50), (80, 90, 40, 30),
+            (-30, 100, 40, 160), (w - 40, 100, w + 30, 160),
+            (100, -30, 160, 40), (100, h - 40, 160, h + 30),
+            (-50, -50, 20, 20), (w - 20, h - 20, w + 50, h + 50),
+            (-300, -200, -100, -50), (w + 10, h + 10, w + 90, h + 60))
+    return np.asarray([(i, *row) for i in range(b) for row in rows],
+                      np.float32)
+
+
+def phase2_rois(rng, b, r):
+    """R rois of b tiles in shuffled order: `edge_rois` and the rest
+    `synthetic_rois`, as a (R, 5) f32 numpy array."""
+    edge = edge_rois(b)
+    rois = np.concatenate([edge, synthetic_rois(rng, b, r - len(edge))])
+    return rois[rng.permutation(r)]
 
 
 def synthetic_rois(rng, b, r, tile_hw=(512, 640)):
@@ -489,8 +522,8 @@ def phase_kernels(card):
 
 
 def compare_roi_align(feats, rois, lvls, out, sr):
-    """Kernel vs plain on the same inputs: (kernel out, max abs err, bit
-    exact). Fails beyond 1e-5 * max|feat|."""
+    """Kernel vs plain on the same inputs: (kernel out, max abs err). Fails
+    unless the two are equal (torch.equal)."""
     from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
 
     got = roi_align_cuda.roi_align_forward(feats, rois, lvls, ROI_STRIDES,
@@ -499,10 +532,27 @@ def compare_roi_align(feats, rois, lvls, out, sr):
                                                 ROI_STRIDES, out, sr)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    tol = 1e-5 * max(float(f.abs().max()) for f in feats)
-    if not err <= tol:
-        raise AssertionError(f"RoIAlign kernel vs plain: {err} > {tol}")
-    return got, err, torch.equal(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"RoIAlign kernel != plain: max abs err {err}")
+    return got, err
+
+
+def roi_paths(feats, rois, lvls, out, sr):
+    """{kernel path: rois that take it} for these inputs, from the kernel's
+    own counts (one launch, outside any counted run)."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+
+    counts = torch.zeros(len(roi_align_cuda.PATHS), dtype=torch.int32,
+                         device=rois.device)
+    roi_align_cuda.roi_align_forward(feats, rois, lvls, ROI_STRIDES, out, sr,
+                                     path_counts=counts)
+    return dict(zip(roi_align_cuda.PATHS, counts.tolist()))
+
+
+def shares(counts):
+    """'path n (share of all)' for each path of a `roi_paths` dict."""
+    total = max(sum(counts.values()), 1)
+    return ", ".join(f"{k} {v} ({v / total:.4f})" for k, v in counts.items())
 
 
 def time_roi_align(feats, rois, lvls, out, sr):
@@ -516,29 +566,48 @@ def time_roi_align(feats, rois, lvls, out, sr):
 
 
 def phase_roi_align(card):
+    """Returns one record per ROI_SHAPES row."""
     from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
         map_roi_levels
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
 
     rng = np.random.RandomState(2)
     gen = torch.Generator(device=DEVICE).manual_seed(3)
+    records = []
     for name, b, r, out, sr in ROI_SHAPES:
         # channels-last maps, as the FPN's convolutions leave them
         feats = [torch.randn((b, h, w, ROI_CHANNELS), generator=gen,
                              device=DEVICE).permute(0, 3, 1, 2)
                  for h, w in ROI_LEVELS]
-        rois = torch.from_numpy(synthetic_rois(rng, b, r)).to(DEVICE)
+        rois = torch.from_numpy(phase2_rois(rng, b, r)).to(DEVICE)
         lvls = map_roi_levels(rois, len(ROI_LEVELS))
         per_level = torch.bincount(lvls, minlength=len(ROI_LEVELS)).tolist()
         if min(per_level) == 0:
             raise AssertionError(f"{name}: a level got no roi: {per_level}")
-        got, err, exact = compare_roi_align(feats, rois, lvls, out, sr)
+        got, err = compare_roi_align(feats, rois, lvls, out, sr)
+        paths = roi_paths(feats, rois, lvls, out, sr)
+        edge = torch.from_numpy(edge_rois(b)).to(DEVICE)
+        edge_lvls = map_roi_levels(edge, len(ROI_LEVELS))
+        edge_paths = roi_paths(feats, edge, edge_lvls, out, sr)
         ms, plain_ms = time_roi_align(feats, rois, lvls, out, sr)
+        order = torch.argsort(rois[:, 0], stable=True)
+        rois_tm, lvls_tm = rois[order], lvls[order]
+        ms_tile_major = time_ms(lambda: roi_align_cuda.roi_align_forward(
+            feats, rois_tm, lvls_tm, ROI_STRIDES, out, sr), ITERS)
         bms, by = roi_align_bound(feats, rois, lvls, out, sr)
         print(f"phase 2 RoIAlign {name} R={r} S={out} sr={sr} C={ROI_CHANNELS}"
-              f" ({b} tiles, rois per level {per_level}): out "
-              f"{tuple(got.shape)}, max_abs_err {err} (bit-exact: {exact}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}) [{card}]")
+              f" ({b} tiles in shuffled order, rois per level {per_level}): "
+              f"out {tuple(got.shape)}, kernel == plain (torch.equal)")
+        print(f"phase 2 RoIAlign {name} kernel paths: {shares(paths)}; of "
+              f"the {edge.shape[0]} edge rois among them: {shares(edge_paths)}")
+        print(f"phase 2 RoIAlign {name}: kernel {ms:.4f} ms (shuffled), "
+              f"{ms_tile_major:.4f} ms (tile-major), plain {plain_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}) [{card}]")
+        records.append(dict(shape=name, R=r, S=out, sr=sr, max_abs_err=err,
+                            ms=ms, ms_tile_major=ms_tile_major,
+                            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                            paths=paths))
+    return records
 
 
 def check_frames(results, label):
@@ -730,26 +799,24 @@ def phase_frcnn(card, frames):
 
     # the RoIAlign kernel on the slice's own levels and rois
     k_feats = list(feats[:len(ROI_STRIDES)])
-    _, k2_err, k2_exact = compare_roi_align(k_feats, rois, lvls, 7, 1)
-    print(f"phase 4 RoIAlign kernel vs plain on the slice's rois: max_abs_err "
-          f"{k2_err} (bit-exact: {k2_exact})")
+    _, k2_err = compare_roi_align(k_feats, rois, lvls, 7, 1)
+    paths = roi_paths(k_feats, rois, lvls, 7, 1)
+    # the wrapper's (B, H, W, C) view of a channels-last map is the map
+    copied = [i for i, f in enumerate(k_feats)
+              if f.permute(0, 2, 3, 1).contiguous().data_ptr() != f.data_ptr()]
+    print(f"phase 4 RoIAlign kernel == plain (torch.equal) on the slice's "
+          f"rois; kernel paths: {shares(paths)}; FPN maps the wrapper "
+          f"copies: {copied or 'none'}")
 
     with plain_nms(), plain_roi_align():
         results_plain = inference_detector_tiled(handle, list(frames))
     torch.backends.cudnn.deterministic = False
     for i, (r, p) in enumerate(zip(results, results_plain)):
-        rb, pb = r["bboxes"], p["bboxes"]
-        same = (np.array_equal(rb, pb)
-                and np.array_equal(r["labels"], p["labels"]))
-        close = (not k2_exact and rb.shape == pb.shape
-                 and np.array_equal(r["labels"], p["labels"])
-                 and np.allclose(rb[:, :4], pb[:, :4], atol=2e-3, rtol=0)
-                 and np.allclose(rb[:, 4], pb[:, 4], atol=1e-4, rtol=0))
-        if not (same or close):
+        if not (np.array_equal(r["bboxes"], p["bboxes"])
+                and np.array_equal(r["labels"], p["labels"])):
             raise AssertionError(f"frame {i}: kernels and plain disagree")
-    print(f"phase 4: detections with the kernels "
-          f"{'==' if k2_exact else 'match (box atol 2e-3, score atol 1e-4)'} "
-          f"detections with every kernel swapped for its plain version")
+    print("phase 4: detections with the kernels == detections with every "
+          "kernel swapped for its plain version")
 
     # the card against the CPU on one tile: backbone, neck, RPN, and the RoI
     # head on the card's own proposals of that tile
@@ -783,8 +850,9 @@ def phase_frcnn(card, frames):
     print(f"phase 4 RoIAlign in the slice (R={rois.shape[0]}, S=7, sr=1): "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
           f"({by}) [{card}]")
-    record = dict(max_abs_err=k2_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                  bound_by=by)
+    record = dict(shape="faster_rcnn slice", R=rois.shape[0], S=7, sr=1,
+                  max_abs_err=k2_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                  bound_by=by, paths=paths, maps_copied=len(copied))
     return launches, handle, record
 
 
@@ -872,7 +940,7 @@ def main():
         print(log.read_text().strip())
 
     records = phase_kernels(card)
-    phase_roi_align(card)
+    roi_shapes = phase_roi_align(card)
     frames = np.random.RandomState(1).randint(
         0, 256, (N_FRAMES,) + FRAME_HW + (3,), np.uint8)
     retina_launches, handle, tiles, stage = phase_slice(card, frames)
@@ -880,8 +948,10 @@ def main():
     phase_profile(card, handle, frames, "retinanet")
     del handle, tiles, stage
     torch.cuda.empty_cache()
-    frcnn_launches, handle, records["roi_align"] = phase_frcnn(card, frames)
+    frcnn_launches, handle, slice_record = phase_frcnn(card, frames)
     phase_profile(card, handle, frames, "faster_rcnn")
+    records["roi_align"] = dict(slice_record,
+                                by_shape=roi_shapes + [slice_record])
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],

@@ -7,7 +7,9 @@ use (`cuda_build`) and loaded with ctypes; a failed build or launch raises.
 
 `launches` counts kernel launches, so a run can show that it went through
 the kernel. To hold the kernel against its plain version on the card, call
-`ops/roi_align.py::roi_align_multilevel_plain` directly.
+`ops/roi_align.py::roi_align_multilevel_plain` directly. `PATHS` names the
+kernel's paths for a roi (taps staged whole or in bands of rows, read from
+global memory, or an out-of-range roi); pass `path_counts` to count them.
 """
 from __future__ import annotations
 
@@ -21,10 +23,11 @@ import torch
 from . import cuda_build
 
 __all__ = ["roi_align_forward", "launches", "build_library", "SOURCE",
-           "MAX_LEVELS"]
+           "MAX_LEVELS", "PATHS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "roi_align_kernel.cu"
 MAX_LEVELS = 8                    # kMaxLevels in the source
+PATHS = ("whole", "bands", "global", "invalid")   # enum Path in the source
 
 launches = {"roi_align": 0}
 
@@ -43,7 +46,7 @@ def build_library() -> ctypes.CDLL:
         lib.ptb_roi_align.argtypes = [
             ctypes.POINTER(vp), ctypes.POINTER(ci), ctypes.POINTER(ci),
             ctypes.POINTER(ctypes.c_float), ci, ci, ci, vp, vp, ci, ci, ci, ci,
-            vp, vp]
+            vp, vp, vp]
         lib.ptb_roi_align.restype = ci
         _lib = lib
         return lib
@@ -52,13 +55,15 @@ def build_library() -> ctypes.CDLL:
 def roi_align_forward(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                       lvls: torch.Tensor, strides: Sequence[int],
                       output_size: int = 7, sampling_ratio: int = 2,
-                      aligned: bool = True) -> torch.Tensor:
+                      aligned: bool = True,
+                      path_counts: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel. feats: per-level (B, C, H_l, W_l) f32 on one CUDA
     device (channels-last in memory avoids a copy); rois (R, 5) f32; lvls
     (R,) integer level of each roi. Returns (R, C, S, S) f32; a roi whose
     batch index or level is out of range gets NaN (the kernel reads no
     memory outside the maps; checking on the host would wait for the
-    card)."""
+    card). `path_counts`, a (len(PATHS),) int32 tensor on the same device,
+    gets one added per roi at the path the kernel took for it."""
     dev = rois.device
     if dev.type != "cuda":
         raise RuntimeError(f"the RoIAlign kernel takes CUDA tensors, got {dev}")
@@ -83,6 +88,10 @@ def roi_align_forward(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     if output_size < 1 or sampling_ratio < 1:
         raise ValueError(f"output_size {output_size}, sampling_ratio "
                          f"{sampling_ratio}: both must be >= 1")
+    if path_counts is not None and (
+            path_counts.shape != (len(PATHS),) or path_counts.device != dev
+            or path_counts.dtype != torch.int32):
+        raise ValueError(f"path_counts must be ({len(PATHS)},) int32 on {dev}")
     out = torch.empty((r, c, output_size, output_size), dtype=torch.float32,
                       device=dev)
     if r == 0:
@@ -99,6 +108,7 @@ def roi_align_forward(feats: Sequence[torch.Tensor], rois: torch.Tensor,
         (ctypes.c_float * n)(*[float(s) for s in strides]),
         n, b, c, rois.data_ptr(), lvls.data_ptr(), r, int(output_size),
         int(sampling_ratio), int(bool(aligned)), out.data_ptr(),
+        None if path_counts is None else path_counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"roi_align launch failed: cudaError {err}")

@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (plain_nms, sorted_nms_inputs, synthetic_boxes,
-                        synthetic_rois, threshold_tie_boxes)
+from chip_smoke import (edge_rois, plain_nms, sorted_nms_inputs,
+                        synthetic_boxes, synthetic_rois, threshold_tie_boxes)
 from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
     map_roi_levels
 from pointtinybenchmark_tpu_torch.ops import (nms, nms_cuda, roi_align,
@@ -140,37 +140,73 @@ def test_degenerate_boxes_match_plain(cuda, thr):
     assert torch.equal(got, want)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("c,out,sr,aligned,channels_last,r", [
-    (256, 7, 1, True, True, 3000),     # the Faster R-CNN extractor
-    (256, 14, 2, True, True, 300),     # the Mask R-CNN mask extractor
-    (40, 7, 2, False, False, 500),     # ragged channel chunk, NCHW maps
-    (64, 7, 1, True, True, 0),         # no roi
-])
-def test_roi_align_kernel_matches_plain(cuda, c, out, sr, aligned,
-                                        channels_last, r):
+def _roi_case(case, c, r, channels_last, cuda):
+    """(feats, rois, lvls) on the card: 256x320 tiles with four levels."""
     levels = ((64, 80), (32, 40), (16, 20), (8, 10))
+    b = 8 if case == "shuffled" else 3
     gen = torch.Generator(device=cuda).manual_seed(c + r)
-    feats = [torch.randn((3, h, w, c), generator=gen, device=cuda)
+    feats = [torch.randn((b, h, w, c), generator=gen, device=cuda)
              .permute(0, 3, 1, 2) for h, w in levels]
     if not channels_last:
         feats = [f.contiguous() for f in feats]
-    rois = torch.from_numpy(synthetic_rois(np.random.RandomState(r), 3, r,
-                                           (256, 320))).to(cuda)
+    rng = np.random.RandomState(r)
+    if case.startswith("edge"):
+        rois = torch.from_numpy(edge_rois(b, (256, 320))).to(cuda)
+    else:
+        rois = synthetic_rois(rng, b, r, (256, 320))
+        if case == "shuffled":
+            rois = rois[np.argsort(rois[:, 0], kind="stable")]
+            rois = rois[rng.permutation(r)]
+        rois = torch.from_numpy(rois).to(cuda)
     lvls = map_roi_levels(rois, len(levels))
+    if case == "edge_every_level":
+        # each edge roi (the whole tile among them) at every level
+        lvls = torch.arange(len(levels), device=cuda).repeat_interleave(
+            rois.shape[0])
+        rois = rois.repeat(len(levels), 1)
+    return feats, rois, lvls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,c,out,sr,aligned,channels_last,r,path", [
+    ("synthetic", 256, 7, 1, True, True, 3000, None),   # Faster R-CNN crops
+    ("synthetic", 256, 14, 2, True, True, 300, None),   # Mask R-CNN crops
+    ("synthetic", 40, 7, 2, False, False, 500, None),   # ragged chunk, NCHW
+    ("synthetic", 42, 7, 1, True, True, 300, None),     # C % 4 != 0
+    ("synthetic", 64, 7, 1, True, True, 0, None),       # no roi
+    ("synthetic", 64, 7, 1, True, True, 1, None),       # R = 1
+    ("shuffled", 64, 7, 1, True, True, 2000, None),     # 8 tiles, no order
+    # whole-tile, 1:8, zero-area, inverted and off-edge rois: over the
+    # window budget at S=7 (slots), in bands at S=14, sr=2, and on the
+    # global path at S=28 (no room for staged cells beside the tiles)
+    ("edge", 256, 7, 1, True, True, 0, None),
+    ("edge", 64, 7, 2, False, True, 0, None),
+    ("edge_every_level", 256, 7, 1, True, True, 0, None),
+    ("edge_every_level", 256, 14, 2, True, True, 0, "bands"),
+    ("edge", 32, 28, 2, True, True, 0, "global"),
+])
+def test_roi_align_kernel_matches_plain(cuda, case, c, out, sr, aligned,
+                                        channels_last, r, path):
+    feats, rois, lvls = _roi_case(case, c, r, channels_last, cuda)
+    n = rois.shape[0]
     before = roi_align_cuda.launches["roi_align"]
     got = roi_align.roi_align_multilevel(feats, rois, lvls, (4, 8, 16, 32),
                                          out, sr, aligned)
     # no roi, no launch: the wrapper counts only launches
-    assert roi_align_cuda.launches["roi_align"] == before + (r > 0)
+    assert roi_align_cuda.launches["roi_align"] == before + (n > 0)
     want = roi_align.roi_align_multilevel_plain(feats, rois, lvls,
                                                 (4, 8, 16, 32), out, sr,
                                                 aligned)
     torch.cuda.synchronize()
-    assert got.shape == want.shape == (r, c, out, out)
-    if r:
-        tol = 1e-5 * max(float(f.abs().max()) for f in feats)
-        assert float((got - want).abs().max()) <= tol
+    assert got.shape == want.shape == (n, c, out, out)
+    assert torch.equal(got, want)
+    if path is not None:
+        counts = torch.zeros(len(roi_align_cuda.PATHS), dtype=torch.int32,
+                             device=cuda)
+        roi_align_cuda.roi_align_forward(feats, rois, lvls, (4, 8, 16, 32),
+                                         out, sr, aligned, path_counts=counts)
+        paths = dict(zip(roi_align_cuda.PATHS, counts.tolist()))
+        assert paths[path] > 0 and sum(paths.values()) == n, paths
 
 
 @pytest.mark.cuda

@@ -91,6 +91,34 @@ def test_multilevel_plain_matches_jax_and_pallas(case, sr):
     np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("sr", [1, 2])
+def test_multilevel_plain_matches_jax_on_edge_rois(sr, aligned):
+    """The rois the card tests feed the kernel's other paths: whole-level,
+    1:8 and 8:1 at level 0, zero-area, zero-width and inverted (beyond the
+    Pallas kernel's windows, so against the XLA form only)."""
+    shapes, strides = [(72, 80), (36, 40)], (4, 8)
+    rois = np.array([
+        [0, 0.0, 0.0, 320.0, 288.0],      # the whole level-0 map
+        [1, 0.0, 0.0, 320.0, 288.0],      # the whole level-1 map
+        [0, 10.0, 10.0, 34.0, 202.0],     # 1:8
+        [1, 100.0, 20.0, 292.0, 44.0],    # 8:1
+        [0, 50.0, 50.0, 50.0, 50.0],      # zero area
+        [1, 30.0, 40.0, 30.0, 90.0],      # zero width
+        [1, 80.0, 90.0, 40.0, 30.0],      # inverted
+    ], np.float32)
+    lvls = np.array([0, 1, 0, 0, 0, 0, 1], np.int32)
+    feats = _feats(shapes)
+    got = _nhwc(tra.roi_align_multilevel_plain(
+        _nchw(feats), torch.from_numpy(rois), torch.from_numpy(lvls),
+        strides, 7, sr, aligned))
+    want = np.asarray(jra.roi_align_multilevel(
+        tuple(jnp.asarray(f) for f in feats), jnp.asarray(rois),
+        jnp.asarray(lvls), strides, 7, sr, aligned))
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("aligned,out,sr", [(True, 7, 2), (False, 7, 1),
                                             (True, 14, 2)])
 def test_single_level_matches_jax(aligned, out, sr):
