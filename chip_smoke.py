@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the kernels of ops/csrc with nvcc (one nvcc per source, started
-together), then runs two main paths, the tiled TinyPerson protocol of Adap
-RetinaNet-c and of Adap Faster R-CNN, each on two 1920x1080 uint8 frames:
+together), then runs three main paths, the tiled protocol of Adap
+RetinaNet-c, Adap Faster R-CNN and COCO Mask R-CNN, each on two 1920x1080
+uint8 frames:
 
 1. kernel vs plain, NMS: the IoU-bitmask and greedy-reduce kernels against
    their plain PyTorch version on the card, on synthetic TinyPerson-like
@@ -14,17 +15,19 @@ RetinaNet-c and of Adap Faster R-CNN, each on two 1920x1080 uint8 frames:
    then each kernel alone at every launch shape of both main paths
    (K1_SHAPES), kernel A's defined bits and kernel B's keep sets identical,
    with times, bounds and the walk's serial steps; and on box pairs whose
-   IoU is the threshold or one of its float neighbours;
+   IoU is the threshold or one of its float neighbours, also moved right by
+   the largest class offset of an 80-class NMS;
 2. kernel vs plain, RoIAlign: the multilevel RoIAlign kernel against its
    plain version, bit for bit (torch.equal), on synthetic channels-last FPN
    maps of 256 channels and TinyPerson-sized rois of many tiles in shuffled
    order (plus large ones, so that every level is hit, and `edge_rois`: a
    whole-tile roi and 1:8 rois at level 0, whose windows exceed the
    kernel's shared-memory budget, zero-area, inverted and off-edge rois),
-   at the Faster R-CNN shape (24 tiles, R=24,000, S=7, sr=1) and the Mask
-   R-CNN mask-crop shape (12 tiles, R=1,200, S=14, sr=2): the rois on each
-   kernel path, times in the shuffled order and in tile-major order (the
-   order of the main path's rois), bound;
+   at the Faster R-CNN shape (24 tiles, R=24,000, S=7, sr=1), the Mask
+   R-CNN mask-crop shape (12 tiles, R=1,200, S=14, sr=2) and its bbox shape
+   (24 tiles, R=24,000, S=7, sr=2): the rois on each kernel path, times in
+   the shuffled order and in tile-major order (the order of the main path's
+   rois), bound, ps per sample and channel;
 3. the RetinaNet slice at full width (ResNet-50, FPN-256, RetinaHead, built
    from its config with seeded weights) through `inference_detector_tiled`:
    launches counted from zero around it, NMS doing real work, sane boxes,
@@ -41,15 +44,28 @@ RetinaNet-c and of Adap Faster R-CNN, each on two 1920x1080 uint8 frames:
    RoIAlign kernel bit for bit against its plain version on the slice's own
    rois and levels (rois per level, rois per kernel path, whether the
    wrapper's channels-last view of each FPN map copied it), then img/s, the
-   kernel's time on those rois, and the profile.
+   kernel's time on those rois, and the profile;
+5. the Mask R-CNN slice at full width (configs/coco/mask_rcnn_r50_fpn_1x_
+   coco.py: Faster R-CNN's network with 80 classes, RoIAlign S=7 sr=2, and
+   the FCN mask head on S=14 sr=2 crops of every detection slot), with
+   fc_cls.bias raised on 8 classes so that random weights detect: launches
+   {iou_bitmask: 3, greedy_reduce: 3, roi_align: 2}, candidates and
+   detections in every tile, the RoIAlign kernel bit for bit against its
+   plain version on the slice's bbox and mask rois, detections and mask
+   probabilities of `simple_test` and the merged detections equal to those
+   with every kernel swapped for its plain version, the card against the
+   CPU on one tile (mask head included), `run_test` with `DetCollator` on
+   two 800x1333 COCO-preprocessed frames (RLE masks in the 1080x1920
+   frame), then img/s, the mask head's share, the host paste and RLE time,
+   and the profile.
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
 {"ok": true, "device": {...}}; the line before it is the card's name and
 power limit, and the line before that lists each kernel with its launches on
 the main paths, its error against the plain version, its time, the plain
-version's time and its bound (for RoIAlign also `by_shape`: the two phase-2
-shapes and the slice's rois).
+version's time and its bound (`by_shape`: K1 at every launch shape; for
+RoIAlign the phase-2 shapes and the slices' rois).
 """
 import collections
 import contextlib
@@ -65,28 +81,49 @@ import torch
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs/tinyperson/retinanet_r50_fpns4_1x_tinyperson640_clipg.py"
 FRCNN_CONFIG = REPO / "configs/tinyperson/faster_rcnn_r50_fpn_1x_tinyperson640.py"
+MASK_CONFIG = REPO / "configs/coco/mask_rcnn_r50_fpn_1x_coco.py"
 DEVICE = "cuda"
 FRAME_HW = (1080, 1920)
+COCO_HW = (800, 1333)            # mmdet's COCO test scale, (h, w)
 N_FRAMES = 2
 ITERS = 10
 PLAIN_ITERS = 3
 # (name, B, N, classes): the per-tile NMS of one frame and the global merge
 NMS_SHAPES = (("per-tile", 12, 8720, 1), ("global", 2, 12000, 3))
 # (name, B, N, classes, IoU threshold): the NMS kernel pair's launch shapes
-# on both main paths, after the B=12 row of the kernels' first measurements
+# on the main paths, after the B=12 row of the kernels' first measurements;
+# Mask R-CNN's RoI head hands NMS 1,000 proposals x 80 classes capped at
+# multiclass_nms's pre_nms_limit of 20,000, its merge 12 tiles x 100
 K1_SHAPES = (("per-tile B=12", 12, 8720, 1, 0.5),
              ("RetinaNet-c per-tile", 24, 8720, 1, 0.5),
              ("global merge", 2, 12000, 3, 0.5),
              ("Faster R-CNN RPN", 24, 7200, 5, 0.7),
-             ("Faster R-CNN RoI head", 24, 1000, 1, 0.5))
+             ("Faster R-CNN RoI head", 24, 1000, 1, 0.5),
+             ("Mask R-CNN RPN", 24, 4200, 5, 0.7),
+             ("Mask R-CNN RoI head", 24, 20000, 80, 0.5),
+             ("Mask R-CNN merge", 2, 1200, 80, 0.5))
+# class 79's coordinate offset on a 640-px tile (ops/nms.py::_offset_boxes)
+OFFSET_80_CLASSES = 79 * 641
 MAX_OUT = 1000
-# (name, tiles, rois, S, sr): the Faster R-CNN bbox extractor and the Mask
-# R-CNN mask extractor the JAX bench runs on the Pallas kernel
-ROI_SHAPES = (("faster_rcnn", 24, 24000, 7, 1), ("mask_rcnn", 12, 1200, 14, 2))
+# (name, tiles, rois, S, sr): the Faster R-CNN bbox extractor, the Mask
+# R-CNN mask extractor the JAX bench runs on the Pallas kernel, and the Mask
+# R-CNN bbox extractor (sampling_ratio 0 becomes 2)
+ROI_SHAPES = (("faster_rcnn", 24, 24000, 7, 1), ("mask_rcnn", 12, 1200, 14, 2),
+              ("mask_rcnn bbox", 24, 24000, 7, 2))
 ROI_LEVELS = ((128, 160), (64, 80), (32, 40), (16, 20))   # 512x640 tiles
 ROI_STRIDES = (4, 8, 16, 32)
 ROI_CHANNELS = 256
 FRCNN_LAUNCHES = {"iou_bitmask": 3, "greedy_reduce": 3, "roi_align": 1}
+MASK_LAUNCHES = {"iou_bitmask": 3, "greedy_reduce": 3, "roi_align": 2}
+PRE_NMS_LIMIT = 20000            # multiclass_nms's default cap
+# fc_cls.bias raised on the first classes so that some softmax scores of
+# random weights clear score_thr 0.05 (81 logits near 0 give ~1/81 each;
+# +3 on 8 classes gives ~0.086 each)
+MASK_BIAS = (8, 3.0)
+# host paste + RLE: detections of bench.py's bench_mask (fixed 10-20 px
+# boxes in a 1080x1920 frame, 28x28 crops), repetitions
+PASTE_DETS = 100
+PASTE_REPS = 5
 KERNELS = {
     "iou_bitmask": ("pointtinybenchmark_tpu_torch/ops/csrc/nms_kernel.cu",
                     "pointtinybenchmark_tpu/ops/pallas_kernels.py:55"),
@@ -104,16 +141,22 @@ PEAK_F32 = 67e12
 OVERLAP_OPS = 4
 IOU_OPS = 15
 PROFILE_CALLS = 5
-# substrings of device kernel names, first match wins
+# substrings of device kernel names, first match wins; cuDNN runs some
+# convolutions through FFTs (complex GEMMs and products) and a transposed
+# convolution as the data gradient of a convolution (dgrad)
 KERNEL_FAMILIES = (
     ("iou_bitmask", "NMS kernel A iou_bitmask"),
     ("greedy_reduce", "NMS kernel B greedy_reduce"),
     ("roi_align", "RoIAlign kernel"),
+    ("cf32", "convolution by FFT"), ("complex", "convolution by FFT"),
+    ("fft", "convolution by FFT"),
+    ("dgrad", "transposed convolution (cuDNN dgrad)"),
+    ("sort", "sort"),
     ("nhwctonchw", "cuDNN layout transpose"),
     ("nchwtonhwc", "cuDNN layout transpose"),
     ("memcpy", "memcpy"), ("memset", "memset"),
     ("batch_norm", "BN inference"), ("bn_", "BN inference"),
-    ("fprop", "convolution"), ("conv", "convolution"), ("fft", "convolution"),
+    ("fprop", "convolution"), ("conv", "convolution"),
     ("winograd", "convolution"),
     ("gemm", "matrix product (cuBLAS)"), ("xmma", "convolution"),
     ("elementwise", "elementwise"), ("vectorized", "elementwise"))
@@ -157,13 +200,16 @@ def synthetic_boxes(rng, b, n, n_classes=1):
     return boxes, scores, valid, labels
 
 
-def threshold_tie_boxes(thr, per_target=4):
+def threshold_tie_boxes(thr, per_target=4, x_offset=0):
     """Box pairs whose float32 IoU, computed as ops/nms.py::_pairwise_iou
     does, is exactly thr or one of its two float neighbours: numpy (2P, 4)
     f32, pair p an outer box (row 2p) and an inner one (2p + 1) nested on
     the 1-px band y in [2p, 2p + 1], so that no two pairs overlap. With
     integer widths o > i below 2**24, inter = i and union = (o + i) - i in
-    float32, which the search below repeats. Returns (boxes, iou (P,) f32)."""
+    float32, which the search below repeats. An integer `x_offset` (a class
+    offset of ops/nms.py::_offset_boxes, such as 79 classes of a 640-px
+    tile) moves every box right; the coordinates stay below 2**24, so the
+    IoUs stay. Returns (boxes, iou (P,) f32)."""
     t = np.float32(thr)
     targets = (np.nextafter(t, np.float32(-1)), t,
                np.nextafter(t, np.float32(2)))
@@ -181,8 +227,10 @@ def threshold_tie_boxes(thr, per_target=4):
         pairs += found[:per_target]
     boxes = np.zeros((2 * len(pairs), 4), np.float32)
     for p, (o, i, _) in enumerate(pairs):
-        boxes[2 * p] = (0, 2 * p, o, 2 * p + 1)
-        boxes[2 * p + 1] = (0, 2 * p, i, 2 * p + 1)
+        boxes[2 * p] = (x_offset, 2 * p, o + x_offset, 2 * p + 1)
+        boxes[2 * p + 1] = (x_offset, 2 * p, i + x_offset, 2 * p + 1)
+    if boxes[:, 2].max() >= 2 ** 24:
+        raise ValueError(f"x_offset {x_offset}: coordinates reach 2**24")
     return boxes, np.asarray([q for *_, q in pairs], np.float32)
 
 
@@ -255,6 +303,24 @@ def plain_roi_align():
         yield
     finally:
         roi_align_cuda.roi_align_forward = saved
+
+
+@contextlib.contextmanager
+def nms_shapes(shapes):
+    """Inside this block each NMS bitmask launch appends the (B, N) of its
+    boxes to `shapes`, and then launches as it would."""
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda
+
+    saved = nms_cuda.iou_bitmask
+
+    def record(boxes, *args, **kwargs):
+        shapes.append(tuple(boxes.shape[:2]))
+        return saved(boxes, *args, **kwargs)
+    nms_cuda.iou_bitmask = record
+    try:
+        yield
+    finally:
+        nms_cuda.iou_bitmask = saved
 
 
 def reset_launches():
@@ -501,9 +567,11 @@ def phase_kernels(card):
     print(f"phase 1 iou_bitmask B={b} N={n}, no two boxes overlapping: kernel "
           f"{ms:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]")
 
-    # IoUs on the threshold and its float neighbours
-    for thr in (0.5, 0.7):
-        tie, iou = threshold_tie_boxes(thr)
+    # IoUs on the threshold and its float neighbours, also moved by the
+    # largest class offset of Mask R-CNN's 80-class NMS
+    for thr, x_offset in ((0.5, 0), (0.7, 0), (0.5, OFFSET_80_CLASSES),
+                          (0.7, OFFSET_80_CLASSES)):
+        tie, iou = threshold_tie_boxes(thr, x_offset=x_offset)
         tie = torch.from_numpy(tie)[None].to(DEVICE)
         every = torch.tensor([tie.shape[1]], dtype=torch.int32, device=DEVICE)
         got = nms_cuda.defined_words(nms_cuda.iou_bitmask(tie, thr, every),
@@ -512,9 +580,11 @@ def phase_kernels(card):
                                       every)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"threshold ties at {thr}: kernel != plain")
-        print(f"phase 1 threshold ties at {thr}: {len(iou)} pairs with IoU "
-              f"{np.unique(iou).tolist()}, kernel bits == plain bits")
+            raise AssertionError(f"threshold ties at {thr}, x offset "
+                                 f"{x_offset}: kernel != plain")
+        print(f"phase 1 threshold ties at {thr}, x offset {x_offset}: "
+              f"{len(iou)} pairs with IoU {np.unique(iou).tolist()}, kernel "
+              f"bits == plain bits")
 
     # the JSON line keeps the B=12 row, comparable with earlier measurements
     return {k: dict(rows[0][k], by_shape=[r[k] for r in rows])
@@ -553,6 +623,12 @@ def shares(counts):
     """'path n (share of all)' for each path of a `roi_paths` dict."""
     total = max(sum(counts.values()), 1)
     return ", ".join(f"{k} {v} ({v / total:.4f})" for k, v in counts.items())
+
+
+def ps_per_sample(ms, feats, r, out, sr):
+    """Kernel time per bilinear sample and channel, in picoseconds: the time
+    over R S^2 sr^2 C."""
+    return ms * 1e9 / (r * out * out * sr * sr * feats[0].shape[1])
 
 
 def time_roi_align(feats, rois, lvls, out, sr):
@@ -595,6 +671,7 @@ def phase_roi_align(card):
         ms_tile_major = time_ms(lambda: roi_align_cuda.roi_align_forward(
             feats, rois_tm, lvls_tm, ROI_STRIDES, out, sr), ITERS)
         bms, by = roi_align_bound(feats, rois, lvls, out, sr)
+        ps = ps_per_sample(ms, feats, r, out, sr)
         print(f"phase 2 RoIAlign {name} R={r} S={out} sr={sr} C={ROI_CHANNELS}"
               f" ({b} tiles in shuffled order, rois per level {per_level}): "
               f"out {tuple(got.shape)}, kernel == plain (torch.equal)")
@@ -602,11 +679,12 @@ def phase_roi_align(card):
               f"the {edge.shape[0]} edge rois among them: {shares(edge_paths)}")
         print(f"phase 2 RoIAlign {name}: kernel {ms:.4f} ms (shuffled), "
               f"{ms_tile_major:.4f} ms (tile-major), plain {plain_ms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by}) [{card}]")
+              f"bound {bms:.4f} ms ({by}); {ps:.4f} ps per sample and "
+              f"channel [{card}]")
         records.append(dict(shape=name, R=r, S=out, sr=sr, max_abs_err=err,
                             ms=ms, ms_tile_major=ms_tile_major,
                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                            paths=paths))
+                            ps_per_sample=ps, paths=paths))
     return records
 
 
@@ -784,9 +862,7 @@ def phase_frcnn(card, frames):
     print(f"phase 4 RPN: {n_cands} candidates per tile, objectness "
           f"{float(sig.min()):.4f}..{float(sig.max()):.4f}; proposals kept "
           f"per tile {valid.sum(1).min().item()}..{valid.sum(1).max().item()}")
-    rois = torch.cat([torch.arange(b, dtype=props.dtype, device=DEVICE)
-                      .repeat_interleave(props.shape[1])[:, None],
-                      props.reshape(-1, 4)], 1)
+    rois = slice_rois(props)
     lvls = map_roi_levels(rois, len(ROI_STRIDES))
     per_level = torch.bincount(lvls, minlength=len(ROI_STRIDES)).tolist()
     kept = dets.valid.sum(1)
@@ -854,6 +930,297 @@ def phase_frcnn(card, frames):
                   max_abs_err=k2_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                   bound_by=by, paths=paths, maps_copied=len(copied))
     return launches, handle, record
+
+
+def lift_scores(model):
+    """Raise fc_cls.bias on MASK_BIAS's first classes (see there)."""
+    n, value = MASK_BIAS
+    with torch.no_grad():
+        model.roi_head.bbox_head.fc_cls.bias[:n] += value
+
+
+def slice_rois(boxes):
+    """(B, P, 4) boxes -> (B * P, 5) rois, image-major, as the RoI head
+    builds them."""
+    b, p = boxes.shape[:2]
+    idx = torch.arange(b, dtype=boxes.dtype, device=boxes.device)
+    return torch.cat([idx.repeat_interleave(p)[:, None],
+                      boxes.reshape(-1, 4)], 1)
+
+
+def roi_align_on_slice(card, label, feats, rois, out, sr):
+    """The RoIAlign kernel bit for bit against its plain version on a
+    slice's own rois and levels, with rois per level and kernel path, the
+    kernel's, the plain version's and the bound's times."""
+    from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
+        map_roi_levels
+
+    lvls = map_roi_levels(rois, len(ROI_STRIDES))
+    per_level = torch.bincount(lvls, minlength=len(ROI_STRIDES)).tolist()
+    _, err = compare_roi_align(feats, rois, lvls, out, sr)
+    paths = roi_paths(feats, rois, lvls, out, sr)
+    ms, plain_ms = time_roi_align(feats, rois, lvls, out, sr)
+    bms, by = roi_align_bound(feats, rois, lvls, out, sr)
+    r = rois.shape[0]
+    ps = ps_per_sample(ms, feats, r, out, sr)
+    print(f"phase 5 RoIAlign {label} (R={r}, S={out}, sr={sr}, rois per "
+          f"level {per_level}): kernel == plain (torch.equal); kernel paths: "
+          f"{shares(paths)}")
+    print(f"phase 5 RoIAlign {label}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); {ps:.4f} ps per "
+          f"sample and channel [{card}]")
+    return dict(shape=f"mask_rcnn slice, {label}", R=r, S=out, sr=sr,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, ps_per_sample=ps, per_level=per_level,
+                paths=paths)
+
+
+def mask_head_flops(head, r, s):
+    """f32 operations of the FCN mask head on r crops of s x s: the 3x3
+    convolutions at s, the 2x2 stride-2 transposed convolution (one tap per
+    output pixel and input channel) and the 1x1 logits at 2s; 2 per
+    multiply-add."""
+    convs = sum(2 * r * s * s * 9 * m.conv.in_channels * m.conv.out_channels
+                for m in head.convs)
+    up = head.upsample
+    deconv = 2 * r * (2 * s) ** 2 * up.in_channels * up.out_channels
+    logits = 2 * r * (2 * s) ** 2 * up.out_channels * head.num_classes
+    return convs + deconv + logits
+
+
+def coco_samples(frames):
+    """Two preprocessed samples as the COCO test pipeline hands them to the
+    collator: each frame resized to 800x1333 (mmdet's test scale) and
+    normalized, float32 (H, W, 3) numpy, with its scale factor
+    (w, h, w, h) and original shape."""
+    from pointtinybenchmark_tpu_torch.engine.test import (DEFAULT_MEAN,
+                                                          DEFAULT_STD)
+
+    h, w = FRAME_HW
+    mean = torch.tensor(DEFAULT_MEAN, device=DEVICE)
+    std = torch.tensor(DEFAULT_STD, device=DEVICE)
+    samples = []
+    for f in frames:
+        x = torch.from_numpy(f).to(DEVICE).permute(2, 0, 1)[None].float()
+        x = torch.nn.functional.interpolate(x, size=COCO_HW, mode="bilinear",
+                                            align_corners=False)
+        x = (x[0].permute(1, 2, 0) - mean) / std
+        sf = np.asarray([COCO_HW[1] / w, COCO_HW[0] / h] * 2, np.float32)
+        samples.append(dict(img=x.cpu().numpy(), img_metas=dict(
+            scale_factor=sf, ori_shape=(h, w))))
+    return samples
+
+
+def phase_run_test(card, model, frames):
+    """`run_test` with the port's DetCollator on two COCO-preprocessed
+    frames, rescale on: boxes in the 1080x1920 frame, one RLE mask of that
+    size per detection, at least one not empty."""
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.test import run_test
+    from pointtinybenchmark_tpu_torch.evaluation.mask_utils import rle_encode
+
+    h, w = FRAME_HW
+    samples = coco_samples(frames)
+    collator = DetCollator(size_divisor=32)
+    pad = collator(samples)["img"].shape[1:3]
+    results = run_test(model, samples, collator, batch_size=len(samples))
+    empty = rle_encode(np.zeros(FRAME_HW, bool))["counts"]
+    for i, r in enumerate(results):
+        bb, masks = r["bboxes"], r["masks"]
+        n = bb.shape[0]
+        filled = sum(m["counts"] != empty for m in masks)
+        print(f"phase 5 run_test image {i}: {n} detections, {len(masks)} RLE "
+              f"masks of size {masks[0]['size'] if masks else None}, "
+              f"{filled} not empty")
+        if not n or len(masks) != n or filled == 0 \
+                or any(m["size"] != [h, w] for m in masks):
+            raise AssertionError(f"run_test image {i}: {n} detections, "
+                                 f"{len(masks)} masks, {filled} not empty")
+        if not (np.isfinite(bb).all() and (bb[:, :4] >= 0).all()
+                and (bb[:, [0, 2]] <= w + 1e-3).all()
+                and (bb[:, [1, 3]] <= h + 1e-3).all()):
+            raise AssertionError(f"run_test image {i}: boxes outside the "
+                                 f"original frame")
+    t0 = time.perf_counter()
+    run_test(model, samples, collator, batch_size=len(samples))
+    ips = len(samples) / (time.perf_counter() - t0)
+    print(f"phase 5 run_test: {len(samples)} images of {COCO_HW} padded to "
+          f"{tuple(pad)}, rescaled to {FRAME_HW}, masks pasted and "
+          f"RLE-encoded on the host: {ips:.4f} img/s (one warm call) "
+          f"[{card}]")
+    return ips
+
+
+def paste_ms():
+    """Host paste of PASTE_DETS crops into a 1080x1920 frame (the boxes and
+    crops of bench.py's bench_mask), and the paste with the RLE encoding of
+    each mask, ms per call (host clock)."""
+    from pointtinybenchmark_tpu_torch.evaluation.mask_utils import (
+        paste_masks, rle_encode)
+
+    h, w = FRAME_HW
+    rng = np.random.RandomState(1)
+    crops = rng.rand(PASTE_DETS, 28, 28).astype(np.float32)
+    cx, cy = rng.uniform(0, w, PASTE_DETS), rng.uniform(0, h, PASTE_DETS)
+    bw, bh = rng.uniform(10, 20, PASTE_DETS), rng.uniform(10, 20, PASTE_DETS)
+    boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2],
+                     1).astype(np.float32)
+
+    def ms(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(PASTE_REPS):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / PASTE_REPS
+    return (ms(lambda: paste_masks(crops, boxes, h, w)),
+            ms(lambda: [rle_encode(m) for m in paste_masks(crops, boxes, h,
+                                                            w)]))
+
+
+def phase_mask(card, frames):
+    from pointtinybenchmark_tpu_torch.apis.inference import (
+        inference_detector_tiled, init_detector)
+    from pointtinybenchmark_tpu_torch.core.post_processing import DetResult
+
+    handle = init_detector(str(MASK_CONFIG), device=DEVICE, seed=0)
+    model = handle.model
+    lift_scores(model)
+    n_lift, lift = MASK_BIAS
+    print(f"phase 5: fc_cls.bias +{lift} on classes 0..{n_lift - 1} so that "
+          f"scores pass score_thr (random weights put all 81 near 1/81)")
+    torch.backends.cudnn.deterministic = True   # the two runs must match bit for bit
+    reset_launches()
+    results = inference_detector_tiled(handle, list(frames))
+    launches = read_launches()
+    print(f"phase 5 launches on the Mask R-CNN path: {launches}")
+    if launches != MASK_LAUNCHES:
+        raise AssertionError(f"expected {MASK_LAUNCHES}, got {launches}")
+    check_frames(results, "phase 5")
+
+    # the stages of one call, kept for the work checks and the timings
+    eng = next(iter(handle.tiled_engines.values()))
+    tiles = eng.pre(frames)
+    b = tiles.shape[0]
+    img_shapes = torch.tensor([eng.pre.tile_hw], dtype=torch.int32,
+                              device=DEVICE).expand(b, 2)
+    head = model.roi_head
+    cfg = head.test_cfg
+    shapes = []
+    with torch.no_grad(), nms_shapes(shapes):
+        feats = model.extract_feat(tiles)
+        rpn_outs = model.rpn_head(feats)
+        props, _, valid = model.rpn_head.get_proposals(
+            *rpn_outs, img_shapes, model.rpn_head.test_cfg)
+        cls_score, _ = head(feats, props)
+        dets, masks = head.simple_test(feats, props, valid, img_shapes)
+    p, nc = props.shape[1], head.num_classes
+    print(f"phase 5 NMS bitmask shapes (B, N): RPN {shapes[0]}, RoI head "
+          f"{shapes[1]} ({p} proposals x {nc} classes capped at "
+          f"multiclass_nms's pre_nms_limit)")
+    if shapes[1] != (b, min(PRE_NMS_LIMIT, p * nc)):
+        raise AssertionError(f"RoI-head NMS at {shapes[1]}")
+    scores = torch.softmax(cls_score, -1).reshape(b, p, nc + 1)[..., :nc]
+    cands = ((scores > float(cfg["score_thr"])) & valid[..., None]).sum((1, 2))
+    kept = dets.valid.sum(1)
+    print(f"phase 5 RPN proposals per tile {valid.sum(1).min().item()}.."
+          f"{valid.sum(1).max().item()}; RoI-head NMS candidates over "
+          f"score_thr per tile {cands.tolist()}; detections per tile "
+          f"{kept.tolist()}; mask "
+          f"probabilities {tuple(masks.shape)}, "
+          f"{float(masks.min()):.4f}..{float(masks.max()):.4f}")
+    if valid.sum(1).min() <= 0 or cands.min() <= 0 or kept.min() <= 0:
+        raise AssertionError("a tile has no proposal, candidate or detection")
+
+    # the RoIAlign kernel on the slice's own rois: the bbox extractor's
+    # (S=7, sr=2) and the mask extractor's (S=14, sr=2: every detection slot)
+    k_feats = list(feats[:len(ROI_STRIDES)])
+    bbox_record = roi_align_on_slice(card, "bbox rois", k_feats,
+                                     slice_rois(props), 7, 2)
+    mask_record = roi_align_on_slice(card, "mask rois", k_feats,
+                                     slice_rois(dets.bboxes[..., :4]), 14, 2)
+
+    # every kernel swapped for its plain version: the same detections and
+    # mask probabilities, per tile and after the merge
+    def per_tile():
+        with torch.no_grad():
+            return model.simple_test(tiles, img_shapes)
+    got = per_tile()
+    with plain_nms(), plain_roi_align():
+        want = per_tile()
+        results_plain = inference_detector_tiled(handle, list(frames))
+    torch.backends.cudnn.deterministic = False
+    for name, g, w in zip(DetResult._fields + ("masks",),
+                          tuple(got[0]) + (got[1],),
+                          tuple(want[0]) + (want[1],)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"simple_test {name}: kernels and plain "
+                                 f"disagree")
+    for i, (r, q) in enumerate(zip(results, results_plain)):
+        if not (np.array_equal(r["bboxes"], q["bboxes"])
+                and np.array_equal(r["labels"], q["labels"])):
+            raise AssertionError(f"frame {i}: kernels and plain disagree")
+    print("phase 5: detections and mask probabilities of every tile, and "
+          "the merged detections, with the kernels == with every kernel "
+          "swapped for its plain version")
+
+    # the card against the CPU on one tile: backbone, neck, RPN, the RoI
+    # head on the card's proposals and the mask branch on the card's
+    # detections of that tile
+    cpu_model = init_detector(str(MASK_CONFIG), device="cpu", seed=0).model
+    lift_scores(cpu_model)
+    with torch.no_grad():
+        t0 = tiles[:1]
+        c_back = cpu_model.backbone(t0.cpu().permute(0, 3, 1, 2))
+        g_back = model.backbone(t0.permute(0, 3, 1, 2))
+        c_feats = cpu_model.neck(c_back)
+        c_rpn = cpu_model.rpn_head(c_feats)
+        c_roi = cpu_model.roi_head(c_feats, props[:1].cpu())
+        g_roi = head([f[:1] for f in feats], props[:1])
+        det0 = dets.bboxes[:1, :, :4]
+        c_mask = cpu_model.roi_head.mask_forward(c_feats, det0.cpu())
+        g_mask = head.mask_forward([f[:1] for f in feats], det0)
+    errs = {"backbone": rel_err(g_back, c_back),
+            "neck": rel_err([f[:1] for f in feats], c_feats),
+            "rpn": rel_err([o[:1] for o in rpn_outs[0] + rpn_outs[1]],
+                           c_rpn[0] + c_rpn[1]),
+            "roi_head": rel_err(g_roi, c_roi),
+            "mask_head": rel_err([g_mask], [c_mask])}
+    print("phase 5 card vs CPU on one tile, max rel err: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if max(errs.values()) > 1e-4:
+        raise AssertionError(f"card differs from CPU: {errs}")
+    del cpu_model
+
+    run_test_ips = phase_run_test(card, model, frames)
+    protocol, forward = throughput(handle, frames, tiles)
+    mask_feats = head._extract(feats, dets.bboxes[..., :4],
+                               head.mask_extractor)
+    with torch.no_grad():
+        mh_ms = time_ms(lambda: head.mask_head(mask_feats), ITERS)
+        fwd_ms = time_ms(lambda: model(tiles), ITERS)
+    s = mask_feats.shape[-1]
+    mh_flop = mask_head_flops(head.mask_head, mask_feats.shape[0], s)
+    host_paste_ms, host_ms = paste_ms()
+    print(f"phase 5 protocol ({N_FRAMES} frames of {eng.pre.n_views} tiles, "
+          f"host in the loop, detections merged, masks not returned): "
+          f"{protocol:.4f} img/s [{card}]")
+    print(f"phase 5 forward only (tiles -> detections + 28x28 mask "
+          f"probabilities, {b} tiles, f32, TF32 off): {forward:.4f} img/s; "
+          f"{fwd_ms:.4f} ms per forward by CUDA events [{card}]")
+    print(f"phase 5 mask head alone ({mask_feats.shape[0]} crops of {s}x{s}, "
+          f"{mh_flop / 1e12:.4f} TFLOP): {mh_ms:.4f} ms, "
+          f"{mh_flop / mh_ms / 1e9:.2f} TFLOP/s, share of the forward "
+          f"{mh_ms / fwd_ms:.4f} [{card}]")
+    print(f"phase 5 host paste of {PASTE_DETS} detections into {FRAME_HW} "
+          f"(bench_mask's boxes): {host_paste_ms:.4f} ms; paste + RLE "
+          f"{host_ms:.4f} ms (host clock)")
+    numbers = dict(protocol_img_s=protocol, forward_img_s=forward,
+                   forward_ms=fwd_ms, run_test_img_s=run_test_ips,
+                   mask_head_ms=mh_ms, mask_head_tflop=mh_flop / 1e12,
+                   paste_ms_per_100=host_paste_ms * 100 / PASTE_DETS,
+                   paste_rle_ms_per_100=host_ms * 100 / PASTE_DETS)
+    print(json.dumps({"mask_rcnn": numbers}))
+    return launches, handle, [bbox_record, mask_record]
 
 
 def _busy_us(events):
@@ -950,15 +1317,20 @@ def main():
     torch.cuda.empty_cache()
     frcnn_launches, handle, slice_record = phase_frcnn(card, frames)
     phase_profile(card, handle, frames, "faster_rcnn")
-    records["roi_align"] = dict(slice_record,
-                                by_shape=roi_shapes + [slice_record])
+    del handle
+    torch.cuda.empty_cache()
+    mask_launches, handle, mask_records = phase_mask(card, frames)
+    phase_profile(card, handle, frames, "mask_rcnn")
+    records["roi_align"] = dict(
+        slice_record, by_shape=roi_shapes + [slice_record] + mask_records)
 
+    by_path = {"adap_retinanet_c": retina_launches,
+               "faster_rcnn": frcnn_launches, "mask_rcnn": mask_launches}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],
-             launches=retina_launches[name] + frcnn_launches[name],
-             launches_by_path={"adap_retinanet_c": retina_launches[name],
-                               "faster_rcnn": frcnn_launches[name]},
+             launches=sum(n[name] for n in by_path.values()),
+             launches_by_path={k: n[name] for k, n in by_path.items()},
              library_ms=None, **records[name])
         for name in KERNELS]}))
     print(card)

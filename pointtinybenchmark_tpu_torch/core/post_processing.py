@@ -1,8 +1,9 @@
 """Static-shape multiclass NMS, batched over images or tiles.
 
 Counterpart of pointtinybenchmark_tpu/core/post_processing.py (mmdet
-bbox_nms.py::multiclass_nms): per-class score threshold, class-aware NMS
-and a max_per_img cap, with fixed-size outputs and a validity mask. The JAX
+bbox_nms.py::multiclass_nms): per-class score threshold, optional score
+factors, a static cap on the candidates handed to NMS, class-aware NMS and
+a max_per_img cap, with fixed-size outputs and a validity mask. The JAX
 function handles one image under vmap; this one takes the batch axis and
 runs one NMS launch for all of it.
 """
@@ -28,7 +29,9 @@ def multiclass_nms(multi_bboxes: torch.Tensor,
                    score_thr: float,
                    iou_threshold: float,
                    max_per_img: int,
-                   valid_mask: Optional[torch.Tensor] = None) -> DetResult:
+                   valid_mask: Optional[torch.Tensor] = None,
+                   pre_nms_limit: int = 20000,
+                   score_factors: Optional[torch.Tensor] = None) -> DetResult:
     """
     Args:
         multi_bboxes: (B, N, 4) class-agnostic or (B, N, C*4).
@@ -37,6 +40,12 @@ def multiclass_nms(multi_bboxes: torch.Tensor,
         iou_threshold: NMS IoU threshold.
         max_per_img: static output size.
         valid_mask: (B, N) bool for padded rows.
+        pre_nms_limit: cap on the N*C flattened candidates handed to NMS:
+            the top `pre_nms_limit` by score, ties to the lower index (as
+            lax.top_k), invalid ones last.
+        score_factors: (B, N) multiplier (centerness, objectness) applied
+            after the score threshold, as mmdet's bbox_nms.py does; the
+            output score is the product.
     """
     b, n = multi_scores.shape[:2]
     num_classes = multi_scores.shape[2] - 1
@@ -53,7 +62,21 @@ def multiclass_nms(multi_bboxes: torch.Tensor,
     ok = flat_scores > score_thr
     if valid_mask is not None:
         ok = ok & valid_mask.repeat_interleave(num_classes, dim=1)
+    if score_factors is not None:
+        flat_scores = flat_scores * score_factors.repeat_interleave(
+            num_classes, dim=1)
     flat_scores = torch.where(ok, flat_scores, -1.0)
+
+    k = pre_nms_limit
+    if k < flat_scores.shape[1]:
+        # a stable descending sort, then the first k: lax.top_k's order
+        # (torch.topk leaves the order of ties unspecified)
+        flat_scores, idx = torch.sort(flat_scores, dim=1, descending=True,
+                                      stable=True)
+        flat_scores, idx = flat_scores[:, :k], idx[:, :k]
+        flat_boxes = flat_boxes.gather(1, idx[..., None].expand(-1, -1, 4))
+        flat_labels = flat_labels.gather(1, idx)
+        ok = ok.gather(1, idx)
 
     keep_idx, _ = batched_nms(flat_boxes, flat_scores, flat_labels,
                               iou_threshold, max_per_img, valid_mask=ok)

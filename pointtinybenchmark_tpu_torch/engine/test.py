@@ -1,30 +1,96 @@
-"""Tiled protocol inference: uint8 frames in, globally merged detections out.
+"""Inference engines: the plain test loop and tiled protocol inference.
 
-Counterpart of pointtinybenchmark_tpu/engine/test.py (`DeviceTiledInference`,
-`run_device_tiled_test`): normalize and tile on the device, one batched
-forward over every tile of every frame, one batched per-tile NMS, a shift of
-each tile's boxes by its offset, then one batched global class-aware NMS
-over all frames (the JAX engine unrolls the merge per image; here the batch
-axis of the NMS kernels takes the frames).
+Counterpart of pointtinybenchmark_tpu/engine/test.py (`run_test`,
+`DeviceTiledInference`, `run_device_tiled_test`).
+
+- `run_test`: collated batches of preprocessed images through
+  `simple_test`, boxes rescaled to each original image; a Mask R-CNN's
+  mask probabilities are pasted into the original frame on the host and
+  RLE-encoded (`_to_result`).
+- Tiled protocol: uint8 frames in, globally merged detections out. Normalize
+  and tile on the device, one batched forward over every tile of every
+  frame, one batched per-tile NMS, a shift of each tile's boxes by its
+  offset, then one batched global class-aware NMS over all frames (the JAX
+  engine unrolls the merge per image; here the batch axis of the NMS
+  kernels takes the frames). Mask probabilities, where the model makes
+  them, are dropped there, as the JAX engine drops them: there is no tiled
+  mask merge.
 """
 from __future__ import annotations
 
 import logging
-from typing import Iterable, List, Optional, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.post_processing import DetResult
 from ..data.device_pipeline import DevicePreprocessor
+from ..evaluation.mask_utils import paste_masks, rle_encode
 from ..ops.nms import batched_nms
 
-__all__ = ["DeviceTiledInference", "run_device_tiled_test"]
+__all__ = ["run_test", "DeviceTiledInference", "run_device_tiled_test"]
 
 logger = logging.getLogger("ptb_torch")
 
 DEFAULT_MEAN = (123.675, 116.28, 103.53)
 DEFAULT_STD = (58.395, 57.12, 57.375)
+
+
+def _to_result(bboxes: np.ndarray, labels: np.ndarray, valid: np.ndarray,
+               mask_crops: Optional[np.ndarray],
+               ori_shape) -> Dict[str, object]:
+    """One image's valid detections; with mask crops (M, s, s), also their
+    masks pasted into the original frame of shape `ori_shape` and
+    RLE-encoded (mmdet FCNMaskHead.get_seg_masks + _segm2json), the boxes
+    being in that frame already."""
+    keep = valid.astype(bool)
+    out = dict(bboxes=bboxes[keep], labels=labels[keep])
+    if mask_crops is not None:
+        h, w = int(ori_shape[0]), int(ori_shape[1])
+        full = paste_masks(np.asarray(mask_crops[keep], np.float32),
+                           out["bboxes"][:, :4], h, w)
+        out["masks"] = [rle_encode(m) for m in full]
+    return out
+
+
+@torch.no_grad()
+def run_test(model, dataset, collator, batch_size: int = 1,
+             rescale: bool = True) -> List[dict]:
+    """The plain (untiled) test loop. `dataset` is any indexable of
+    preprocessed samples (`img` (H, W, 3) float32, `img_metas` with
+    `scale_factor` and `ori_shape`), or of samples whose `views[0]` is one;
+    `collator` batches them (`data/loader.py::DetCollator`). The batches go
+    to the model's device. Returns per image bboxes (n, 5) and labels (n,),
+    with `rescale` in the original image's frame, and for a Mask R-CNN the
+    RLE `masks` of the original image's size."""
+    device = next(model.parameters()).device
+    results: List[dict] = []
+    n = len(dataset)
+    for start in range(0, n, batch_size):
+        flat = []
+        for i in range(start, min(start + batch_size, n)):
+            s = dataset[i]
+            flat.append(s["views"][0] if "views" in s else s)
+        batch = collator(flat)
+        out = model.simple_test(
+            torch.from_numpy(batch["img"]).to(device),
+            torch.from_numpy(batch["img_shape"]).to(device),
+            torch.from_numpy(batch["scale_factor"]).to(device), rescale)
+        masks = None
+        if not isinstance(out, DetResult):
+            out, masks = out
+            masks = masks.cpu().numpy()
+        db, dl, dv = (t.cpu().numpy() for t in out)
+        for i, sample in enumerate(flat):
+            ori = sample.get("img_metas", {}).get("ori_shape",
+                                                  sample["img"].shape[:2])
+            results.append(_to_result(
+                db[i], dl[i], dv[i], masks[i] if masks is not None else None,
+                ori))
+        if (start // batch_size) % 50 == 0:
+            logger.info("test %d/%d", start + len(flat), n)
+    return results
 
 
 class DeviceTiledInference:
@@ -79,6 +145,8 @@ class DeviceTiledInference:
         tiles = self.pre(frames)
         dets = self.model.simple_test(
             tiles, self._img_shape.expand(tiles.shape[0], 2))
+        if not isinstance(dets, DetResult):       # (detections, masks)
+            dets = dets[0]
         boxes, scores, labels, keep = (t.cpu().numpy()
                                        for t in self.merge(dets))
         results = []

@@ -20,9 +20,10 @@ from .dense_heads.anchor_head import AnchorHead
 from .dense_heads.retina_head import RetinaHead
 from .dense_heads.rpn_head import RPNHead
 from .detectors.single_stage import SingleStageDetector
-from .detectors.two_stage import TwoStageDetector
+from .detectors.two_stage import MaskRCNN, TwoStageDetector
 from .necks.fpn import FPN
 from .roi_heads.bbox_head import Shared2FCBBoxHead
+from .roi_heads.mask_head import FCNMaskHead
 from .roi_heads.standard_roi_head import StandardRoIHead
 
 logger = logging.getLogger("ptb_torch")
@@ -37,9 +38,11 @@ MODULES = {
     "RPNHead": RPNHead,
     "StandardRoIHead": StandardRoIHead,
     "Shared2FCBBoxHead": Shared2FCBBoxHead,
+    "FCNMaskHead": FCNMaskHead,
 }
 SINGLE_STAGE = ("SingleStageDetector", "RetinaNet")
-TWO_STAGE = ("TwoStageDetector", "FasterRCNN")
+TWO_STAGE = {"TwoStageDetector": TwoStageDetector,
+             "FasterRCNN": TwoStageDetector, "MaskRCNN": MaskRCNN}
 
 
 def build_module(cfg: dict) -> nn.Module:
@@ -64,7 +67,8 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
     `device` (the card unless the caller asks for the CPU). Weights are
     drawn on the CPU from `torch.Generator` seeded with `seed`, so a seed
     gives the same weights on every device. A two-stage detector's RPN gets
-    `test_cfg["rpn"]` and its RoI head `test_cfg["rcnn"]`."""
+    `test_cfg["rpn"]` and its RoI head `test_cfg["rcnn"]`, and its RoI
+    head the built bbox head and, for Mask R-CNN, mask head."""
     del train_cfg  # inference only
     cfg = dict(cfg)
     kind = cfg.pop("type")
@@ -82,9 +86,11 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
         roi_cfg = dict(cfg["roi_head"])
         roi_cfg.setdefault("test_cfg", (test_cfg or {}).get("rcnn"))
         roi_cfg["bbox_head"] = build_module(roi_cfg["bbox_head"])
-        model = TwoStageDetector(backbone=backbone, neck=neck,
-                                 rpn_head=build_module(rpn_cfg),
-                                 roi_head=build_module(roi_cfg))
+        if roi_cfg.get("mask_head"):
+            roi_cfg["mask_head"] = build_module(roi_cfg["mask_head"])
+        model = TWO_STAGE[kind](backbone=backbone, neck=neck,
+                                rpn_head=build_module(rpn_cfg),
+                                roi_head=build_module(roi_cfg))
     else:
         raise KeyError(f"detector {kind} is not ported")
     model.init_weights(torch.Generator().manual_seed(seed))

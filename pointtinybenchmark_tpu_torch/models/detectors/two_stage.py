@@ -1,14 +1,17 @@
-"""Two-stage detector (Faster R-CNN): backbone -> neck -> RPN -> RoI head.
+"""Two-stage detector (Faster R-CNN, Mask R-CNN): backbone -> neck -> RPN
+-> RoI head.
 
 Counterpart of pointtinybenchmark_tpu/models/detectors/two_stage.py::
-TwoStageDetector / FasterRCNN, inference only. The RPN proposes with
-`test_cfg["rpn"]` and the RoI head detects with `test_cfg["rcnn"]` (each
-head holds its part). Public functions take NHWC images, like the JAX
-model and the single-stage detector.
+TwoStageDetector / FasterRCNN / MaskRCNN, inference only. The RPN proposes
+with `test_cfg["rpn"]` and the RoI head detects with `test_cfg["rcnn"]`
+(each head holds its part); Mask R-CNN is the same detector with a mask
+head in its RoI head, whose results then carry the mask probabilities.
+Public functions take NHWC images, like the JAX model and the single-stage
+detector.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -17,7 +20,7 @@ from ...core.post_processing import DetResult
 from ..dense_heads.rpn_head import RPNHead
 from ..roi_heads.standard_roi_head import StandardRoIHead
 
-__all__ = ["TwoStageDetector"]
+__all__ = ["TwoStageDetector", "MaskRCNN"]
 
 DEFAULT_PROPOSAL_CFG = dict(nms_pre=1000, max_per_img=1000,
                             nms=dict(iou_threshold=0.7), min_bbox_size=0)
@@ -43,18 +46,32 @@ class TwoStageDetector(nn.Module):
         x = self.backbone(img.permute(0, 3, 1, 2))
         return self.neck(x) if self.neck is not None else x
 
-    def forward(self, img: torch.Tensor) -> DetResult:
+    def forward(self, img: torch.Tensor
+                ) -> Union[DetResult, Tuple[DetResult, torch.Tensor]]:
         """The whole network on (B, H, W, 3) images, each image's shape its
-        own (JAX `__call__`): the per-tile detections before any merge."""
+        own (JAX `__call__`): the per-tile detections before any merge (and
+        their mask probabilities, with a mask head)."""
         b, h, w = img.shape[:3]
         img_shapes = torch.tensor([[h, w]], dtype=torch.int32,
                                   device=img.device).expand(b, 2)
         return self.simple_test(img, img_shapes)
 
-    def simple_test(self, img: torch.Tensor,
-                    img_shapes: torch.Tensor) -> DetResult:
+    def simple_test(self, img: torch.Tensor, img_shapes: torch.Tensor,
+                    scale_factors: Optional[torch.Tensor] = None,
+                    rescale: bool = False
+                    ) -> Union[DetResult, Tuple[DetResult, torch.Tensor]]:
+        """img (B, H, W, 3), img_shapes (B, 2) (h, w) of each image's
+        content. With `rescale`, boxes are divided by `scale_factors`
+        (B, 4): the original image's frame. Returns the RoI head's result:
+        the detections, and with a mask head (detections, masks)."""
         feats = self.extract_feat(img)
         proposals, _, valid = self.rpn_head.get_proposals(
             *self.rpn_head(feats), img_shapes,
             self.rpn_head.test_cfg or DEFAULT_PROPOSAL_CFG)
-        return self.roi_head.simple_test(feats, proposals, valid, img_shapes)
+        return self.roi_head.simple_test(feats, proposals, valid, img_shapes,
+                                         scale_factors, rescale)
+
+
+class MaskRCNN(TwoStageDetector):
+    """Mask R-CNN (mmdet models/detectors/mask_rcnn.py): the mask branch
+    lives in the RoI head (its `mask_head`)."""

@@ -7,9 +7,15 @@ the downsample in the block's last Conv_/BatchNorm_ slot ->
 `downsample.0/1`; `neck_m/extra_conv{k}` -> `neck.fpn_convs.{n_lateral+k}`;
 `bbox_head_m/cls_conv{i}/Conv_0` -> `bbox_head.cls_convs.{i}.conv`;
 `rpn_head_m/rpn_conv` -> `rpn_head.rpn_conv`; `roi_head_m/bbox_head_m/
-shared_fc{i}` -> `roi_head.bbox_head.shared_fcs.{i}`), conv kernels go
-HWIO -> OIHW, dense kernels (in, out) -> Linear weights (out, in), and BN
-(scale, bias, mean, var) go to (weight, bias, running_mean, running_var).
+shared_fc{i}` -> `roi_head.bbox_head.shared_fcs.{i}`; `roi_head_m/
+mask_head_m/conv{i}` -> `roi_head.mask_head.convs.{i}.conv`, `upsample` and
+`conv_logits` keep their names), conv kernels go HWIO -> OIHW, dense
+kernels (in, out) -> Linear weights (out, in), and BN (scale, bias, mean,
+var) go to (weight, bias, running_mean, running_var). The mask head's
+transposed convolution is the exception among the 4-d kernels: flax's
+`ConvTranspose` kernel is (kh, kw, in, out) with its taps indexed in the
+opposite order to `nn.ConvTranspose2d`'s (in, out, kh, kw), so it is
+flipped in both spatial axes as well.
 The first shared FC also has its input rows permuted: the JAX head
 flattens (S, S, C) RoI features as (h, w, c), the port's (C, S, S) ones as
 (c, h, w) (the inverse of tools/model_converters/torch2jax.py). Every leaf
@@ -83,6 +89,12 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int) -> Optional[str]:
     if top == "rpn_head_m" and len(scope) == 1 and scope[0] in (
             "rpn_conv", "rpn_cls", "rpn_reg"):
         return f"rpn_head.{scope[0]}.{name}"
+    if top == "roi_head_m" and len(scope) == 2 and scope[0] == "mask_head_m":
+        m = re.fullmatch(r"conv(\d+)|upsample|conv_logits", scope[1])
+        if m is None:
+            return None
+        mod = f"convs.{m[1]}.conv" if m[1] is not None else scope[1]
+        return f"roi_head.mask_head.{mod}.{name}"
     if top == "roi_head_m" and len(scope) == 2 and scope[0] == "bbox_head_m":
         m = re.fullmatch(r"shared_fc(\d+)|fc_cls|fc_reg", scope[1])
         if m is None:
@@ -116,7 +128,10 @@ def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
                 unused.append("/".join(path))
                 continue
             arr = np.array(val, np.float32)
-            if path[-1] == "kernel" and arr.ndim == 4:
+            if path[-1] == "kernel" and path[-2] == "upsample":
+                # flax ConvTranspose (kh, kw, in, out), taps the other way
+                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif path[-1] == "kernel" and arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
             elif path[-1] == "kernel" and path[-2] == "shared_fc0":
                 s = roi_feat_size                        # rows (h, w, c)

@@ -4,9 +4,9 @@
     python3 roi_align_ablation.py
 
 Builds copies of ops/csrc/roi_align_kernel.cu, each with one part of the
-kernel removed by a text substitution, into build/ablation/ (one nvcc each,
-started together), and times every copy beside the kernel itself on the
-card at chip_smoke.py's two RoIAlign shapes (ROI_SHAPES), on three roi sets
+kernel removed or changed by a text substitution, into build/ablation/ (one
+nvcc each, started together), and times every copy beside the kernel itself
+on the card at chip_smoke.py's RoIAlign shapes (ROI_SHAPES), on three roi sets
 made from a seed: phase 2's rois in shuffled tile order, the same rois in
 tile-major order (the order of the main path's rois), and small rois only
 (10-50 px, tile-major, about the slice's mix: nearly all at level 0). The
@@ -18,10 +18,13 @@ parts:
 - no_stores: the output tiles are computed and never written out;
 - plain_stores: 16-byte stores with the default cache policy in place of
   the streaming `__stcs` (the S = 7 tile path);
-- one_block_per_roi: no split of a roi's channel chunks over blocks.
+- one_block_per_roi: no split of a roi's channel chunks over blocks;
+- templated_7_2: S = 7, sr = 2 (Mask R-CNN's bbox crops) as compile-time
+  constants like the two main shapes, in place of the generic form.
 
 A copy without a part computes a wrong result: it is timed, not checked.
-The kernel itself is checked against the plain version (torch.equal).
+The kernel itself and the copies that change no result (EXACT) are checked
+against the plain version (torch.equal).
 Prints a line per shape and roi set and one JSON line, after the card's
 name and power limit. Needs the card and nvcc; fails otherwise.
 """
@@ -55,7 +58,15 @@ ABLATIONS = (
     ("one_block_per_roi", [("const int groups = static_cast<int>(want < "
                             "n_chunks ? want : n_chunks);",
                             "const int groups = 1;")]),
+    ("templated_7_2", [("  return launch<kVec, 0, 0>(",
+                        "  if (out_size == 7 && sr == 2) {\n"
+                        "    return launch<kVec, 7, 2>(lv, channels, rois, "
+                        "lvls, n_rois, out_size, sr, aligned, output, "
+                        "path_counts, stream);\n  }\n"
+                        "  return launch<kVec, 0, 0>(")]),
 )
+# the copies whose results must equal the plain version's
+EXACT = ("kernel", "plain_stores", "one_block_per_roi", "templated_7_2")
 
 
 def build():
@@ -120,13 +131,14 @@ def main():
             row = dict(shape=shape, rois=label, bound_ms=bound_ms,
                        per_level=torch.bincount(
                            lvls, minlength=len(smoke.ROI_LEVELS)).tolist())
+            want = roi_align.roi_align_multilevel_plain(
+                feats, rois, lvls, smoke.ROI_STRIDES, out, sr)
             for name, lib in libs.items():
                 roi_align_cuda._lib = lib
-                if name == "kernel" and not torch.equal(
-                        run(), roi_align.roi_align_multilevel_plain(
-                            feats, rois, lvls, smoke.ROI_STRIDES, out, sr)):
-                    raise AssertionError(f"{shape} {label}: kernel != plain")
+                if name in EXACT and not torch.equal(run(), want):
+                    raise AssertionError(f"{shape} {label}: {name} != plain")
                 row[name] = smoke.time_ms(run, ITERS)
+            del want
             roi_align_cuda._lib = None
             rows.append(row)
             print(f"{shape} R={r} S={out} sr={sr}, {label} rois (per level "

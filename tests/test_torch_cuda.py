@@ -33,10 +33,13 @@ def _inputs(rng, b, n, n_classes, device):
             for x in (boxes, scores, labels, valid)]
 
 
-# every launch shape of both main paths: RetinaNet-c per tile, the global
-# merge, the Faster R-CNN RPN (levels as classes) and RoI head
+# every launch shape of the main paths: RetinaNet-c per tile, the global
+# merge, the Faster R-CNN RPN (levels as classes) and RoI head, the Mask
+# R-CNN RPN, RoI head (80 classes by coordinate offsets, after the pre-NMS
+# cap of 20,000) and global merge (80 classes)
 LAUNCH_SHAPES = [(24, 8720, 1, 0.5), (2, 12000, 3, 0.5), (24, 7200, 5, 0.7),
-                 (24, 1000, 1, 0.5)]
+                 (24, 1000, 1, 0.5), (24, 4200, 5, 0.7), (24, 20000, 80, 0.5),
+                 (2, 1200, 80, 0.5)]
 
 
 @pytest.mark.cuda
@@ -97,7 +100,19 @@ def test_bitmask_kernel_matches_plain_bits(cuda, b, n, n_classes, thr,
 def test_threshold_ties_kernel_matches_plain(cuda, thr):
     """IoUs of exactly thr and its float neighbours: only the one above
     suppresses, in the kernel as in the plain division form."""
-    boxes, iou = threshold_tie_boxes(thr)
+    _check_threshold_ties(cuda, thr, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.5, 0.7])
+def test_threshold_ties_at_an_80_class_offset_kernel_matches_plain(cuda, thr):
+    """The same pairs moved right by class 79's offset on a 640-px tile,
+    as Mask R-CNN's 80-class RoI-head NMS moves its boxes."""
+    _check_threshold_ties(cuda, thr, 79 * 641)
+
+
+def _check_threshold_ties(cuda, thr, x_offset):
+    boxes, iou = threshold_tie_boxes(thr, x_offset=x_offset)
     tie = torch.from_numpy(boxes)[None].to(cuda)
     every = torch.tensor([tie.shape[1]], dtype=torch.int32, device=cuda)
     got = nms_cuda.defined_words(nms_cuda.iou_bitmask(tie, thr, every), every)
@@ -171,6 +186,7 @@ def _roi_case(case, c, r, channels_last, cuda):
 @pytest.mark.parametrize("case,c,out,sr,aligned,channels_last,r,path", [
     ("synthetic", 256, 7, 1, True, True, 3000, None),   # Faster R-CNN crops
     ("synthetic", 256, 14, 2, True, True, 300, None),   # Mask R-CNN crops
+    ("synthetic", 256, 7, 2, True, True, 3000, None),   # its bbox crops
     ("synthetic", 40, 7, 2, False, False, 500, None),   # ragged chunk, NCHW
     ("synthetic", 42, 7, 1, True, True, 300, None),     # C % 4 != 0
     ("synthetic", 64, 7, 1, True, True, 0, None),       # no roi
@@ -183,6 +199,7 @@ def _roi_case(case, c, r, channels_last, cuda):
     ("edge", 64, 7, 2, False, True, 0, None),
     ("edge_every_level", 256, 7, 1, True, True, 0, None),
     ("edge_every_level", 256, 14, 2, True, True, 0, "bands"),
+    ("edge_every_level", 256, 7, 2, True, True, 0, None),
     ("edge", 32, 28, 2, True, True, 0, "global"),
 ])
 def test_roi_align_kernel_matches_plain(cuda, case, c, out, sr, aligned,

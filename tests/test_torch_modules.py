@@ -256,9 +256,9 @@ def test_get_bboxes_matches_jax(pair):
 
 def test_multiclass_nms_cap_and_factors():
     """The max_per_img cap over class-specific (N, C*4) boxes with a
-    validity mask. The port takes no score factors and no pre-NMS cap (no
-    caller of it uses either), so the JAX function runs with its defaults,
-    under which neither applies."""
+    validity mask, both functions with their defaults: no score factors and
+    a pre-NMS cap of 20,000 that 1,200 candidates do not reach
+    (tests/test_torch_mask.py binds the cap and adds factors)."""
     rng = np.random.RandomState(5)
     n, c = 400, 3
     ctr = rng.uniform(20, 200, (n, 1, 2))

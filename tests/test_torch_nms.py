@@ -239,6 +239,41 @@ def test_threshold_ties_match_jax_division(thr):
                  tnms.nms(*_t(boxes, scores), thr, n))
 
 
+@pytest.mark.parametrize("thr", [0.5, 0.7])
+def test_threshold_ties_at_an_80_class_offset_match_jax_division(thr):
+    """The threshold-tie pairs moved right by class 79's offset on a 640-px
+    tile (79 x 641, where the float32 spacing of a coordinate is ~0.004):
+    the same IoUs, bits and keep sets as the JAX division form."""
+    boxes, iou = threshold_tie_boxes(thr, x_offset=79 * 641)
+    assert boxes[:, 0].min() == 79 * 641
+    n = boxes.shape[0]
+    got = _unpack(nms_cuda.iou_bitmask_plain(torch.from_numpy(boxes)[None],
+                                             thr), n)[0]
+    jiou = np.asarray(jnms._pairwise_iou(jnp.asarray(boxes),
+                                         jnp.asarray(boxes)))
+    np.testing.assert_array_equal(np.diag(jiou, 1)[::2], iou)
+    want = (jiou > thr) & np.triu(np.ones((n, n), bool), k=1)
+    np.testing.assert_array_equal(got, want)
+    scores = np.linspace(1.0, 0.5, n, dtype=np.float32)
+    _assert_same(jnms.nms(jnp.asarray(boxes), jnp.asarray(scores), thr, n),
+                 tnms.nms(*_t(boxes, scores), thr, n))
+
+
+def test_batched_nms_80_classes_matches_jax():
+    """Mask R-CNN's RoI-head NMS: 80 classes by coordinate offsets (up to
+    ~79 x 681 on 640x512 boxes), invalid rows, the keep set of the JAX
+    function."""
+    rng = np.random.RandomState(80)
+    boxes, scores, valid, labels = _boxes(rng, 3000, n_classes=80)
+    want = jnms.batched_nms(jnp.asarray(boxes), jnp.asarray(scores),
+                            jnp.asarray(labels), 0.5, 100,
+                            valid_mask=jnp.asarray(valid))
+    got = tnms.batched_nms(*_t(boxes, scores, labels), 0.5, 100,
+                           valid_mask=torch.from_numpy(valid))
+    assert int(got[1]) == 100 and len(np.unique(labels)) == 80
+    _assert_same(want, got)
+
+
 @pytest.mark.parametrize("thr", [-0.1, -1e-30, float("nan")])
 def test_bitmask_refuses_negative_threshold(thr):
     """A pair that does not overlap skips the IoU as 0 > thr is false,

@@ -3,10 +3,13 @@ port's, on the same config, the same JAX-initialized weights and the same
 uint8 frame.
 
 The detectors are tiny: tests/test_device_pipeline.py's RetinaNet at depth
-50 (base_channels=8), and a Faster R-CNN of the same backbone, FPN 16 and
-2 FCs of 32, on a 128x192 frame cut into 64x96 tiles. Per-tile NMS (and for
-Faster R-CNN the RPN's proposal NMS and the RoIAlign), the tile shift and
-the global merge all run. Random init leaves the scores far too close
+50 (base_channels=8), a Faster R-CNN of the same backbone, FPN 16 and 2 FCs
+of 32, and a Mask R-CNN that adds a 1-convolution FCNMaskHead at 8 channels
+and samples both RoIAligns with sampling_ratio=0 (which becomes 2), on a
+128x192 frame cut into 64x96 tiles. Per-tile NMS (and for the two-stage
+detectors the RPN's proposal NMS and the RoIAlign), the tile shift and the
+global merge all run; the tiled engine merges detections only and drops
+the mask probabilities, in both packages. Random init leaves the scores far too close
 together for two frameworks to order them alike, so the classifier that
 scores each stage (`retina_cls`; `rpn_cls` and `fc_cls`) is redrawn, the
 same numbers on both sides, to spread them. nms_pre covers whole levels and
@@ -97,6 +100,18 @@ test_cfg = dict(
     rcnn=dict(score_thr=0.3, nms=dict(type="nms", iou_threshold=0.5),
               max_per_img=3000))
 """
+# Faster R-CNN's with sampling_ratio=0 and a mask branch
+MASK_MODEL = FRCNN_MODEL.replace(
+    'type="FasterRCNN"', 'type="MaskRCNN"').replace(
+    "output_size=7, sampling_ratio=1", "output_size=7, sampling_ratio=0"
+).replace("""            loss_cls=dict(type="CrossEntropyLoss", use_sigmoid=False))))""",
+          """            loss_cls=dict(type="CrossEntropyLoss", use_sigmoid=False)),
+        mask_roi_extractor=dict(
+            type="SingleRoIExtractor",
+            roi_layer=dict(type="RoIAlign", output_size=14, sampling_ratio=0),
+            out_channels=16, featmap_strides=[4, 8, 16, 32]),
+        mask_head=dict(type="FCNMaskHead", num_convs=1, in_channels=16,
+                       conv_out_channels=8, num_classes=2)))""")
 
 
 def _dets(res):
@@ -127,10 +142,14 @@ DETECTORS = {
     "faster_rcnn": (FRCNN_MODEL, [(("rpn_head_m",), "rpn_cls", 0.3),
                                   (("roi_head_m", "bbox_head_m"), "fc_cls",
                                    0.3)]),
+    "mask_rcnn": (MASK_MODEL, [(("rpn_head_m",), "rpn_cls", 0.3),
+                               (("roi_head_m", "bbox_head_m"), "fc_cls",
+                                0.3)]),
 }
 
 
-@pytest.mark.parametrize("detector", ["retinanet", "faster_rcnn"])
+@pytest.mark.parametrize("detector", ["retinanet", "faster_rcnn",
+                                      "mask_rcnn"])
 def test_tiled_slice_matches_jax(tmp_path, detector):
     model_text, redraw = DETECTORS[detector]
     text = CFG_TEXT

@@ -165,3 +165,59 @@ def test_shared_fc0_gives_the_jax_product():
         got = model.roi_head.bbox_head.shared_fcs[0](
             torch.from_numpy(x).permute(0, 3, 1, 2).flatten(1))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+MASK_CFG = dict(FRCNN_CFG, type="MaskRCNN", roi_head=dict(
+    FRCNN_CFG["roi_head"],
+    mask_roi_extractor=dict(
+        roi_layer=dict(type="RoIAlign", output_size=14, sampling_ratio=0),
+        featmap_strides=[4, 8, 16, 32]),
+    mask_head=dict(type="FCNMaskHead", num_convs=2, in_channels=16,
+                   conv_out_channels=16, num_classes=1)))
+
+
+def _mask_rcnn_to_jax(model):
+    """torch2jax for every module it knows; the mask head, which it does not
+    convert, by hand: conv kernels OIHW -> HWIO, the transposed
+    convolution's (in, out, kh, kw) -> flax's (kh, kw, in, out) with its
+    taps flipped."""
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    params, stats, unmapped = convert_detector_state_dict(sd, depth=50)
+    assert sorted(unmapped) == sorted(
+        k for k in sd if k.startswith("roi_head.mask_head."))
+    head = params["roi_head_m"]["mask_head_m"] = {}
+    for k in unmapped:
+        mod, leaf = k[len("roi_head.mask_head."):].rsplit(".", 1)
+        name = (mod if mod in ("upsample", "conv_logits")
+                else f"conv{mod.split('.')[1]}")
+        v = sd[k]
+        if leaf == "weight" and name == "upsample":
+            v = v.transpose(2, 3, 0, 1)[::-1, ::-1]
+        elif leaf == "weight":
+            v = v.transpose(2, 3, 1, 0)
+        head.setdefault(name, {})["kernel" if leaf == "weight" else "bias"] = \
+            np.ascontiguousarray(v)
+    return params, stats
+
+
+def test_mask_rcnn_state_dict_round_trip():
+    """Every port entry, the mask head's included, goes to a JAX leaf and
+    back unchanged: `load_jax_variables` consumes every leaf of the tree,
+    which is the JAX Mask R-CNN's own, and fills every entry."""
+    src = build_detector(dict(MASK_CFG), device="cpu", seed=1)
+    _randomize_buffers(src, 2)
+    params, stats = _mask_rcnn_to_jax(src)
+    jm = jax_build(dict(MASK_CFG))
+    shapes = jax.eval_shape(lambda r, x: jm.init(r, x, train=False),
+                            jax.random.PRNGKey(0),
+                            jnp.zeros((1, 64, 64, 3), jnp.float32))
+    assert _flat_shapes(params) == _flat_shapes(shapes["params"])
+    assert _flat_shapes(stats) == _flat_shapes(shapes["batch_stats"])
+    dst = build_detector(dict(MASK_CFG), device="cpu", seed=3)
+    load_jax_variables(dst, params, stats)
+    want, got = src.state_dict(), dst.state_dict()
+    assert want.keys() == got.keys()
+    assert "roi_head.mask_head.upsample.weight" in want
+    assert "roi_head.mask_head.convs.1.conv.weight" in want
+    for k in want:
+        assert torch.equal(want[k], got[k]), k
