@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the kernels of ops/csrc with nvcc (one nvcc per source, started
-together), then runs three main paths, the tiled protocol of Adap
+together), then runs four main paths, the tiled protocol of Adap
 RetinaNet-c, Adap Faster R-CNN and COCO Mask R-CNN, each on two 1920x1080
-uint8 frames:
+uint8 frames, and Adap Faster R-CNN training:
 
 1. kernel vs plain, NMS: the IoU-bitmask and greedy-reduce kernels against
    their plain PyTorch version on the card, on synthetic TinyPerson-like
@@ -57,7 +57,26 @@ uint8 frames:
    CPU on one tile (mask head included), `run_test` with `DetCollator` on
    two 800x1333 COCO-preprocessed frames (RLE masks in the 1080x1920
    frame), then img/s, the mask head's share, the host paste and RLE time,
-   and the profile.
+   and the profile;
+6. training: (a) the RoIAlign backward kernel against the plain backward
+   (autograd through the plain forward) on channels-last 256-channel maps
+   of two 512x640 images at Faster R-CNN training's rois (R=1,024, S=7,
+   sr=1) and Mask R-CNN training's (R=1,024, S=7, sr=2; R=256, S=14,
+   sr=2), on `edge_rois`, and rois out of range (which add nothing): error
+   against BWD_TOL, times, bound; (b) Adap Faster R-CNN built from its
+   config with seeded weights through `train_detector` for 20 iterations on
+   4 synthetic 512x640 images with 20-60 TinyPerson-like gts each: launches
+   per step {iou_bitmask: 1, greedy_reduce: 1, roi_align: 1,
+   roi_align_backward: 1}, every loss finite, positives in both stages, the
+   frozen stem and layer1 bit-identical and every other parameter changed;
+   (c) one step with the kernels against one with the plain RoIAlign
+   (forward and backward) from the same weights and draws: equal losses,
+   gradients within GRAD_TOL; (d) the card against the CPU on one step
+   (both samplers taking every candidate, the CPU fed the card's
+   proposals, which must equal those of the plain NMS on the same RPN
+   outputs): losses within LOSS_TOL; (e) train-step ms and img/s, the K2
+   forward and backward on the step's own rois and their share, the peak
+   memory above what the earlier phases hold; (f) a profile of warm steps.
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
@@ -65,7 +84,8 @@ in TF32). Every failure raises; there is no CPU mode. The last line is
 power limit, and the line before that lists each kernel with its launches on
 the main paths, its error against the plain version, its time, the plain
 version's time and its bound (`by_shape`: K1 at every launch shape; for
-RoIAlign the phase-2 shapes and the slices' rois).
+RoIAlign the phase-2 shapes and the slices' rois; for its backward the
+phase-6 shapes and the train step's rois).
 """
 import collections
 import contextlib
@@ -99,6 +119,7 @@ K1_SHAPES = (("per-tile B=12", 12, 8720, 1, 0.5),
              ("global merge", 2, 12000, 3, 0.5),
              ("Faster R-CNN RPN", 24, 7200, 5, 0.7),
              ("Faster R-CNN RoI head", 24, 1000, 1, 0.5),
+             ("Faster R-CNN train RPN", 1, 7200, 5, 0.7),
              ("Mask R-CNN RPN", 24, 4200, 5, 0.7),
              ("Mask R-CNN RoI head", 24, 20000, 80, 0.5),
              ("Mask R-CNN merge", 2, 1200, 80, 0.5))
@@ -113,8 +134,36 @@ ROI_SHAPES = (("faster_rcnn", 24, 24000, 7, 1), ("mask_rcnn", 12, 1200, 14, 2),
 ROI_LEVELS = ((128, 160), (64, 80), (32, 40), (16, 20))   # 512x640 tiles
 ROI_STRIDES = (4, 8, 16, 32)
 ROI_CHANNELS = 256
-FRCNN_LAUNCHES = {"iou_bitmask": 3, "greedy_reduce": 3, "roi_align": 1}
-MASK_LAUNCHES = {"iou_bitmask": 3, "greedy_reduce": 3, "roi_align": 2}
+RETINA_LAUNCHES = {"iou_bitmask": 2, "greedy_reduce": 2, "roi_align": 0,
+                   "roi_align_backward": 0}
+FRCNN_LAUNCHES = {"iou_bitmask": 3, "greedy_reduce": 3, "roi_align": 1,
+                  "roi_align_backward": 0}
+MASK_LAUNCHES = {"iou_bitmask": 3, "greedy_reduce": 3, "roi_align": 2,
+                 "roi_align_backward": 0}
+# phase 6: a train step of Faster R-CNN launches each kernel once (the RPN's
+# proposal NMS, RoIAlign of the sampled rois and its backward)
+TRAIN_LAUNCHES = {"iou_bitmask": 1, "greedy_reduce": 1, "roi_align": 1,
+                  "roi_align_backward": 1}
+TRAIN_HW = (512, 640)            # the config's loader pad_shape
+TRAIN_IMAGES = 4
+TRAIN_EPOCHS = 5                 # 20 iterations at samples_per_gpu=1
+TRAIN_TIMED_STEPS = 10
+TRAIN_PROFILE_STEPS = 5
+# (name, images, rois, S, sr): the K2 backward at Faster R-CNN training's
+# rois (512 an image), Mask R-CNN training's bbox rois and its mask rois
+# (128 positives an image; standard_roi_head.py:207-219)
+BWD_SHAPES = (("faster_rcnn train", 2, 1024, 7, 1),
+              ("mask_rcnn train bbox", 2, 1024, 7, 2),
+              ("mask_rcnn train mask", 2, 256, 14, 2))
+# the K2 backward's bar against its plain version: float atomics sum in no
+# fixed order, so each level within this share of its max |gradient|
+BWD_TOL = 1e-5
+# a train step with the kernels against one with the plain RoIAlign: each
+# parameter's gradient within this share of its max |gradient| (the
+# backward's sums run in another order); the card against the CPU: losses
+# within this relative error
+GRAD_TOL = 1e-4
+LOSS_TOL = 1e-4
 PRE_NMS_LIMIT = 20000            # multiclass_nms's default cap
 # fc_cls.bias raised on the first classes so that some softmax scores of
 # random weights clear score_thr 0.05 (81 logits near 0 give ~1/81 each;
@@ -131,6 +180,9 @@ KERNELS = {
                       "pointtinybenchmark_tpu/ops/pallas_kernels.py:55"),
     "roi_align": ("pointtinybenchmark_tpu_torch/ops/csrc/roi_align_kernel.cu",
                   "pointtinybenchmark_tpu/ops/roi_align_pallas.py:359"),
+    "roi_align_backward": (
+        "pointtinybenchmark_tpu_torch/ops/csrc/roi_align_kernel.cu",
+        "pointtinybenchmark_tpu/ops/roi_align_pallas.py:376"),
 }
 # published H100 SXM peaks: HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
@@ -142,15 +194,20 @@ OVERLAP_OPS = 4
 IOU_OPS = 15
 PROFILE_CALLS = 5
 # substrings of device kernel names, first match wins; cuDNN runs some
-# convolutions through FFTs (complex GEMMs and products) and a transposed
-# convolution as the data gradient of a convolution (dgrad)
+# convolutions through FFTs (complex GEMMs and products), a convolution's
+# data gradient as dgrad (in inference: the mask head's transposed
+# convolution) and its weight gradient as wgrad; the optimizer's _foreach
+# updates run as multi_tensor_apply kernels
 KERNEL_FAMILIES = (
     ("iou_bitmask", "NMS kernel A iou_bitmask"),
     ("greedy_reduce", "NMS kernel B greedy_reduce"),
+    ("roi_align_backward", "RoIAlign backward kernel"),
     ("roi_align", "RoIAlign kernel"),
     ("cf32", "convolution by FFT"), ("complex", "convolution by FFT"),
     ("fft", "convolution by FFT"),
-    ("dgrad", "transposed convolution (cuDNN dgrad)"),
+    ("dgrad", "convolution dgrad (data gradient)"),
+    ("wgrad", "convolution wgrad (weight gradient)"),
+    ("multi_tensor_apply", "optimizer (foreach elementwise)"),
     ("sort", "sort"),
     ("nhwctonchw", "cuDNN layout transpose"),
     ("nchwtonhwc", "cuDNN layout transpose"),
@@ -294,15 +351,18 @@ def plain_nms():
 @contextlib.contextmanager
 def plain_roi_align():
     """Inside this block ops/roi_align.py runs the plain RoIAlign on CUDA
-    tensors too, in place of the kernel."""
+    tensors too, in place of the kernels: the plain forward, and autograd
+    through it in place of the backward kernel."""
     from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
 
-    saved = roi_align_cuda.roi_align_forward
+    saved = roi_align_cuda.roi_align_forward, roi_align_cuda.roi_align_backward
     roi_align_cuda.roi_align_forward = roi_align.roi_align_multilevel_plain
+    roi_align_cuda.roi_align_backward = roi_align.roi_align_backward_plain
     try:
         yield
     finally:
-        roi_align_cuda.roi_align_forward = saved
+        (roi_align_cuda.roi_align_forward,
+         roi_align_cuda.roi_align_backward) = saved
 
 
 @contextlib.contextmanager
@@ -729,7 +789,7 @@ def phase_slice(card, frames):
     results = inference_detector_tiled(handle, list(frames))
     launches = read_launches()
     print(f"phase 3 launches on the RetinaNet path: {launches}")
-    if launches != {"iou_bitmask": 2, "greedy_reduce": 2, "roi_align": 0}:
+    if launches != RETINA_LAUNCHES:
         raise AssertionError(f"expected one per-tile and one global launch of "
                              f"each NMS kernel, got {launches}")
     with plain_nms():
@@ -1236,21 +1296,31 @@ def _busy_us(events):
 
 
 def phase_profile(card, handle, frames, label):
-    from torch.profiler import ProfilerActivity, profile
-
     from pointtinybenchmark_tpu_torch.apis.inference import \
         inference_detector_tiled
 
     frame_list = list(frames)
     inference_detector_tiled(handle, frame_list)
+    device_profile(card, lambda: inference_detector_tiled(handle, frame_list),
+                   label, PROFILE_CALLS,
+                   f"warm protocol calls of {N_FRAMES} frames")
+
+
+def device_profile(card, run, label, calls, what):
+    """`calls` runs of `run` (warm) under torch.profiler: wall and device
+    busy ms per call, the idle share, device ms by kernel family and the
+    top kernels; the Chrome trace goes to build/. Returns (wall ms, busy
+    ms, {family: ms}) per call."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_CALLS):
-            inference_detector_tiled(handle, frame_list)
+        for _ in range(calls):
+            run()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_CALLS
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     trace = REPO / "build" / f"protocol_trace_{label}.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
@@ -1259,7 +1329,7 @@ def phase_profile(card, handle, frames, label):
               and "dur" in e]
     if not events:
         raise AssertionError("the profiler traced no device activity")
-    busy_ms = _busy_us(events) / 1e3 / PROFILE_CALLS
+    busy_ms = _busy_us(events) / 1e3 / calls
     family, by_name, count = (collections.Counter() for _ in range(3))
     for e in events:
         low = e["name"].lower()
@@ -1267,18 +1337,429 @@ def phase_profile(card, handle, frames, label):
                     "rest")] += e["dur"]
         by_name[e["name"][:90]] += e["dur"]
         count[e["name"][:90]] += 1
-    print(f"profile {label} ({PROFILE_CALLS} warm protocol calls of "
-          f"{N_FRAMES} frames, profiler on, trace {trace}): per call wall "
-          f"{wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.4f} [{card}]")
+    print(f"profile {label} ({calls} {what}, profiler on, trace {trace}): "
+          f"per call wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.4f} [{card}]")
     print(f"profile {label} device ms per call by family (share of busy):")
+    fam_ms = {}
     for name, us in family.most_common():
-        ms = us / 1e3 / PROFILE_CALLS
-        print(f"  {name:28s} {ms:10.4f} ms  {ms / busy_ms:.4f}")
+        ms = us / 1e3 / calls
+        fam_ms[name] = ms
+        print(f"  {name:36s} {ms:10.4f} ms  {ms / busy_ms:.4f}")
     print(f"profile {label} top kernels (ms per call, launches per call):")
     for name, us in by_name.most_common(15):
-        print(f"  {us / 1e3 / PROFILE_CALLS:9.4f}  "
-              f"{count[name] / PROFILE_CALLS:6.1f}  {name}")
+        print(f"  {us / 1e3 / calls:9.4f}  "
+              f"{count[name] / calls:6.1f}  {name}")
+    return wall_ms, busy_ms, fam_ms
+
+
+# ------------------------------------------------------ phase 6: training
+def roi_align_backward_bound(r, c, out, sr, shapes):
+    """(ms, bounded by) of the K2 backward: the upstream gradient (R, C, S,
+    S) read once, rois and levels read once, each level's gradient written
+    once; 1 product per upstream value and 8 operations per sample and
+    channel (4 weight products, 4 adds)."""
+    cells = sum(b * h * w for b, _, h, w in shapes)
+    nbytes = 4 * (r * c * out * out + r * 5 + r + cells * c)
+    return bound(nbytes, r * c * out * out * (1 + 8 * sr * sr))
+
+
+def compare_roi_align_backward(g, rois, lvls, shapes, out, sr):
+    """The backward kernel against the plain backward (autograd through the
+    plain forward) on the same inputs: (max abs err, worst err over the
+    level's max |gradient|). Fails above BWD_TOL of a level's max."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
+
+    cl = [True] * len(shapes)
+    got = roi_align_cuda.roi_align_backward(g, rois, lvls, shapes, cl,
+                                            ROI_STRIDES, out, sr)
+    want = roi_align.roi_align_backward_plain(g, rois, lvls, shapes, cl,
+                                              ROI_STRIDES, out, sr)
+    torch.cuda.synchronize()
+    err, share = 0.0, 0.0
+    for a, b in zip(got, want):
+        e = float((a - b).abs().max())
+        m = float(b.abs().max())
+        err = max(err, e)
+        share = max(share, e / m if m else (0.0 if e == 0 else float("inf")))
+    if share > BWD_TOL or not any(bool(w.any()) for w in want):
+        raise AssertionError(f"RoIAlign backward kernel vs plain: max abs err "
+                             f"{err}, {share:.3e} of a level's max |grad| "
+                             f"(bar {BWD_TOL})")
+    return err, share
+
+
+def time_roi_align_backward(g, rois, lvls, shapes, out, sr):
+    from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
+
+    cl = [True] * len(shapes)
+    ms = time_ms(lambda: roi_align_cuda.roi_align_backward(
+        g, rois, lvls, shapes, cl, ROI_STRIDES, out, sr), ITERS)
+    plain_ms = time_ms(lambda: roi_align.roi_align_backward_plain(
+        g, rois, lvls, shapes, cl, ROI_STRIDES, out, sr), PLAIN_ITERS)
+    return ms, plain_ms
+
+
+def phase_roi_align_backward(card):
+    """Phase 6 (a): the backward kernel against the plain backward at
+    BWD_SHAPES on synthetic channels-last 256-channel maps of 512x640
+    images, on `edge_rois` and on rois out of range (which must add
+    nothing). Returns one record per shape."""
+    from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
+        map_roi_levels
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+
+    rng = np.random.RandomState(6)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    records = []
+    for name, b, r, out, sr in BWD_SHAPES:
+        shapes = [(b, ROI_CHANNELS, h, w) for h, w in ROI_LEVELS]
+        rois = torch.from_numpy(synthetic_rois(rng, b, r)).to(DEVICE)
+        lvls = map_roi_levels(rois, len(ROI_LEVELS))
+        per_level = torch.bincount(lvls, minlength=len(ROI_LEVELS)).tolist()
+        g = torch.randn((r, ROI_CHANNELS, out, out), generator=gen,
+                        device=DEVICE)
+        err, share = compare_roi_align_backward(g, rois, lvls, shapes, out,
+                                                sr)
+        edge = torch.from_numpy(edge_rois(b)).to(DEVICE)
+        edge_lvls = map_roi_levels(edge, len(ROI_LEVELS))
+        ge = torch.randn((edge.shape[0], ROI_CHANNELS, out, out),
+                         generator=gen, device=DEVICE)
+        edge_err, edge_share = compare_roi_align_backward(
+            ge, edge, edge_lvls, shapes, out, sr)
+        # out of range: batch index b, -1, NaN; level 7 of 4
+        bad = rois[:4].clone()
+        bad[0, 0], bad[1, 0], bad[2, 0] = float(b), -1.0, float("nan")
+        bad_lvls = torch.tensor([0, 1, 2, 7], device=DEVICE)
+        gb = torch.randn((4, ROI_CHANNELS, out, out), generator=gen,
+                         device=DEVICE)
+        none = roi_align_cuda.roi_align_backward(
+            gb, bad, bad_lvls, shapes, [True] * len(shapes), ROI_STRIDES, out,
+            sr)
+        torch.cuda.synchronize()
+        if any(bool(x.any()) for x in none):
+            raise AssertionError(f"{name}: rois out of range wrote gradient")
+        ms, plain_ms = time_roi_align_backward(g, rois, lvls, shapes, out, sr)
+        bms, by = roi_align_backward_bound(r, ROI_CHANNELS, out, sr, shapes)
+        print(f"phase 6 RoIAlign backward {name} R={r} S={out} sr={sr} "
+              f"C={ROI_CHANNELS} ({b} images of {TRAIN_HW}, rois per level "
+              f"{per_level}): kernel vs plain max abs err {err:.3e} "
+              f"({share:.3e} of the level's max |grad|, bar {BWD_TOL}); "
+              f"{edge.shape[0]} edge rois {edge_err:.3e} ({edge_share:.3e});"
+              f" 4 rois out of range wrote nothing")
+        print(f"phase 6 RoIAlign backward {name}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), share of bound "
+              f"{bms / ms:.3f} [{card}]")
+        records.append(dict(shape=name, R=r, S=out, sr=sr, max_abs_err=err,
+                            err_share=share, edge_err_share=edge_share, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                            per_level=per_level))
+    return records
+
+
+def train_samples(rng, n, hw=None):
+    """n training samples as a dataset hands them to the collator: a
+    normalised (H, W, 3) float32 image, 20-60 TinyPerson-like gts (10-40 px
+    boxes around cluster centres, `synthetic_boxes`' kind) of class 0, and
+    two ignore regions."""
+    h, w = hw or TRAIN_HW
+    out = []
+    for _ in range(n):
+        k = rng.randint(20, 61)
+        boxes, _, valid, _ = synthetic_boxes(rng, 1, 2 * k)
+        boxes = boxes[0][valid[0]][:k]
+        boxes = np.clip(boxes, 0, [w, h, w, h]).astype(np.float32)
+        out.append(dict(
+            img=rng.randn(h, w, 3).astype(np.float32),
+            gt_bboxes=boxes, gt_labels=np.zeros(len(boxes), np.int64),
+            gt_bboxes_ignore=np.asarray([[0, 0, 30, 30],
+                                         [w - 40, h - 40, w, h]],
+                                        np.float32)))
+    return out
+
+
+def train_model(cfg, seed=0, device=None):
+    from pointtinybenchmark_tpu_torch.models.builder import build_detector
+
+    return build_detector(dict(cfg.model), cfg.get("train_cfg"),
+                          cfg.get("test_cfg"), device=device or DEVICE,
+                          seed=seed)
+
+
+def one_step(model, cfg, batch, seed, device=None):
+    """One train step from the model's current weights with a fresh
+    optimizer: (metrics as floats, {name: gradient})."""
+    from pointtinybenchmark_tpu_torch.engine.optimizer import build_optimizer
+    from pointtinybenchmark_tpu_torch.engine.train import (init_train_state,
+                                                           make_train_step)
+
+    device = device or DEVICE
+    opt = build_optimizer(model, cfg.optimizer, cfg.get("optimizer_config"),
+                          cfg.get("lr_config"), 1, 1,
+                          model.backbone.frozen_stages)
+    step = make_train_step(model, opt)
+    metrics = step(init_train_state(device), batch,
+                   torch.Generator(device=device).manual_seed(seed))
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()})
+
+
+@contextlib.contextmanager
+def recorded(module, name, calls):
+    """Inside this block each call of `module.<name>` appends its
+    arguments (and keyword arguments) and result to `calls`."""
+    saved = getattr(module, name)
+
+    def record(*args, **kwargs):
+        out = saved(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+    setattr(module, name, record)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def covering_budgets(model, anchors, gts):
+    """Sampler budgets of at least every candidate: both samplers then take
+    every positive and negative whatever their generator draws (the card's
+    and the CPU's generators give different numbers)."""
+    model.rpn_head.train_cfg["sampler"] = dict(
+        model.rpn_head.train_cfg["sampler"], num=4 * anchors,
+        pos_fraction=0.5)
+    props = int(model.train_proposal_cfg["max_per_img"]) + gts
+    model.roi_head.train_cfg["sampler"] = dict(
+        model.roi_head.train_cfg["sampler"], num=4 * props, pos_fraction=0.5)
+
+
+def phase_train(card):
+    """Phase 6 (b)-(e): Adap Faster R-CNN training at full width. Returns
+    the launches of the train_detector run, the forward's and the
+    backward's records on the step's rois, and the profile (f), to be run
+    after every timing."""
+    import tempfile
+
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.optimizer import (
+        build_optimizer, frozen_param_names)
+    from pointtinybenchmark_tpu_torch.engine.train import (
+        batch_to_device, init_train_state, make_train_step, train_detector)
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(str(FRCNN_CONFIG))
+    spg = int(cfg.data["samples_per_gpu"])
+    samples = train_samples(np.random.RandomState(8), TRAIN_IMAGES)
+    print(f"phase 6 training config: {FRCNN_CONFIG.name}, samples_per_gpu "
+          f"{spg}, pad_shape {tuple(cfg.loader['pad_shape'])}, max_gt "
+          f"{cfg.loader['max_gt']}, optimizer {dict(cfg.optimizer)}, "
+          f"grad_clip {cfg.optimizer_config.get('grad_clip')}, lr_config "
+          f"{dict(cfg.lr_config)}; {TRAIN_IMAGES} synthetic images, gts per "
+          f"image {[len(s['gt_bboxes']) for s in samples]}")
+
+    # what the earlier phases hold on the card: (e) reports the peak above it
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+
+    # (b) train_detector, launches counted from zero
+    model = train_model(cfg)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    run_cfg = cfg.to_dict()
+    run_cfg.update(runner=dict(type="EpochBasedRunner",
+                               max_epochs=TRAIN_EPOCHS),
+                   log_config=dict(interval=1),
+                   checkpoint_config=dict(interval=TRAIN_EPOCHS),
+                   evaluation=dict(interval=TRAIN_EPOCHS + 1))
+    iters = TRAIN_EPOCHS * TRAIN_IMAGES // spg
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as work:
+        result = train_detector(model, samples, run_cfg, work, device=DEVICE,
+                                seed=0)
+        ckpts = sorted(p.name for p in Path(work).glob("*.pth"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    history = result["history"]
+    per_step = {k: v / iters for k, v in launches.items()}
+    print(f"phase 6 train_detector: {len(history)} iterations logged in "
+          f"{wall:.2f} s (host clock, a sync per iteration for the log); "
+          f"checkpoints {ckpts}; launches {launches}, per step {per_step}")
+    if len(history) != iters or per_step != TRAIN_LAUNCHES:
+        raise AssertionError(f"{len(history)} iterations, launches per step "
+                             f"{per_step}, expected {TRAIN_LAUNCHES}")
+    keys = [k for k in history[0] if k.startswith("loss") or "num_pos" in k
+            or k in ("rcnn_acc", "nan_seen")]
+    for e in history:
+        print("  step {step}: ".format(**e) + ", ".join(
+            f"{k} {e[k]:.5f}" for k in keys) + f", lr {e['lr']:.3e}")
+    if not all(np.isfinite(e[k]) for e in history for k in keys) \
+            or any(e["nan_seen"] for e in history):
+        raise AssertionError("a loss of the run is not finite")
+    if min(e["rcnn_num_pos"] for e in history) <= 0 \
+            or min(e["rpn_num_pos"] for e in history) <= spg:
+        raise AssertionError("a stage had no positive (the RPN's count is "
+                             "at least 1 an image by its normalisation)")
+    frozen = set(frozen_param_names(model, model.backbone.frozen_stages))
+    after = model.state_dict()
+    unchanged = [n for n, _ in model.named_parameters()
+                 if n not in frozen and torch.equal(after[n], init[n])]
+    moved = [n for n in frozen if not torch.equal(after[n], init[n])]
+    print(f"phase 6 after the run: {len(frozen)} frozen tensors (stem, "
+          f"layer1) bit-identical: {not moved}; trainable tensors unchanged: "
+          f"{unchanged or 'none'}")
+    if moved or unchanged:
+        raise AssertionError(f"frozen moved {moved[:4]}, trainable unchanged "
+                             f"{unchanged[:4]}")
+    del result, after
+    model.load_state_dict(init)
+
+    collator = DetCollator(tuple(cfg.loader["pad_shape"]),
+                           max_gt=int(cfg.loader["max_gt"]),
+                           max_gt_ignore=int(cfg.loader["max_gt_ignore"]))
+    batch = batch_to_device(collator(samples[:spg]), DEVICE)
+
+    # (c) one step with the kernels against one with the plain RoIAlign
+    # (forward and backward), from the same weights and draws
+    torch.backends.cudnn.deterministic = True
+    reset_launches()
+    got, got_grads = one_step(model, cfg, batch, seed=3)
+    k_launches = read_launches()
+    model.load_state_dict(init)
+    reset_launches()
+    with plain_roi_align():
+        want, want_grads = one_step(model, cfg, batch, seed=3)
+    p_launches = read_launches()
+    model.load_state_dict(init)
+    torch.backends.cudnn.deterministic = False
+    loss_keys = [k for k in want if k.startswith("loss") or "num_pos" in k]
+    worst = max(float((got_grads[n] - w).abs().max())
+                / max(float(w.abs().max()), 1e-30)
+                for n, w in want_grads.items())
+    print(f"phase 6 one step, kernels vs plain RoIAlign: launches "
+          f"{k_launches} vs {p_launches}; losses equal: "
+          f"{all(got[k] == want[k] for k in loss_keys)}; worst gradient "
+          f"error {worst:.3e} of its parameter's max |grad| (bar "
+          f"{GRAD_TOL})")
+    if k_launches != TRAIN_LAUNCHES or p_launches["roi_align"] \
+            or p_launches["roi_align_backward"]:
+        raise AssertionError(f"launches {k_launches}, plain {p_launches}")
+    if any(got[k] != want[k] for k in loss_keys) or worst > GRAD_TOL:
+        raise AssertionError(f"kernels vs plain: {got} vs {want}, gradient "
+                             f"{worst}")
+
+    # (d) the card against the CPU on one step, both samplers covering
+    # every candidate, the CPU fed the card's proposals, which must be
+    # those of the plain NMS on the same RPN outputs
+    anchors = 3 * sum(-(-TRAIN_HW[0] // s) * -(-TRAIN_HW[1] // s)
+                      for s in (4, 8, 16, 32, 64))
+    covering_budgets(model, anchors, int(cfg.loader["max_gt"]))
+    calls = []
+    with recorded(model.rpn_head, "get_proposals", calls):
+        card_m, _ = one_step(model, cfg, batch, seed=4)
+    args, kwargs, got_props = calls[0]
+    with torch.no_grad(), plain_nms():
+        want_props = model.rpn_head.get_proposals(*args, **kwargs)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, w) for g, w in zip(got_props, want_props))
+    print(f"phase 6 the step's proposals (B={got_props[0].shape[0]}, "
+          f"{got_props[0].shape[1]} an image, valid "
+          f"{got_props[2].sum(1).tolist()}): NMS kernels == plain NMS "
+          f"(torch.equal): {same}")
+    if not same:
+        raise AssertionError("the train step's proposals differ from those "
+                             "of the plain NMS")
+    cpu_model = train_model(cfg, device="cpu")
+    covering_budgets(cpu_model, anchors, int(cfg.loader["max_gt"]))
+    props = tuple(t.cpu() for t in calls[0][2])
+    cpu_model.rpn_head.get_proposals = lambda *a, **k: props
+    cpu_m, _ = one_step(cpu_model, cfg, batch_to_device(
+        collator(samples[:spg]), "cpu"), seed=4, device="cpu")
+    errs = {k: abs(card_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-30)
+            for k in loss_keys}
+    print("phase 6 one step, card vs CPU (every candidate sampled, the "
+          "card's proposals), rel err: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()))
+    if max(errs.values()) > LOSS_TOL:
+        raise AssertionError(f"card vs CPU: {card_m} vs {cpu_m}")
+    del cpu_model, calls, props, args, kwargs, got_props, want_props, init
+    model = train_model(cfg)
+
+    # (e) timing: warm steps by CUDA events, the K2 kernels on the step's
+    # own rois, peak memory
+    opt = build_optimizer(model, cfg.optimizer, cfg.get("optimizer_config"),
+                          cfg.get("lr_config"), TRAIN_IMAGES, 12,
+                          model.backbone.frozen_stages)
+    step = make_train_step(model, opt)
+    state = init_train_state(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    fwd, bwd = [], []
+    with recorded(roi_align_cuda, "roi_align_forward", fwd), \
+            recorded(roi_align_cuda, "roi_align_backward", bwd):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(state, batch, gen), TRAIN_TIMED_STEPS)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    (feats, rois, lvls, *rest), _, _ = fwd[0]
+    (g, *_), _, _ = bwd[0]
+    feats = [f.detach() for f in feats]
+    shapes = [tuple(f.shape) for f in feats]
+    out, sr = rest[1], rest[2]
+    per_level = torch.bincount(lvls, minlength=len(ROI_LEVELS)).tolist()
+    _, f_err = compare_roi_align(feats, rois, lvls, out, sr)
+    err, share = compare_roi_align_backward(g, rois, lvls, shapes, out, sr)
+    f_ms, f_plain = time_roi_align(feats, rois, lvls, out, sr)
+    f_bms, f_by = roi_align_bound(feats, rois, lvls, out, sr)
+    b_ms, b_plain = time_roi_align_backward(g, rois, lvls, shapes, out, sr)
+    b_bms, b_by = roi_align_backward_bound(rois.shape[0], g.shape[1], out, sr,
+                                           shapes)
+    print(f"phase 6 train step (Adap Faster R-CNN, {spg} image of "
+          f"{TRAIN_HW}, f32, TF32 off, warm, CUDA events over "
+          f"{TRAIN_TIMED_STEPS} steps, no host sync between them): "
+          f"{step_ms:.4f} ms, {spg * 1e3 / step_ms:.4f} img/s; peak memory "
+          f"{peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB the earlier "
+          f"phases hold [{card}]")
+    print(f"phase 6 the step's own rois (R={rois.shape[0]}, S={out}, sr={sr},"
+          f" per level {per_level}): forward kernel == plain (torch.equal); "
+          f"backward kernel vs plain {err:.3e} "
+          f"({share:.3e} of the level's max); forward kernel {f_ms:.4f} ms "
+          f"(plain {f_plain:.4f}, bound {f_bms:.4f} {f_by}), backward kernel "
+          f"{b_ms:.4f} ms (plain {b_plain:.4f}, bound {b_bms:.4f} {b_by}); "
+          f"forward + backward {f_ms + b_ms:.4f} ms, share of the step "
+          f"{(f_ms + b_ms) / step_ms:.4f} [{card}]")
+    slice_bwd = dict(shape="faster_rcnn train slice", R=rois.shape[0], S=out,
+                     sr=sr, max_abs_err=err, err_share=share, ms=b_ms,
+                     plain_ms=b_plain, bound_ms=b_bms, bound_by=b_by,
+                     per_level=per_level)
+    slice_fwd = dict(shape="faster_rcnn train slice", R=rois.shape[0], S=out,
+                     sr=sr, max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
+                     bound_ms=f_bms, bound_by=f_by, per_level=per_level)
+    del fwd, bwd, feats, g
+
+    def profile():
+        """(f) a profile of warm steps."""
+        wall_ms, busy_ms, fam = device_profile(
+            card, lambda: step(state, batch, gen), "faster_rcnn_train",
+            TRAIN_PROFILE_STEPS, f"warm train steps of {spg} image")
+        k2 = (fam.get("RoIAlign kernel", 0.0)
+              + fam.get("RoIAlign backward kernel", 0.0))
+        print(f"phase 6 profile: K2 forward + backward {k2:.4f} ms of "
+              f"{busy_ms:.4f} ms busy ({k2 / busy_ms:.4f}) [{card}]")
+        after_ms = time_ms(lambda: step(state, batch, gen),
+                           TRAIN_TIMED_STEPS)
+        print(f"phase 6 train step again, after every profile of the run: "
+              f"{after_ms:.4f} ms (before them {step_ms:.4f} ms) [{card}]")
+        numbers = dict(step_ms=step_ms, img_s=spg * 1e3 / step_ms,
+                       peak_gib=peak, k2_fwd_ms=f_ms, k2_bwd_ms=b_ms,
+                       k2_share_of_step=(f_ms + b_ms) / step_ms,
+                       profile_wall_ms=wall_ms, profile_busy_ms=busy_ms,
+                       idle_share=1 - busy_ms / wall_ms,
+                       step_ms_after_profiles=after_ms)
+        print(json.dumps({"faster_rcnn_train": numbers}))
+    return launches, slice_fwd, slice_bwd, profile
 
 
 def main():
@@ -1288,6 +1769,7 @@ def main():
     from pointtinybenchmark_tpu_torch.ops import (cuda_build, nms_cuda,
                                                   roi_align_cuda)
 
+    t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1310,22 +1792,29 @@ def main():
     roi_shapes = phase_roi_align(card)
     frames = np.random.RandomState(1).randint(
         0, 256, (N_FRAMES,) + FRAME_HW + (3,), np.uint8)
-    retina_launches, handle, tiles, stage = phase_slice(card, frames)
-    phase_timing(card, handle, frames, tiles, stage)
-    phase_profile(card, handle, frames, "retinanet")
-    del handle, tiles, stage
-    torch.cuda.empty_cache()
-    frcnn_launches, handle, slice_record = phase_frcnn(card, frames)
-    phase_profile(card, handle, frames, "faster_rcnn")
-    del handle
-    torch.cuda.empty_cache()
-    mask_launches, handle, mask_records = phase_mask(card, frames)
-    phase_profile(card, handle, frames, "mask_rcnn")
+    retina_launches, retina, tiles, stage = phase_slice(card, frames)
+    phase_timing(card, retina, frames, tiles, stage)
+    del tiles, stage
+    frcnn_launches, frcnn, slice_record = phase_frcnn(card, frames)
+    mask_launches, mask, mask_records = phase_mask(card, frames)
+    bwd_shapes = phase_roi_align_backward(card)
+    train_launches, train_fwd, train_bwd, train_profile = phase_train(card)
+    # the profiles last: once torch.profiler has traced the card, later
+    # launches of the process can cost more host time (phase 6 times the
+    # train step before and after them)
+    phase_profile(card, retina, frames, "retinanet")
+    phase_profile(card, frcnn, frames, "faster_rcnn")
+    phase_profile(card, mask, frames, "mask_rcnn")
+    train_profile()
     records["roi_align"] = dict(
-        slice_record, by_shape=roi_shapes + [slice_record] + mask_records)
+        slice_record, by_shape=roi_shapes + [slice_record] + mask_records
+        + [train_fwd])
+    records["roi_align_backward"] = dict(train_bwd,
+                                         by_shape=bwd_shapes + [train_bwd])
 
     by_path = {"adap_retinanet_c": retina_launches,
-               "faster_rcnn": frcnn_launches, "mask_rcnn": mask_launches}
+               "faster_rcnn": frcnn_launches, "mask_rcnn": mask_launches,
+               "faster_rcnn_train": train_launches}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],
@@ -1333,6 +1822,8 @@ def main():
              launches_by_path={k: n[name] for k, n in by_path.items()},
              library_ms=None, **records[name])
         for name in KERNELS]}))
+    print(f"smoke wall time {time.perf_counter() - t_start:.1f} s (host "
+          f"clock, the kernels' build included)")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,2 @@
-"""Anchors, box coding and post-processing."""
+"""Anchors, box coding, post-processing, and training's assigner and
+samplers."""

@@ -1,7 +1,8 @@
-"""DeltaXYWH box decoding (mmdet delta_xywh_bbox_coder.py::delta2bbox).
+"""DeltaXYWH box coding (mmdet delta_xywh_bbox_coder.py: bbox2delta,
+delta2bbox).
 
-Counterpart of pointtinybenchmark_tpu/core/bbox.py::delta2bbox and
-`delta_coder_fns`, in the same operation order.
+Counterpart of pointtinybenchmark_tpu/core/bbox.py::bbox2delta, delta2bbox
+and `delta_coder_fns`, in the same operation order.
 """
 from __future__ import annotations
 
@@ -10,7 +11,31 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["delta2bbox", "delta_decoder"]
+__all__ = ["bbox2delta", "delta2bbox", "delta_coder_fns"]
+
+
+def bbox2delta(proposals: torch.Tensor, gt: torch.Tensor,
+               means: Sequence[float] = (0., 0., 0., 0.),
+               stds: Sequence[float] = (1., 1., 1., 1.)) -> torch.Tensor:
+    """(dx, dy, dw, dh) that take (..., 4) xyxy proposals to the gt boxes,
+    normalised by `means` and `stds`; widths and heights are floored at
+    1e-6."""
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = proposals[..., 2] - proposals[..., 0]
+    ph = proposals[..., 3] - proposals[..., 1]
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0]
+    gh = gt[..., 3] - gt[..., 1]
+    pw = pw.clamp(min=1e-6)
+    ph = ph.clamp(min=1e-6)
+    dx = (gx - px) / pw
+    dy = (gy - py) / ph
+    dw = torch.log(gw.clamp(min=1e-6) / pw)
+    dh = torch.log(gh.clamp(min=1e-6) / ph)
+    deltas = torch.stack([dx, dy, dw, dh], dim=-1)
+    return (deltas - deltas.new_tensor(means)) / deltas.new_tensor(stds)
 
 
 def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
@@ -47,10 +72,11 @@ def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
     return torch.stack([x1, y1, x2, y2], dim=-1)
 
 
-def delta_decoder(coder_cfg: Optional[dict]):
-    """The decode function for a bbox_coder config. Only DeltaXYWHBBoxCoder
-    is ported; the MMDet V1.x legacy coder raises."""
+def delta_coder_fns(coder_cfg: Optional[dict]):
+    """(encode, decode) for a bbox_coder config. Only DeltaXYWHBBoxCoder is
+    ported; the MMDet V1.x legacy coder raises."""
     kind = (coder_cfg or {}).get("type", "DeltaXYWHBBoxCoder")
     if kind != "DeltaXYWHBBoxCoder":
         raise NotImplementedError(f"bbox coder {kind} is not ported")
-    return delta2bbox
+    return bbox2delta, delta2bbox
+

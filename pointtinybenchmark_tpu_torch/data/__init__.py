@@ -1,1 +1,2 @@
-"""On-device preprocessing and the protocol tile grid."""
+"""On-device preprocessing, the protocol tile grid, and batching (loader:
+collation, samplers, the training DataLoader)."""

@@ -1,0 +1,192 @@
+"""Optimizer and learning-rate schedule from mmdet-style configs.
+
+Counterpart of pointtinybenchmark_tpu/engine/optimizer.py
+(`build_lr_schedule`, `build_optimizer` for SGD, `frozen_param_mask`). The
+JAX optimizer is an optax chain, and `SGD` here applies the same steps in
+the same order, so that a run can be held against it:
+
+1. with `grad_clip`, clip by the global norm of all the gradients, frozen
+   parameters' included, in optax's form: g unchanged if the norm is below
+   max_norm, else (g / norm) * max_norm (not `clip_grad_norm_`'s
+   max_norm / (norm + 1e-6));
+2. add weight decay, g + wd * p, to every parameter;
+3. the momentum trace t = g + momentum * t;
+4. the update -lr(count) * t, count being the number of updates applied so
+   far (optax's step count, from 0);
+5. frozen parameters (the backbone stem and stages 1..frozen_stages) are not
+   updated at all.
+
+Frozen parameters therefore keep requires_grad=True: their gradients are
+computed and count in the clipping norm, as in the JAX package (mmcv would
+clip only the parameters that require grad). Everything runs on the
+parameters' device with no host sync: `step(ok)` takes a 0-d bool tensor
+and, where it is False, leaves parameters, traces and the count as they
+were. `paramwise_cfg`, Nesterov momentum and Adam are not ported.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+__all__ = ["build_lr_schedule", "build_optimizer", "frozen_param_names",
+           "SGD"]
+
+
+def build_lr_schedule(base_lr: float, lr_config: Optional[dict],
+                      iters_per_epoch: int, max_epochs: int,
+                      by_epoch: bool = True
+                      ) -> Callable[[Union[int, torch.Tensor]], torch.Tensor]:
+    """step -> lr, a float32 tensor on the step's device (mmcv's step and
+    cosine policies, linear or constant warmup). With `by_epoch=False`
+    (IterBasedRunner) the `step` boundaries are iterations."""
+    lr_config = dict(lr_config or {})
+    policy = lr_config.get("policy", "fixed")
+    warmup = lr_config.get("warmup")
+    warmup_iters = int(lr_config.get("warmup_iters", 500))
+    warmup_ratio = float(lr_config.get("warmup_ratio", 0.1))
+    gamma = float(lr_config.get("gamma", 0.1))
+    steps: Sequence[int] = lr_config.get("step", [])
+    min_lr = lr_config.get("min_lr")
+
+    def schedule(step):
+        step = torch.as_tensor(step)
+        one = torch.ones((), dtype=torch.float32, device=step.device)
+        if policy == "step":
+            ref = (torch.div(step, max(iters_per_epoch, 1),
+                             rounding_mode="floor") if by_epoch else step)
+            mult = one
+            for s in steps:
+                mult = mult * torch.where(ref >= s, gamma, 1.0)
+            lr = base_lr * mult
+        elif policy in ("cosine", "CosineAnnealing"):
+            total = max(iters_per_epoch * max_epochs, 1)
+            frac = (step / total).clamp(0, 1)
+            floor = min_lr if min_lr is not None else 0.0
+            lr = floor + (base_lr - floor) * 0.5 * (1 + torch.cos(math.pi
+                                                                  * frac))
+        else:
+            lr = base_lr * one
+        if warmup == "linear":
+            k = (step / max(warmup_iters, 1)).clamp(0, 1)
+            warm = base_lr * (warmup_ratio + (1 - warmup_ratio) * k)
+            lr = torch.where(step < warmup_iters, torch.minimum(warm, lr), lr)
+        elif warmup == "constant":
+            lr = torch.where(step < warmup_iters, base_lr * warmup_ratio * one,
+                             lr)
+        return lr
+
+    return schedule
+
+
+def frozen_param_names(model: nn.Module, frozen_stages: int) -> List[str]:
+    """Names of the parameters `frozen_stages` freezes (mmdet
+    ResNet._freeze_stages): with frozen_stages >= 0 the backbone's stem
+    (`backbone.conv1`, `backbone.bn1`), and its stages `backbone.layer1` ..
+    `backbone.layer{frozen_stages}`."""
+    if frozen_stages < 0:
+        return []
+    prefixes = ["backbone.conv1.", "backbone.bn1."] + [
+        f"backbone.layer{s}." for s in range(1, frozen_stages + 1)]
+    return [n for n, _ in model.named_parameters()
+            if any(n.startswith(p) for p in prefixes)]
+
+
+class SGD:
+    """SGD with momentum and weight decay in optax's order (see the module
+    note). `params` are (name, parameter) pairs; the gradients are read from
+    each parameter's `.grad` (None counts as zero) and left untouched."""
+
+    def __init__(self, params: Sequence[Tuple[str, nn.Parameter]],
+                 schedule: Callable[[torch.Tensor], torch.Tensor],
+                 momentum: float = 0.0, weight_decay: float = 0.0,
+                 max_norm: Optional[float] = None,
+                 frozen: Sequence[str] = ()):
+        self.names = [n for n, _ in params]
+        self.params = [p for _, p in params]
+        frozen = set(frozen)
+        unknown = frozen - set(self.names)
+        if unknown:
+            raise KeyError(f"frozen names not among the parameters: "
+                           f"{sorted(unknown)[:4]}")
+        self.trainable = [p for n, p in params if n not in frozen]
+        self.schedule = schedule
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.max_norm = max_norm
+        dev = self.params[0].device
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.trace = [torch.zeros_like(p) for p in self.trainable]
+
+    @staticmethod
+    def _grads(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in params]
+
+    @torch.no_grad()
+    def step(self, ok: torch.Tensor) -> None:
+        """One update from the current gradients where `ok` (0-d bool) is
+        True; nothing changes where it is False."""
+        params = self.trainable
+        grads = self._grads(params)
+        if self.max_norm is not None:
+            norms = torch._foreach_norm(self._grads(self.params))
+            norm = torch.stack(norms).square().sum().sqrt()
+            under = norm < self.max_norm
+            grads = torch._foreach_div(grads, torch.where(under, 1.0, norm))
+            grads = torch._foreach_mul(grads, torch.where(
+                under, 1.0, torch.full_like(norm, self.max_norm)))
+        if self.weight_decay:
+            grads = torch._foreach_add(grads, torch._foreach_mul(
+                params, self.weight_decay))
+        trace = torch._foreach_add(torch._foreach_mul(self.trace,
+                                                      self.momentum), grads)
+        upd = torch._foreach_mul(trace, -self.schedule(self.count))
+        new = torch._foreach_add(params, upd)
+        for p, q, t, u in zip(params, new, self.trace, trace):
+            torch.where(ok, q, p, out=p)     # in place, one kernel each
+            torch.where(ok, u, t, out=t)
+        self.count += ok.to(torch.int64)
+
+    def lr(self) -> torch.Tensor:
+        """The learning rate of the next update."""
+        return self.schedule(self.count)
+
+    def state_dict(self) -> Dict[str, object]:
+        return {"count": self.count.clone(),
+                "trace": [t.clone() for t in self.trace]}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        if len(state["trace"]) != len(self.trace):
+            raise ValueError(f"{len(state['trace'])} momentum traces for "
+                             f"{len(self.trace)} trainable parameters")
+        self.count.copy_(state["count"])
+        for t, s in zip(self.trace, state["trace"]):
+            t.copy_(s)
+
+
+def build_optimizer(model: nn.Module, optimizer_cfg: dict,
+                    optimizer_config: Optional[dict] = None,
+                    lr_config: Optional[dict] = None,
+                    iters_per_epoch: int = 1, max_epochs: int = 12,
+                    frozen_stages: int = -1, by_epoch: bool = True) -> SGD:
+    """The optimizer of a config (`optimizer`, `optimizer_config.grad_clip`,
+    `lr_config`) over the model's parameters, the first `frozen_stages`
+    stages frozen."""
+    cfg = dict(optimizer_cfg)
+    kind = cfg.pop("type", "SGD")
+    if kind != "SGD":
+        raise NotImplementedError(f"optimizer {kind} is not ported (SGD is)")
+    if cfg.get("paramwise_cfg") or cfg.get("nesterov"):
+        raise NotImplementedError("paramwise_cfg and nesterov are not ported")
+    base_lr = float(cfg.pop("lr"))
+    grad_clip = (optimizer_config or {}).get("grad_clip")
+    return SGD(list(model.named_parameters()),
+               build_lr_schedule(base_lr, lr_config, iters_per_epoch,
+                                 max_epochs, by_epoch),
+               momentum=float(cfg.get("momentum", 0.0)),
+               weight_decay=float(cfg.get("weight_decay", 0.0)),
+               max_norm=float(grad_clip["max_norm"]) if grad_clip else None,
+               frozen=frozen_param_names(model, frozen_stages))

@@ -5,7 +5,9 @@ Counterpart of pointtinybenchmark_tpu/models/backbones/resnet.py (`ResNet`,
 always uses its running statistics (`norm_eval`, the TinyPerson configs
 freeze backbone BN). Padding matches the flax model: the 1x1 stride-2
 downsample pads nothing (flax SAME is 0 there), and the stem max-pool pads
-with -inf, as MaxPool2d(3, 2, 1) does.
+with -inf, as MaxPool2d(3, 2, 1) does. `frozen_stages` is kept for the
+optimizer, which leaves the stem and stages 1..frozen_stages unchanged
+(engine/optimizer.py): as in the JAX package it stops no gradient.
 """
 from __future__ import annotations
 
@@ -52,8 +54,10 @@ class ResNet(nn.Module):
     def __init__(self, depth: int = 50, num_stages: int = 4,
                  out_indices: Sequence[int] = (0, 1, 2, 3),
                  strides: Sequence[int] = (1, 2, 2, 2),
-                 base_channels: int = 64, norm_eval: bool = True):
+                 base_channels: int = 64, frozen_stages: int = -1,
+                 norm_eval: bool = True):
         super().__init__()
+        self.frozen_stages = frozen_stages
         if depth not in ARCH_SETTINGS:
             raise NotImplementedError(f"ResNet depth {depth} is not ported")
         if not norm_eval:

@@ -2,9 +2,9 @@
 
 Counterpart of pointtinybenchmark_tpu/models/builder.py for the ported
 types only. A dict maps each `type` to its class. As in the JAX builder,
-config keys a class does not take (training-only switches such as
-`frozen_stages`, `loss_bbox`, `style`) are dropped, so configs translate
-unchanged.
+config keys a class does not take (such as `style`, `norm_cfg`'s siblings)
+are dropped, so configs translate unchanged; the training keys
+(`frozen_stages`, the heads' losses, `train_cfg`) are taken.
 """
 from __future__ import annotations
 
@@ -67,11 +67,13 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
     `device` (the card unless the caller asks for the CPU). Weights are
     drawn on the CPU from `torch.Generator` seeded with `seed`, so a seed
     gives the same weights on every device. A two-stage detector's RPN gets
-    `test_cfg["rpn"]` and its RoI head `test_cfg["rcnn"]`, and its RoI
-    head the built bbox head and, for Mask R-CNN, mask head."""
-    del train_cfg  # inference only
+    `train_cfg["rpn"]` and `test_cfg["rpn"]`, its RoI head
+    `train_cfg["rcnn"]` and `test_cfg["rcnn"]` and the built bbox head
+    and, for Mask R-CNN, mask head; the detector keeps
+    `train_cfg["rpn_proposal"]` (JAX two_stage.py:38-45)."""
     cfg = dict(cfg)
     kind = cfg.pop("type")
+    train_cfg = cfg.get("train_cfg") or train_cfg
     test_cfg = cfg.get("test_cfg") or test_cfg
     backbone = build_module(cfg["backbone"])
     neck = build_module(cfg["neck"]) if cfg.get("neck") else None
@@ -82,15 +84,18 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
                                     bbox_head=build_module(head_cfg))
     elif kind in TWO_STAGE:
         rpn_cfg = dict(cfg["rpn_head"])
+        rpn_cfg.setdefault("train_cfg", (train_cfg or {}).get("rpn"))
         rpn_cfg.setdefault("test_cfg", (test_cfg or {}).get("rpn"))
         roi_cfg = dict(cfg["roi_head"])
+        roi_cfg.setdefault("train_cfg", (train_cfg or {}).get("rcnn"))
         roi_cfg.setdefault("test_cfg", (test_cfg or {}).get("rcnn"))
         roi_cfg["bbox_head"] = build_module(roi_cfg["bbox_head"])
         if roi_cfg.get("mask_head"):
             roi_cfg["mask_head"] = build_module(roi_cfg["mask_head"])
         model = TWO_STAGE[kind](backbone=backbone, neck=neck,
                                 rpn_head=build_module(rpn_cfg),
-                                roi_head=build_module(roi_cfg))
+                                roi_head=build_module(roi_cfg),
+                                train_cfg=train_cfg)
     else:
         raise KeyError(f"detector {kind} is not ported")
     model.init_weights(torch.Generator().manual_seed(seed))

@@ -30,7 +30,8 @@ class RetinaHead(AnchorHead):
             raise NotImplementedError("RetinaHead norm_cfg is not ported")
         self.stacked_convs = stacked_convs
         super().__init__(num_classes, in_channels, feat_channels,
-                         anchor_generator, bbox_coder, loss_cls, test_cfg)
+                         anchor_generator, bbox_coder, loss_cls,
+                         test_cfg=test_cfg)
 
     def _init_layers(self) -> None:
         chans = [self.in_channels] + [self.feat_channels] * self.stacked_convs

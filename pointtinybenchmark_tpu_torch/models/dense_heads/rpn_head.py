@@ -1,4 +1,4 @@
-"""RPNHead: region proposal network head, inference path.
+"""RPNHead: region proposal network head.
 
 Counterpart of pointtinybenchmark_tpu/models/dense_heads/rpn_head.py
 (`__call__`, `get_proposals`) with mmdet's module names (`rpn_conv`,
@@ -9,7 +9,8 @@ RPN's own coder and a clip to the image; a box not wider and taller than
 `min_bbox_size` gets score -1. Then one batched NMS with the level as the
 class, so levels never suppress each other. The first `max_per_img` kept
 boxes are the proposals; slots left empty hold the tile's first candidate
-box with score 0 and are marked not valid, as in the JAX head.
+box with score 0 and are marked not valid, as in the JAX head. Training is
+AnchorHead's `loss`, class-agnostic: the detector gives every gt label 0.
 """
 from __future__ import annotations
 

@@ -2,16 +2,23 @@
 -> RoI head.
 
 Counterpart of pointtinybenchmark_tpu/models/detectors/two_stage.py::
-TwoStageDetector / FasterRCNN / MaskRCNN, inference only. The RPN proposes
-with `test_cfg["rpn"]` and the RoI head detects with `test_cfg["rcnn"]`
-(each head holds its part); Mask R-CNN is the same detector with a mask
-head in its RoI head, whose results then carry the mask probabilities.
-Public functions take NHWC images, like the JAX model and the single-stage
+TwoStageDetector / FasterRCNN / MaskRCNN. The RPN proposes with
+`test_cfg["rpn"]` and the RoI head detects with `test_cfg["rcnn"]` (each
+head holds its part); Mask R-CNN is the same detector with a mask head in
+its RoI head, whose results then carry the mask probabilities. Public
+functions take NHWC images, like the JAX model and the single-stage
 detector.
+
+`forward_train` is the whole training forward: the RPN's loss (class
+agnostic: every gt is class 0), proposals from `train_cfg["rpn_proposal"]`
+computed without gradient on the RPN's outputs (the proposal NMS runs
+here), then the RoI head's loss on them. The losses come back under the
+JAX package's names: loss_rpn_cls, loss_rpn_bbox, rpn_num_pos, loss_cls,
+loss_bbox, rcnn_acc, rcnn_num_pos.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -24,17 +31,23 @@ __all__ = ["TwoStageDetector", "MaskRCNN"]
 
 DEFAULT_PROPOSAL_CFG = dict(nms_pre=1000, max_per_img=1000,
                             nms=dict(iou_threshold=0.7), min_bbox_size=0)
+DEFAULT_TRAIN_PROPOSAL_CFG = dict(nms_pre=2000, max_per_img=1000,
+                                  nms=dict(iou_threshold=0.7),
+                                  min_bbox_size=0)
 
 
 class TwoStageDetector(nn.Module):
 
     def __init__(self, backbone: nn.Module, rpn_head: RPNHead,
-                 roi_head: StandardRoIHead, neck: Optional[nn.Module] = None):
+                 roi_head: StandardRoIHead, neck: Optional[nn.Module] = None,
+                 train_cfg: Optional[dict] = None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.rpn_head = rpn_head
         self.roi_head = roi_head
+        self.train_proposal_cfg = dict((train_cfg or {}).get(
+            "rpn_proposal", DEFAULT_TRAIN_PROPOSAL_CFG))
 
     def init_weights(self, generator: torch.Generator) -> None:
         for m in (self.backbone, self.neck, self.rpn_head, self.roi_head):
@@ -70,6 +83,32 @@ class TwoStageDetector(nn.Module):
             self.rpn_head.test_cfg or DEFAULT_PROPOSAL_CFG)
         return self.roi_head.simple_test(feats, proposals, valid, img_shapes,
                                          scale_factors, rescale)
+
+
+    def forward_train(self, img: torch.Tensor, batch: Dict[str, torch.Tensor],
+                      generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """img (B, H, W, 3); batch: gt_bboxes (B, G, 4), gt_labels (B, G),
+        gt_valid (B, G), img_shape (B, 2) and optionally gt_bboxes_ignore,
+        gt_ignore_valid. `generator` (on the img's device) draws both
+        samplers' priorities. Returns every loss and metric."""
+        feats = self.extract_feat(img)
+        batch = dict(batch, pad_shape=tuple(img.shape[1:3]))
+        rpn_outs = self.rpn_head(feats)
+        rpn_batch = dict(batch, gt_labels=torch.zeros_like(batch["gt_labels"]))
+        rpn_losses = {
+            (f"loss_rpn_{k.split('loss_')[-1]}" if k.startswith("loss")
+             else f"rpn_{k}"): v
+            for k, v in self.rpn_head.loss(*rpn_outs, rpn_batch,
+                                           generator).items()}
+        with torch.no_grad():
+            proposals, _, valid = self.rpn_head.get_proposals(
+                *[[o.detach() for o in outs] for outs in rpn_outs],
+                batch["img_shape"], self.train_proposal_cfg)
+        roi_losses = {
+            (k if k.startswith("loss") else f"rcnn_{k}"): v
+            for k, v in self.roi_head.forward_train(feats, proposals, valid,
+                                                    batch, generator).items()}
+        return {**rpn_losses, **roi_losses}
 
 
 class MaskRCNN(TwoStageDetector):

@@ -6,6 +6,8 @@ Shared2FCBBoxHead: RoI features flattened, two shared FC + ReLU layers, then
 or agnostic deltas). The RoI features are (R, C, S, S) and flatten in
 mmdet's (c, h, w) order; the JAX head's (R, S, S, C) flattens as (h, w, c),
 which `utils/jax_weights.py` bridges by permuting the rows of `shared_fc0`.
+The head keeps its `loss_cls` and `loss_bbox` configs (softmax
+cross-entropy and L1 by default, as in JAX) for the RoI head's loss.
 """
 from __future__ import annotations
 
@@ -22,8 +24,12 @@ class Shared2FCBBoxHead(nn.Module):
     def __init__(self, num_classes: int, in_channels: int = 256,
                  fc_out_channels: int = 1024, roi_feat_size: int = 7,
                  num_shared_fcs: int = 2, reg_class_agnostic: bool = False,
-                 bbox_coder: Optional[dict] = None):
+                 bbox_coder: Optional[dict] = None,
+                 loss_cls: Optional[dict] = None,
+                 loss_bbox: Optional[dict] = None):
         super().__init__()
+        self.loss_cls = dict(loss_cls or dict(type="CrossEntropyLoss"))
+        self.loss_bbox = dict(loss_bbox or dict(type="L1Loss"))
         self.num_classes = num_classes
         self.roi_feat_size = roi_feat_size
         self.reg_class_agnostic = reg_class_agnostic

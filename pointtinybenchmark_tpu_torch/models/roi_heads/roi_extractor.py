@@ -26,7 +26,9 @@ def map_roi_levels(rois: torch.Tensor, num_levels: int,
     h = rois[:, 4] - rois[:, 2]
     scale = torch.sqrt((w * h).clamp(min=0))
     lvl = torch.floor(torch.log2(scale / finest_scale + 1e-6))
-    return lvl.clamp(0, num_levels - 1).long()
+    # a NaN roi (from a NaN forward) goes to level 0, where it reads
+    # nothing, rather than to an index out of range
+    return lvl.nan_to_num(nan=0.0).clamp(0, num_levels - 1).long()
 
 
 def single_roi_extract(feats: Sequence[torch.Tensor], rois: torch.Tensor,

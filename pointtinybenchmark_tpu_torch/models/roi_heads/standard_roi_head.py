@@ -1,28 +1,44 @@
 """StandardRoIHead, the second stage of Faster R-CNN and Mask R-CNN:
-inference.
+inference and the Faster R-CNN training loss.
 
 Counterpart of pointtinybenchmark_tpu/models/roi_heads/standard_roi_head.py
-(`_extractor_cfg`, `_mask_extractor_cfg`, `simple_test`). The proposals of
-every tile go through one RoIAlign call (`single_roi_extract`: the CUDA
-kernel on the card) and one pass of the bbox head; then a softmax over
-num_classes + 1, the class-wise delta decode with the head's coder, a clip
-to each tile, with `rescale` a division by each image's scale factor, and
-one `multiclass_nms` batched over tiles, in which the proposals' validity
-mask keeps the empty proposal slots out. With a mask head, every slot of
-the detections (the empty ones are zero boxes), back in the network's frame,
+(`_extractor_cfg`, `_mask_extractor_cfg`, `simple_test`, `forward_train`,
+`_bbox_loss`, `_build_assigner`). Inference: the proposals of every tile go
+through one RoIAlign call (`single_roi_extract`: the CUDA kernel on the
+card) and one pass of the bbox head; then a softmax over num_classes + 1,
+the class-wise delta decode with the head's coder, a clip to each tile,
+with `rescale` a division by each image's scale factor, and one
+`multiclass_nms` batched over tiles, in which the proposals' validity mask
+keeps the empty proposal slots out. With a mask head, every slot of the
+detections (the empty ones are zero boxes), back in the network's frame,
 goes through the mask extractor (one more RoIAlign call) and the mask head;
 each slot keeps the sigmoid of its label's channel. The heads come built
 (`models/builder.py` builds them from the config's dicts).
+
+Training (`forward_train`), batched over images with static shapes: the gt
+boxes are prepended to the proposals, MaxIoU assigns them (0.5, no
+low-quality matches), positives and negatives are drawn by random
+priorities within the sampler's budgets (positives up to num *
+pos_fraction, negatives up to num minus the positives taken, as JAX's
+inline sampler has it), and a fixed-size top-k gathers `num` rois per image
+(sampled positives first, then sampled negatives, then the rest with zero
+weight); their RoIAlign features (the kernel's forward, and its backward in
+the gradient) go through the bbox head into softmax cross-entropy and L1 on
+the label's deltas, both averaged over the sampled rois. Proposals carry no
+gradient. The mask loss is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
-from ...core.bbox import delta_decoder
+from ...core.assigners import MaxIoUAssigner
+from ...core.bbox import delta_coder_fns
 from ...core.post_processing import DetResult, multiclass_nms
+from ...core.samplers import topk_mask
+from ..losses import build_loss
 from .bbox_head import Shared2FCBBoxHead
 from .mask_head import FCNMaskHead
 from .roi_extractor import single_roi_extract
@@ -51,6 +67,7 @@ class StandardRoIHead(nn.Module):
                  bbox_roi_extractor: Optional[dict] = None,
                  mask_roi_extractor: Optional[dict] = None,
                  mask_head: Optional[FCNMaskHead] = None,
+                 train_cfg: Optional[dict] = None,
                  test_cfg: Optional[dict] = None):
         super().__init__()
         self.bbox_extractor = _extractor_cfg(bbox_roi_extractor, 7)
@@ -61,9 +78,10 @@ class StandardRoIHead(nn.Module):
         self.bbox_head = bbox_head
         self.mask_head = mask_head
         coder = self.bbox_head.bbox_coder
-        self.decode = delta_decoder(coder)
+        self.encode, self.decode = delta_coder_fns(coder)
         self.means = tuple(coder.get("target_means", (0., 0., 0., 0.)))
         self.stds = tuple(coder.get("target_stds", (0.1, 0.1, 0.2, 0.2)))
+        self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
 
     @property
@@ -148,3 +166,107 @@ class StandardRoIHead(nn.Module):
         masks = torch.sigmoid(logits[torch.arange(b * m, device=label.device),
                                      label])
         return dets, masks.reshape(b, m, *masks.shape[1:])
+
+    # ---------------------------------------------------------------- train
+    def _build_assigner(self) -> MaxIoUAssigner:
+        cfg = dict(self.train_cfg.get("assigner", dict(
+            type="MaxIoUAssigner", pos_iou_thr=0.5, neg_iou_thr=0.5,
+            min_pos_iou=0.5, match_low_quality=False, ignore_iof_thr=-1)))
+        cfg.pop("type", None)
+        return MaxIoUAssigner(**cfg)
+
+    def forward_train(self, feats: Sequence[torch.Tensor],
+                      proposals: torch.Tensor, prop_valid: torch.Tensor,
+                      batch: Dict[str, torch.Tensor],
+                      generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """feats: per-level (B, C, H, W); proposals (B, P, 4) with validity
+        (B, P); batch: gt_bboxes (B, G, 4), gt_labels, gt_valid. Returns
+        loss_cls, loss_bbox, acc and num_pos."""
+        if self.mask_head is not None and "gt_masks" in batch:
+            raise NotImplementedError("the mask loss is not ported yet")
+        scfg = dict(self.train_cfg.get("sampler", dict(
+            type="RandomSampler", num=512, pos_fraction=0.25, neg_pos_ub=-1,
+            add_gt_as_proposals=True)))
+        num_sample = int(scfg.get("num", 512))
+        pos_budget = int(num_sample * float(scfg.get("pos_fraction", 0.25)))
+        gt_bboxes = batch["gt_bboxes"]
+        gt_labels = batch["gt_labels"].long()
+        gt_valid = batch["gt_valid"]
+        if bool(scfg.get("add_gt_as_proposals", True)):
+            proposals = torch.cat([gt_bboxes, proposals], 1)
+            prop_valid = torch.cat([gt_valid, prop_valid], 1)
+        proposals = proposals.detach()
+        p = proposals.shape[1]
+        assigned, _, _ = self._build_assigner().assign(
+            proposals, gt_bboxes, gt_valid, gt_labels, bbox_valid=prop_valid)
+        pos_sel, neg_sel = self._sample(assigned, num_sample, pos_budget,
+                                        generator)
+        sampled = pos_sel | neg_sel
+        # the fixed-size gather: sampled positives, sampled negatives, rest
+        key = (pos_sel.float() * 2.0 + neg_sel.float()
+               + torch.rand(assigned.shape, generator=generator,
+                            device=assigned.device) * 0.1)
+        idx = torch.sort(key, dim=1, descending=True,
+                         stable=True)[1][:, :min(num_sample, p)]
+        sel_boxes = proposals.gather(1, idx[..., None].expand(-1, -1, 4))
+        sel_pos = pos_sel.gather(1, idx)
+        safe = (assigned.gather(1, idx) - 1).clamp(0, gt_bboxes.shape[1] - 1)
+        tgt = gt_bboxes.gather(1, safe[..., None].expand(-1, -1, 4))
+        deltas = self.encode(sel_boxes, tgt, self.means, self.stds)
+        labels = torch.where(sel_pos, gt_labels.gather(1, safe),
+                             self.num_classes)
+        cls_score, bbox_pred = self(feats, sel_boxes)
+        return self._bbox_loss(cls_score, bbox_pred, labels, deltas,
+                               sel_pos.float(), sampled.gather(1, idx).float())
+
+    @staticmethod
+    def _sample(assigned: torch.Tensor, num_sample: int, pos_budget: int,
+                generator: torch.Generator
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, P) assignments -> the sampled positives and negatives, by
+        random priorities (JAX's inline sampler, standard_roi_head.py:
+        150-158): the positives whose priority reaches the pos_budget-th
+        largest, then negatives up to num_sample minus the positives taken
+        (at most pos_budget of them)."""
+        pos_cand = assigned > 0
+        neg_cand = assigned == 0
+        dev = assigned.device
+        pr_pos = torch.where(pos_cand, torch.rand(assigned.shape,
+                                                  generator=generator,
+                                                  device=dev), -1.0)
+        k = min(pos_budget, assigned.shape[1])
+        pos_th = torch.sort(pr_pos, dim=1, descending=True)[0][:, k - 1]
+        pos_sel = pos_cand & (pr_pos >= pos_th.clamp(min=0.0)[:, None])
+        neg_budget = num_sample - pos_sel.sum(1).clamp(max=pos_budget)
+        pr_neg = torch.where(neg_cand, torch.rand(assigned.shape,
+                                                  generator=generator,
+                                                  device=dev), -1.0)
+        return pos_sel, neg_cand & topk_mask(pr_neg, neg_budget)
+
+    def _bbox_loss(self, cls_score: torch.Tensor, bbox_pred: torch.Tensor,
+                   roi_labels: torch.Tensor, roi_deltas: torch.Tensor,
+                   pos_w: torch.Tensor,
+                   samp_w: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Classification and regression losses of the gathered rois, both
+        over max(sampled, 1); acc is the sampled rois' top-1 accuracy (%),
+        num_pos the positives."""
+        nc = self.num_classes
+        labels = roi_labels.reshape(-1)
+        samp = samp_w.reshape(-1)
+        pos = pos_w.reshape(-1)
+        num_sampled = samp.sum().clamp(min=1.0)
+        loss_cls = build_loss(self.bbox_head.loss_cls)(
+            cls_score, labels, weight=samp, avg_factor=num_sampled)
+        if bbox_pred.shape[-1] == 4:
+            pred = bbox_pred
+        else:
+            safe = labels.clamp(0, nc - 1)
+            pred = bbox_pred.reshape(-1, nc, 4).gather(
+                1, safe[:, None, None].expand(-1, 1, 4))[:, 0]
+        loss_bbox = build_loss(self.bbox_head.loss_bbox)(
+            pred, roi_deltas.reshape(-1, 4), weight=pos[:, None],
+            avg_factor=num_sampled)
+        acc = (cls_score.argmax(-1) == labels).float()
+        acc = (acc * samp).sum() / num_sampled * 100
+        return {"loss_cls": loss_cls, "loss_bbox": loss_bbox, "acc": acc,
+                "num_pos": pos.sum()}

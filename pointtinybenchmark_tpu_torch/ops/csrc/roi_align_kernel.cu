@@ -1,5 +1,5 @@
-// Multilevel RoIAlign forward on Hopper: mmcv RoIAlign (`aligned` or not)
-// with a static sampling ratio, each roi read from its own FPN level.
+// Multilevel RoIAlign forward and backward on Hopper: mmcv RoIAlign (`aligned`
+// or not) with a static sampling ratio, each roi read from its own FPN level.
 //
 // Replaces the TPU kernel pointtinybenchmark_tpu/ops/roi_align_pallas.py::
 // roi_align_multilevel_pallas (_pallas_fwd, _kernel_factory, _prep): one
@@ -60,6 +60,27 @@
 // then the sr x sr samples in row-major order), and the library is built
 // with -fmad=false (no other FMA contraction) and without --use_fast_math.
 // Where the taps come from changes nothing in that order.
+//
+// The backward (roi_align_backward_kernel) replaces the custom_vjp backward
+// of the TPU kernel, roi_align_pallas.py::_vjp_bwd: the VJP of the XLA
+// gather form with respect to the level maps (rois and levels get none).
+// Each sample's upstream gradient, times the float32 1/sr^2, times each of
+// its four tap weights, is added at that tap of the roi's level, in a
+// zeroed channels-last (B, H_l, W_l, C) gradient per level. The taps come
+// from the forward's own sample table (`sample_table`), so they are the
+// forward's bit for bit; each added value is the plain version's autograd
+// term, (g * (1/sr^2)) * (wy * wx), rounded alike. Only the order of the
+// sums differs: float atomics add in no fixed order, so the result is not
+// bit-exact. Design: one block per (roi, 32-channel chunk); the chunk's
+// upstream gradient (32 x S^2 floats, one contiguous run of the (R, C, S, S)
+// input) is staged in shared memory with coalesced loads; each warp takes
+// one bin at a time, a lane per channel, so every atomicAdd of a warp lands
+// on 32 consecutive floats of one cell (one 128-byte line). What bounds it
+// on this card: bytes, in principle (the upstream gradient read and the
+// level gradients written once, at S = 7 sr = 1 ~8 operations per upstream
+// value); in practice the atomics, which go to L2 one value each and
+// serialise where rois share cells (the sampled rois cluster on the gts). A
+// roi whose batch index or level is out of range writes nothing.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -126,6 +147,56 @@ __device__ __forceinline__ Tap axis_tap(int k, int sr, float inv_sr,
   t.w1 = __fsub_rn(c, f);
   t.w0 = __fsub_rn(1.0f, t.w1);
   return t;
+}
+
+// false for a roi whose level or batch index is out of range (or NaN)
+__device__ __forceinline__ bool valid_roi(const Levels& lv, const float* roi,
+                                          int l) {
+  return l >= 0 && l < lv.n && roi[0] >= 0.0f && roi[0] < lv.batch;
+}
+
+// 1 / sr^2 in float32, by which the sr x sr samples of a bin are averaged
+__device__ __forceinline__ float bin_scale(int sr) {
+  return __fdiv_rn(1.0f, static_cast<float>(sr * sr));
+}
+
+// The roi's sample table: ty[i] and tx[i], the map taps and weights of
+// sample i (0 <= i < S * sr) along y and along x on level l, filled by the
+// block's threads (the caller synchronises). The forward and the backward
+// both take their taps from here.
+__device__ __forceinline__ void sample_table(const Levels& lv,
+                                             const float* roi, int l,
+                                             int out_size, int sr,
+                                             int aligned, Tap* ty, Tap* tx) {
+  const int s = out_size * sr;
+  const float hf = static_cast<float>(lv.h[l]);
+  const float wf = static_cast<float>(lv.w[l]);
+  const float scale = __fdiv_rn(1.0f, lv.stride[l]);
+  const float offset = aligned ? 0.5f : 0.0f;
+  const float x1 = __fsub_rn(__fmul_rn(roi[1], scale), offset);
+  const float y1 = __fsub_rn(__fmul_rn(roi[2], scale), offset);
+  const float x2 = __fsub_rn(__fmul_rn(roi[3], scale), offset);
+  const float y2 = __fsub_rn(__fmul_rn(roi[4], scale), offset);
+  float roi_w = __fsub_rn(x2, x1);
+  float roi_h = __fsub_rn(y2, y1);
+  if (!aligned) {
+    roi_w = fmaxf(roi_w, 1.0f);
+    roi_h = fmaxf(roi_h, 1.0f);
+  }
+  // the plain version multiplies by float32 reciprocals (see its note);
+  // 1.0f / n rounded equals the rounded double 1.0 / n for every n < 1e5
+  const float inv_out = __fdiv_rn(1.0f, static_cast<float>(out_size));
+  const float inv_sr = __fdiv_rn(1.0f, static_cast<float>(sr));
+  const float bin_w = __fmul_rn(roi_w, inv_out);
+  const float bin_h = __fmul_rn(roi_h, inv_out);
+  for (int t = threadIdx.x; t < 2 * s; t += kThreads) {
+    if (t < s) {
+      ty[t] = axis_tap(t, sr, inv_sr, bin_h, y1, hf, __fsub_rn(hf, 1.0f));
+    } else {
+      tx[t - s] = axis_tap(t - s, sr, inv_sr, bin_w, x1, wf,
+                           __fsub_rn(wf, 1.0f));
+    }
+  }
 }
 
 // How the taps of samples first..last along one axis index the staged grid:
@@ -357,7 +428,7 @@ roi_align_kernel(const Levels lv, int channels, const float* __restrict__ rois,
   const size_t cs = static_cast<size_t>(channels);
   float* dst = output + r * cs * bins;
   const bool count = path_counts != nullptr && grp == 0 && threadIdx.x == 0;
-  if (l < 0 || l >= lv.n || !(roi[0] >= 0.0f && roi[0] < lv.batch)) {
+  if (!valid_roi(lv, roi, l)) {
     const size_t c_end = min(static_cast<size_t>(k_end) * kChunk, cs);
     for (size_t k = static_cast<size_t>(k_begin) * kChunk * bins +
                     threadIdx.x;
@@ -369,35 +440,8 @@ roi_align_kernel(const Levels lv, int channels, const float* __restrict__ rois,
   }
   const int hl = lv.h[l];
   const int wl = lv.w[l];
-  const float hf = static_cast<float>(hl);
-  const float wf = static_cast<float>(wl);
-  const float scale = __fdiv_rn(1.0f, lv.stride[l]);
-  const float offset = aligned ? 0.5f : 0.0f;
-  const float x1 = __fsub_rn(__fmul_rn(roi[1], scale), offset);
-  const float y1 = __fsub_rn(__fmul_rn(roi[2], scale), offset);
-  const float x2 = __fsub_rn(__fmul_rn(roi[3], scale), offset);
-  const float y2 = __fsub_rn(__fmul_rn(roi[4], scale), offset);
-  float roi_w = __fsub_rn(x2, x1);
-  float roi_h = __fsub_rn(y2, y1);
-  if (!aligned) {
-    roi_w = fmaxf(roi_w, 1.0f);
-    roi_h = fmaxf(roi_h, 1.0f);
-  }
-  // the plain version multiplies by float32 reciprocals (see its note);
-  // 1.0f / n rounded equals the rounded double 1.0 / n for every n < 1e5
-  const float inv_out = __fdiv_rn(1.0f, static_cast<float>(out_size));
-  const float inv_sr = __fdiv_rn(1.0f, static_cast<float>(sr));
-  const float inv_count = __fdiv_rn(1.0f, static_cast<float>(sr * sr));
-  const float bin_w = __fmul_rn(roi_w, inv_out);
-  const float bin_h = __fmul_rn(roi_h, inv_out);
-  for (int t = threadIdx.x; t < 2 * s; t += kThreads) {
-    if (t < s) {
-      ty[t] = axis_tap(t, sr, inv_sr, bin_h, y1, hf, __fsub_rn(hf, 1.0f));
-    } else {
-      tx[t - s] = axis_tap(t - s, sr, inv_sr, bin_w, x1, wf,
-                           __fsub_rn(wf, 1.0f));
-    }
-  }
+  sample_table(lv, roi, l, out_size, sr, aligned, ty, tx);
+  const float inv_count = bin_scale(sr);
   __syncthreads();
 
   // The grid: columns once for the roi, rows per band of bh output rows,
@@ -580,6 +624,74 @@ int dispatch(const Levels& lv, int channels, const float* rois,
                             aligned, output, path_counts, stream);
 }
 
+// the level gradients, (B, H, W, C) contiguous each, zeroed by the caller
+struct LevelGrads {
+  float* grad[kMaxLevels];
+};
+
+// Block (roi r, chunk k): the upstream gradient of channels [32 k, 32 k +
+// width) of roi r into the level gradient of its level (see the note at the
+// top). grad_out is (R, C, S, S) contiguous.
+__global__ void __launch_bounds__(kThreads)
+roi_align_backward_kernel(const Levels lv, const LevelGrads lg, int channels,
+                          const float* __restrict__ rois,
+                          const int* __restrict__ lvls, int out_size, int sr,
+                          int aligned, const float* __restrict__ grad_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int s = out_size * sr;
+  const int bins = out_size * out_size;
+  const int ld = tile_ld(bins);
+  float* tile = smem;                                       // kChunk * ld
+  Tap* ty = reinterpret_cast<Tap*>(tile + kChunk * ld);     // s
+  Tap* tx = ty + s;                                         // s
+
+  const int n_chunks = (channels + kChunk - 1) / kChunk;
+  const size_t r = blockIdx.x / n_chunks;
+  const int k = blockIdx.x - static_cast<int>(r) * n_chunks;
+  const float* roi = rois + r * 5;
+  const int l = lvls[r];
+  if (!valid_roi(lv, roi, l)) return;                       // writes nothing
+  sample_table(lv, roi, l, out_size, sr, aligned, ty, tx);
+  const int c0 = k * kChunk;
+  const int width = min(kChunk, channels - c0);
+  // the chunk: `width` rows of `bins` values, one contiguous run, into rows
+  // of odd length ld (the lanes of a warp then read distinct banks)
+  const float* src = grad_out + (r * channels + c0) * bins;
+  for (int i = threadIdx.x; i < width * bins; i += kThreads) {
+    const int c = i / bins;
+    tile[c * ld + (i - c * bins)] = src[i];
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;          // the channel c0 + lane
+  if (lane >= width) return;
+  const float inv_count = bin_scale(sr);
+  const int wl = lv.w[l];
+  const size_t cs = static_cast<size_t>(channels);
+  float* grad = lg.grad[l] +
+                static_cast<size_t>(roi[0]) * lv.h[l] * wl * cs + c0 + lane;
+  for (int bin = threadIdx.x / 32; bin < bins; bin += kThreads / 32) {
+    const int oy = bin / out_size;
+    const int ox = bin - oy * out_size;
+    const float g = __fmul_rn(tile[lane * ld + bin], inv_count);
+    for (int iy = 0; iy < sr; ++iy) {
+      const Tap a = ty[oy * sr + iy];
+      const size_t y0 = static_cast<size_t>(a.i0 & kCell) * wl;
+      const size_t y1 = static_cast<size_t>(a.i1) * wl;
+      for (int ix = 0; ix < sr; ++ix) {
+        const Tap b = tx[ox * sr + ix];
+        if ((a.i0 | b.i0) < 0) continue;    // outside the map: no gradient
+        const size_t x0 = b.i0 & kCell;
+        const size_t x1 = b.i1;
+        atomicAdd(grad + (y0 + x0) * cs, __fmul_rn(g, __fmul_rn(a.w0, b.w0)));
+        atomicAdd(grad + (y0 + x1) * cs, __fmul_rn(g, __fmul_rn(a.w0, b.w1)));
+        atomicAdd(grad + (y1 + x0) * cs, __fmul_rn(g, __fmul_rn(a.w1, b.w0)));
+        atomicAdd(grad + (y1 + x1) * cs, __fmul_rn(g, __fmul_rn(a.w1, b.w1)));
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Launches on `stream`, does not
@@ -618,4 +730,52 @@ extern "C" int ptb_roi_align(const void* const* feats, const int* heights,
                               sampling_ratio, aligned, out, counts, st)
              : dispatch<false>(lv, channels, r, lv_idx, n_rois, out_size,
                                sampling_ratio, aligned, out, counts, st);
+}
+
+// Plain C interface of the backward, loaded with ctypes: grad_out (R, C, S,
+// S) f32 contiguous into `grads`, one zeroed (B, H_l, W_l, C) f32 buffer per
+// level (the caller zeroes them). Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() after the launch (or the error
+// of a refused argument or attribute).
+extern "C" int ptb_roi_align_backward(const void* grad_out,
+                                      void* const* grads, const int* heights,
+                                      const int* widths, const float* strides,
+                                      int n_levels, int batch, int channels,
+                                      const void* rois, const void* lvls,
+                                      int n_rois, int out_size,
+                                      int sampling_ratio, int aligned,
+                                      void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || out_size < 1 ||
+      sampling_ratio < 1 || channels < 1 || n_rois < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Levels lv;
+  LevelGrads lg;
+  lv.n = n_levels;
+  lv.batch = batch;
+  for (int l = 0; l < n_levels; ++l) {
+    lv.feat[l] = nullptr;
+    lg.grad[l] = static_cast<float*>(grads[l]);
+    lv.h[l] = heights[l];
+    lv.w[l] = widths[l];
+    lv.stride[l] = strides[l];
+  }
+  const long long n_chunks = (channels + kChunk - 1) / kChunk;
+  const long long blocks = n_chunks * n_rois;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = kChunk * tile_ld(out_size * out_size) * sizeof(float) +
+                      2 * static_cast<size_t>(out_size) * sampling_ratio *
+                          sizeof(Tap);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        roi_align_backward_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  roi_align_backward_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      lv, lg, channels, static_cast<const float*>(rois),
+      static_cast<const int*>(lvls), out_size, sampling_ratio, aligned,
+      static_cast<const float*>(grad_out));
+  return static_cast<int>(cudaGetLastError());
 }

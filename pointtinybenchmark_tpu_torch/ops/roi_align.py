@@ -8,13 +8,20 @@ Feature maps are (B, C, H, W) and outputs (R, C, S, S), mmdet's layout; the
 JAX functions take NHWC and return (R, S, S, C), with the same values.
 
 `roi_align_multilevel` is the public entry: rois on the CPU go to
-`roi_align_multilevel_plain`, rois on a CUDA card to the hand-written kernel
-(`roi_align_cuda.roi_align_forward`), any other device raises.
+`roi_align_multilevel_plain`, whose autograd gradient is the plain
+backward; rois on a CUDA card go to the hand-written kernels through
+`MultilevelRoIAlign`, an autograd function whose forward launches
+`roi_align_cuda.roi_align_forward` and whose backward launches
+`roi_align_cuda.roi_align_backward`; any other device raises. On both
+routes the gradient reaches the level maps only: the rois are detached and
+the levels are integers, as in the JAX custom_vjp
+(roi_align_pallas.py::_vjp_bwd). `roi_align_backward_plain` is the plain
+version of the backward kernel: autograd through the plain forward.
 
 The plain versions follow the JAX code operation for operation: sample
 points at `x1 + ((k // sr) + ((k % sr) + 0.5) / sr) * bin_w`, the in-bounds
 test on the raw coordinate against [-1, W] / [-1, H], clamp to
-[0, dim - 1], the upper tap at min(x0 + 1, dim - 1), the four taps summed in
+[0, dim - 1] (a NaN coordinate to 0), the upper tap at min(x0 + 1, dim - 1), the four taps summed in
 one order, zero outside, then the mean over the sr x sr samples of a bin,
 summed in row-major order. Two roundings follow what XLA compiles the JAX
 code to, since one ulp of a sample coordinate moves a tap weight by ~4e-6
@@ -31,7 +38,8 @@ import torch
 from . import roi_align_cuda
 
 __all__ = ["roi_align", "roi_align_multilevel", "roi_align_multilevel_plain",
-           "sample_taps", "level_tables"]
+           "roi_align_backward_plain", "MultilevelRoIAlign", "sample_taps",
+           "level_tables"]
 
 
 def _fused_madd(a: torch.Tensor, b: torch.Tensor,
@@ -80,8 +88,10 @@ def sample_taps(rois: torch.Tensor, scale: torch.Tensor, hf: torch.Tensor,
     hf = hf[:, None, None]
     inb = (xg >= -1.0) & (xg <= wf) & (yg >= -1.0) & (yg <= hf)
     zero = xg.new_zeros(())
-    xc = torch.minimum(torch.maximum(xg, zero), wf - 1.0)
-    yc = torch.minimum(torch.maximum(yg, zero), hf - 1.0)
+    # fmax / fmin, as the kernel's fmaxf / fminf: a NaN coordinate (of a
+    # NaN roi) clamps to cell 0 and, outside, contributes nothing
+    xc = torch.fmin(torch.fmax(xg, zero), wf - 1.0)
+    yc = torch.fmin(torch.fmax(yg, zero), hf - 1.0)
     x0 = torch.floor(xc)
     y0 = torch.floor(yc)
     x1i = torch.minimum(x0 + 1, wf - 1).long()
@@ -172,18 +182,73 @@ def roi_align_multilevel_plain(feats: Sequence[torch.Tensor],
     return _pool(flat, base, width, taps, output_size, sampling_ratio)
 
 
+def roi_align_backward_plain(grad_out: torch.Tensor, rois: torch.Tensor,
+                             lvls: torch.Tensor,
+                             shapes: Sequence[Tuple[int, int, int, int]],
+                             channels_last: Sequence[bool],
+                             strides: Sequence[int], output_size: int = 7,
+                             sampling_ratio: int = 2,
+                             aligned: bool = True) -> Tuple[torch.Tensor, ...]:
+    """The gradient of `roi_align_multilevel_plain` with respect to its
+    level maps, by autograd, on the tensors' device: the plain version of
+    `roi_align_cuda.roi_align_backward`, with its arguments. The op is
+    linear in the maps, so the gradient is taken at zero maps of `shapes`
+    (channels-last where `channels_last` says so), and each gradient comes
+    in its map's layout. The sums run in the order of PyTorch's
+    scatter-add, which on the CPU may change from run to run."""
+    feats = [torch.zeros(s, dtype=torch.float32, device=rois.device).to(
+        memory_format=torch.channels_last if cl
+        else torch.contiguous_format).requires_grad_()
+        for s, cl in zip(shapes, channels_last)]
+    with torch.enable_grad():
+        out = roi_align_multilevel_plain(feats, rois, lvls, strides,
+                                         output_size, sampling_ratio, aligned)
+        grads = torch.autograd.grad(out, feats, grad_out)
+    return tuple(g.contiguous(memory_format=torch.channels_last if cl
+                              else torch.contiguous_format)
+                 for g, cl in zip(grads, channels_last))
+
+
+class MultilevelRoIAlign(torch.autograd.Function):
+    """`roi_align_multilevel` on CUDA tensors: the forward kernel, and the
+    backward kernel for the level maps. Saves the rois and levels and the
+    maps' shapes and layouts, not the maps: the op is linear in them."""
+
+    @staticmethod
+    def forward(ctx, rois, lvls, strides, output_size, sampling_ratio,
+                aligned, *feats):
+        ctx.save_for_backward(rois, lvls)
+        ctx.args = (tuple(tuple(f.shape) for f in feats),
+                    tuple(f.is_contiguous(memory_format=torch.channels_last)
+                          for f in feats),
+                    tuple(strides), output_size, sampling_ratio, aligned)
+        return roi_align_cuda.roi_align_forward(feats, rois, lvls, strides,
+                                                output_size, sampling_ratio,
+                                                aligned)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        rois, lvls = ctx.saved_tensors
+        grads = roi_align_cuda.roi_align_backward(grad_out, rois, lvls,
+                                                  *ctx.args)
+        return (None,) * 6 + tuple(grads)
+
+
 def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                          lvls: torch.Tensor, strides: Sequence[int],
                          output_size: int = 7, sampling_ratio: int = 2,
                          aligned: bool = True) -> torch.Tensor:
-    """Multilevel RoIAlign: the kernel for CUDA tensors, the plain version
-    for CPU tensors. Same arguments as `roi_align_multilevel_plain`."""
+    """Multilevel RoIAlign: the kernels for CUDA tensors, the plain version
+    for CPU tensors. Same arguments as `roi_align_multilevel_plain`; the
+    result's gradient reaches the level maps only."""
+    rois = rois.detach()
     if rois.device.type == "cpu":
         return roi_align_multilevel_plain(feats, rois, lvls, strides,
                                           output_size, sampling_ratio,
                                           aligned)
     if rois.device.type == "cuda":
-        return roi_align_cuda.roi_align_forward(feats, rois, lvls, strides,
-                                                output_size, sampling_ratio,
-                                                aligned)
+        return MultilevelRoIAlign.apply(rois, lvls, tuple(strides),
+                                        output_size, sampling_ratio, aligned,
+                                        *feats)
     raise RuntimeError(f"no RoIAlign kernel for device {rois.device}")

@@ -243,3 +243,131 @@ def test_roi_align_kernel_out_of_range_rois_get_nan(cuda):
     torch.cuda.synchronize()
     assert torch.isnan(got[[1, 2, 4]]).all()
     assert torch.equal(got[[0, 3]], want)
+
+
+# ------------------------------------------------ RoIAlign backward (K2)
+BWD_LEVELS = ((128, 160), (64, 80), (32, 40), (16, 20))   # a 512x640 image
+
+
+def _bwd_inputs(cuda, r, c=256, b=2, channels_last=True, seed=0):
+    """(feats, rois, lvls, upstream gradient) on the card: b images' level
+    maps (B, C, H, W), r rois of the smoke's synthetic (TinyPerson-like)
+    kind, and a seeded (R, C, S, S)-shaped gradient maker."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    feats = [torch.randn((b, h, w, c), generator=gen, device=cuda)
+             .permute(0, 3, 1, 2) for h, w in BWD_LEVELS]
+    if not channels_last:
+        feats = [f.contiguous() for f in feats]
+    rois = torch.from_numpy(synthetic_rois(np.random.RandomState(seed), b,
+                                           r)).to(cuda)
+    return feats, rois, map_roi_levels(rois, len(BWD_LEVELS)), gen
+
+
+def _bwd(feats, rois, lvls, g, out, sr, plain=False):
+    """The level maps' gradient for upstream g: through the public entry
+    (the kernels), or by autograd through the plain version."""
+    leaves = [f.detach().clone().requires_grad_() for f in feats]
+    fn = (roi_align.roi_align_multilevel_plain if plain
+          else roi_align.roi_align_multilevel)
+    y = fn(leaves, rois, lvls, (4, 8, 16, 32), out, sr, True)
+    y.backward(g)
+    return [f.grad for f in leaves]
+
+
+def _assert_grads_close(got, want):
+    """Each level within 1e-5 of its max |gradient|: float atomics sum in
+    no fixed order."""
+    assert any(float(w.abs().max()) > 0 for w in want)
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()) + 1e-30, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,out,sr,edge", [
+    (1024, 7, 1, False),    # Faster R-CNN training: 512 rois an image
+    (1024, 7, 2, False),    # Mask R-CNN training's bbox rois
+    (256, 14, 2, False),    # its mask rois (128 positives an image)
+    (0, 7, 1, True),        # edge_rois at S=7
+    (0, 14, 2, True),       # and at S=14 sr=2
+])
+def test_roi_align_backward_matches_plain(cuda, r, out, sr, edge):
+    feats, rois, lvls, gen = _bwd_inputs(cuda, r)
+    if edge:
+        rois = torch.from_numpy(edge_rois(2)).to(cuda)
+        lvls = map_roi_levels(rois, len(BWD_LEVELS))
+    g = torch.randn((rois.shape[0], 256, out, out), generator=gen,
+                    device=cuda)
+    before = dict(roi_align_cuda.launches)
+    got = _bwd(feats, rois, lvls, g, out, sr)
+    assert roi_align_cuda.launches["roi_align_backward"] == \
+        before["roi_align_backward"] + 1
+    assert roi_align_cuda.launches["roi_align"] == before["roi_align"] + 1
+    want = _bwd(feats, rois, lvls, g, out, sr, plain=True)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want)
+    for x, f in zip(got, feats):       # the maps' channels-last layout
+        assert x.stride() == f.stride()
+
+
+@pytest.mark.cuda
+def test_roi_align_backward_invalid_rois_write_nothing(cuda):
+    """Rois with a batch index or level out of range add no gradient: the
+    result is that of the valid rois alone."""
+    feats, rois, lvls, gen = _bwd_inputs(cuda, 64)
+    bad = rois[:4].clone()
+    bad[0, 0], bad[1, 0], bad[2, 0] = 2.0, -1.0, float("nan")
+    bad_lvls = torch.tensor([0, 1, 2, 7], device=cuda)
+    g = torch.randn((68, 256, 7, 7), generator=gen, device=cuda)
+    got = roi_align_cuda.roi_align_backward(
+        g, torch.cat([rois, bad]), torch.cat([lvls, bad_lvls]),
+        [tuple(f.shape) for f in feats], [True] * 4, (4, 8, 16, 32), 7, 1)
+    want = roi_align_cuda.roi_align_backward(
+        g[:64], rois, lvls, [tuple(f.shape) for f in feats], [True] * 4,
+        (4, 8, 16, 32), 7, 1)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+def test_roi_align_backward_no_rois_gives_zeros(cuda):
+    feats, rois, lvls, _ = _bwd_inputs(cuda, 8)
+    before = roi_align_cuda.launches["roi_align_backward"]
+    got = roi_align_cuda.roi_align_backward(
+        torch.zeros((0, 256, 7, 7), device=cuda), rois[:0], lvls[:0],
+        [tuple(f.shape) for f in feats], [True, False, True, False],
+        (4, 8, 16, 32), 7, 1)
+    assert roi_align_cuda.launches["roi_align_backward"] == before
+    for x, f in zip(got, feats):
+        assert x.shape == f.shape and not x.any()
+
+
+@pytest.mark.cuda
+def test_roi_align_backward_layouts_agree(cuda):
+    """Channels-last and NCHW-contiguous maps of the same values: the same
+    gradient, each in its map's layout."""
+    feats, rois, lvls, gen = _bwd_inputs(cuda, 512)
+    g = torch.randn((512, 256, 7, 7), generator=gen, device=cuda)
+    cl = _bwd(feats, rois, lvls, g, 7, 1)
+    nchw_feats = [f.contiguous() for f in feats]
+    nchw = _bwd(nchw_feats, rois, lvls, g, 7, 1)
+    torch.cuda.synchronize()
+    _assert_grads_close(nchw, cl)
+    for x, f in zip(nchw, nchw_feats):
+        assert x.is_contiguous() and x.stride() == f.stride()
+
+
+@pytest.mark.cuda
+def test_roi_align_backward_is_linear(cuda):
+    """The gradient of 2 g is twice the gradient of g (a non-contiguous
+    upstream gradient, as autograd may hand it)."""
+    feats, rois, lvls, gen = _bwd_inputs(cuda, 512)
+    g = torch.randn((256, 7, 7, 512), generator=gen,
+                    device=cuda).permute(3, 0, 1, 2)
+    shapes = [tuple(f.shape) for f in feats]
+    one = roi_align_cuda.roi_align_backward(g, rois, lvls, shapes, [True] * 4,
+                                            (4, 8, 16, 32), 7, 1)
+    two = roi_align_cuda.roi_align_backward(2 * g, rois, lvls, shapes,
+                                            [True] * 4, (4, 8, 16, 32), 7, 1)
+    torch.cuda.synchronize()
+    _assert_grads_close(two, [2 * x for x in one])

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from pointtinybenchmark_tpu.ops.roi_align_pallas import \
@@ -199,3 +200,80 @@ def test_routing_cpu_plain_other_device_raises():
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         roi_align_cuda.roi_align_forward(feats, torch.from_numpy(rois),
                                          torch.from_numpy(lvls), strides)
+
+
+# --------------------------------------------------------------- backward
+def _port_grads(feats, rois, lvls, strides, sr, aligned, g):
+    """The port's gradient of the level maps, by autograd through the
+    public entry (the plain version on the CPU), as NHWC numpy; and the
+    rois' gradient (None: they get none)."""
+    tf = [f.detach().clone().requires_grad_() for f in _nchw(feats)]
+    tr = torch.from_numpy(rois).requires_grad_()
+    out = tra.roi_align_multilevel(tf, tr, torch.from_numpy(lvls), strides,
+                                   7, sr, aligned)
+    out.backward(torch.from_numpy(g).permute(0, 3, 1, 2))
+    return [f.grad.permute(0, 2, 3, 1).numpy() for f in tf], tr.grad
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("sr", [1, 2])
+@pytest.mark.parametrize("case", ["off_edge", "big_window"])
+def test_multilevel_backward_matches_jax_vjp(case, sr, aligned):
+    """The gradient of the level maps against jax.vjp of the XLA form and of
+    the Pallas kernel's custom_vjp (whose backward, _vjp_bwd, is the XLA
+    form's VJP), on the same seeded upstream gradient. atol 1e-5: the
+    scatter-adds sum in different orders. The rois get no gradient."""
+    shapes, strides, rois, lvls = _case(case)
+    feats = _feats(shapes)
+    g = np.random.RandomState(7).randn(rois.shape[0], 7, 7, C).astype(
+        np.float32)
+    got, rois_grad = _port_grads(feats, rois, lvls, strides, sr, aligned, g)
+    assert rois_grad is None
+    jf = tuple(jnp.asarray(f) for f in feats)
+    args = (jnp.asarray(rois), jnp.asarray(lvls), strides, 7, sr, aligned)
+
+    def vjp(fn):
+        return [np.asarray(x) for x in jax.jit(
+            lambda f, g: jax.vjp(fn, f)[1](g)[0])(jf, jnp.asarray(g))]
+    want = vjp(lambda f: jra.roi_align_multilevel(f, *args))
+    if aligned:        # the Pallas kernel's forward is the aligned mode's
+        pallas = vjp(lambda f: roi_align_multilevel_pallas(
+            f, *args, interpret=True))
+    else:
+        pallas = want
+    assert max(np.abs(lw).max() for lw in want) > 0.1
+    for lg, lw, lp in zip(got, want, pallas):
+        np.testing.assert_allclose(lg, lw, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(lg, lp, atol=1e-5, rtol=0)
+
+
+def test_autograd_function_routes_both_launches(monkeypatch):
+    """`MultilevelRoIAlign`, the CUDA route's autograd function, with the
+    two kernel launches swapped for their plain versions (the card is not
+    here): the forward equals the plain forward, the backward the plain
+    autograd gradient (atol 1e-6: PyTorch's CPU scatter-add sums in no
+    fixed order), each level's gradient keeps its map's layout, and rois
+    and levels get none."""
+    monkeypatch.setattr(roi_align_cuda, "roi_align_forward",
+                        tra.roi_align_multilevel_plain)
+    monkeypatch.setattr(roi_align_cuda, "roi_align_backward",
+                        tra.roi_align_backward_plain)
+    shapes, strides, rois, lvls = _case("off_edge")
+    feats = _nchw(_feats(shapes))
+    feats = [feats[0].contiguous(), feats[1]]         # NCHW, channels-last
+    g = torch.from_numpy(np.random.RandomState(8).randn(
+        rois.shape[0], C, 7, 7).astype(np.float32))
+    tf = [f.detach().clone().requires_grad_() for f in feats]
+    out = tra.MultilevelRoIAlign.apply(torch.from_numpy(rois),
+                                       torch.from_numpy(lvls), strides, 7, 2,
+                                       True, *tf)
+    out.backward(g)
+    pf = [f.detach().clone().requires_grad_() for f in feats]
+    want = tra.roi_align_multilevel_plain(pf, torch.from_numpy(rois),
+                                          torch.from_numpy(lvls), strides, 7,
+                                          2, True)
+    want.backward(g)
+    assert torch.equal(out, want)
+    for t, p, f in zip(tf, pf, feats):
+        torch.testing.assert_close(t.grad, p.grad, atol=1e-6, rtol=0)
+        assert t.grad.stride() == f.stride()

@@ -110,8 +110,16 @@ def test_load_rejects_unconsumed_or_missing_leaves(fault):
 
 def test_port_imports_no_jax():
     code = ("import sys, pointtinybenchmark_tpu_torch.apis.inference, "
-            "pointtinybenchmark_tpu_torch.utils.jax_weights; "
-            "assert 'jax' not in sys.modules; "
+            "pointtinybenchmark_tpu_torch.utils.jax_weights, "
+            "pointtinybenchmark_tpu_torch.engine.train, "
+            "pointtinybenchmark_tpu_torch.engine.optimizer, "
+            "pointtinybenchmark_tpu_torch.engine.checkpoint, "
+            "pointtinybenchmark_tpu_torch.core.assigners, "
+            "pointtinybenchmark_tpu_torch.core.samplers, "
+            "pointtinybenchmark_tpu_torch.ops.iou, "
+            "pointtinybenchmark_tpu_torch.models.losses, "
+            "pointtinybenchmark_tpu_torch.data.loader; "
+            "assert not {'jax', 'flax', 'optax'} & set(sys.modules); "
             "assert not [m for m in sys.modules "
             "if m.split('.')[0] == 'pointtinybenchmark_tpu']")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
