@@ -62,8 +62,11 @@ uint8 frames, and Adap Faster R-CNN training:
    (autograd through the plain forward) on channels-last 256-channel maps
    of two 512x640 images at Faster R-CNN training's rois (R=1,024, S=7,
    sr=1) and Mask R-CNN training's (R=1,024, S=7, sr=2; R=256, S=14,
-   sr=2), on `edge_rois`, and rois out of range (which add nothing): error
-   against BWD_TOL, times, bound; (b) Adap Faster R-CNN built from its
+   sr=2, on uniform and on `clustered_rois`), on `edge_rois`, and rois out
+   of range (which add nothing): error against BWD_TOL, the rois on each
+   kernel path (the kernel's own counts), call times, bound, and the
+   kernel's and the zero fill's device time from a profile taken after
+   every other timing of the run; (b) Adap Faster R-CNN built from its
    config with seeded weights through `train_detector` for 20 iterations on
    4 synthetic 512x640 images with 20-60 TinyPerson-like gts each: launches
    per step {iou_bitmask: 1, greedy_reduce: 1, roi_align: 1,
@@ -76,7 +79,9 @@ uint8 frames, and Adap Faster R-CNN training:
    proposals, which must equal those of the plain NMS on the same RPN
    outputs): losses within LOSS_TOL; (e) train-step ms and img/s, the K2
    forward and backward on the step's own rois and their share, the peak
-   memory above what the earlier phases hold; (f) a profile of warm steps.
+   memory above what the earlier phases hold; (f) a profile of warm steps,
+   then the backward's device time on the step's rois, whose inputs go to
+   STEP_BACKWARD for time_backward.py.
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
@@ -85,7 +90,9 @@ power limit, and the line before that lists each kernel with its launches on
 the main paths, its error against the plain version, its time, the plain
 version's time and its bound (`by_shape`: K1 at every launch shape; for
 RoIAlign the phase-2 shapes and the slices' rois; for its backward the
-phase-6 shapes and the train step's rois).
+phase-6 shapes and the train step's rois; `ms` is whole wrapper calls
+between CUDA events, as for every kernel, and the backward adds
+`device_ms`, its kernel's and zero fill's device time from a profile).
 """
 import collections
 import contextlib
@@ -149,12 +156,19 @@ TRAIN_IMAGES = 4
 TRAIN_EPOCHS = 5                 # 20 iterations at samples_per_gpu=1
 TRAIN_TIMED_STEPS = 10
 TRAIN_PROFILE_STEPS = 5
-# (name, images, rois, S, sr): the K2 backward at Faster R-CNN training's
-# rois (512 an image), Mask R-CNN training's bbox rois and its mask rois
-# (128 positives an image; standard_roi_head.py:207-219)
-BWD_SHAPES = (("faster_rcnn train", 2, 1024, 7, 1),
-              ("mask_rcnn train bbox", 2, 1024, 7, 2),
-              ("mask_rcnn train mask", 2, 256, 14, 2))
+# (name, images, rois, S, sr, roi set): the K2 backward at Faster R-CNN
+# training's rois (512 an image), Mask R-CNN training's bbox rois and its
+# mask rois (128 positives an image; standard_roi_head.py:207-219), on
+# `synthetic_rois` and, at the mask shape, on `clustered_rois` too
+BWD_SHAPES = (("faster_rcnn train", 2, 1024, 7, 1, "uniform"),
+              ("mask_rcnn train bbox", 2, 1024, 7, 2, "uniform"),
+              ("mask_rcnn train mask", 2, 256, 14, 2, "uniform"),
+              ("mask_rcnn train mask clustered", 2, 256, 14, 2, "clustered"))
+# warm backward calls traced for its device time
+BWD_PROFILE_CALLS = 20
+# the train step's backward inputs (g, rois, levels, shapes, S, sr), saved
+# by phase 6 (e) for time_backward.py
+STEP_BACKWARD = REPO / "build" / "train_step_backward.pt"
 # the K2 backward's bar against its plain version: float atomics sum in no
 # fixed order, so each level within this share of its max |gradient|
 BWD_TOL = 1e-5
@@ -330,6 +344,42 @@ def synthetic_rois(rng, b, r, tile_hw=(512, 640)):
     tiles = rng.randint(0, b, r)
     return np.concatenate([tiles[:, None], ctr - side / 2, ctr + side / 2],
                           1).astype(np.float32)
+
+
+def box_iou_rows(a, b):
+    """IoU of each row of a with the same row of b, numpy (n, 4) each."""
+    wh = np.clip(np.minimum(a[:, 2:], b[:, 2:]) - np.maximum(a[:, :2],
+                                                            b[:, :2]), 0, None)
+    inter = wh[:, 0] * wh[:, 1]
+    area = lambda x: (x[:, 2] - x[:, 0]) * (x[:, 3] - x[:, 1])
+    return inter / (area(a) + area(b) - inter)
+
+
+def clustered_rois(rng, b, per_image, hw=None):
+    """Sampled positive rois, as numpy (b * per_image, 5) f32 rows (image,
+    x1, y1, x2, y2): per image, 20-60 TinyPerson-like gts (`train_samples`'
+    kind: 10-40 px boxes in clusters) and `per_image` rois jittered around
+    them to an IoU of at least 0.5 with their gt, as the RoI head's
+    sampler takes them, so that rois pile onto the same cells."""
+    h, w = hw or TRAIN_HW
+    out = []
+    for i in range(b):
+        k = rng.randint(20, 61)
+        boxes, _, valid, _ = synthetic_boxes(rng, 1, 2 * k)
+        gts = np.clip(boxes[0][valid[0]][:k], 0, [w, h, w, h])
+        kept, n = [], 0
+        while n < per_image:
+            gt = gts[rng.randint(0, len(gts), per_image)]
+            size = gt[:, 2:] - gt[:, :2]
+            ctr = (gt[:, :2] + gt[:, 2:]) / 2 \
+                + rng.uniform(-0.15, 0.15, size.shape) * size
+            side = size * np.exp(rng.uniform(-0.25, 0.25, size.shape))
+            cand = np.concatenate([ctr - side / 2, ctr + side / 2], 1)
+            kept.append(cand[box_iou_rows(cand, gt) >= 0.5])
+            n += len(kept[-1])
+        rois = np.concatenate(kept)[:per_image]
+        out.append(np.concatenate([np.full((per_image, 1), i), rois], 1))
+    return np.concatenate(out).astype(np.float32)
 
 
 @contextlib.contextmanager
@@ -1390,6 +1440,8 @@ def compare_roi_align_backward(g, rois, lvls, shapes, out, sr):
 
 
 def time_roi_align_backward(g, rois, lvls, shapes, out, sr):
+    """(call ms, plain ms): whole wrapper calls between CUDA events, the
+    zero fill, argument checks and ctypes call included."""
     from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
 
     cl = [True] * len(shapes)
@@ -1400,33 +1452,106 @@ def time_roi_align_backward(g, rois, lvls, shapes, out, sr):
     return ms, plain_ms
 
 
+def backward_paths(g, rois, lvls, shapes, out, sr):
+    """{kernel path: rois that take it} of the backward for these inputs,
+    from the kernel's own counts (one launch, outside any counted run)."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+
+    counts = torch.zeros(len(roi_align_cuda.PATHS), dtype=torch.int32,
+                         device=rois.device)
+    roi_align_cuda.roi_align_backward(g, rois, lvls, shapes,
+                                      [True] * len(shapes), ROI_STRIDES, out,
+                                      sr, path_counts=counts)
+    return dict(zip(roi_align_cuda.PATHS, counts.tolist()))
+
+
+def backward_device_ms(g, rois, lvls, shapes, out, sr, label,
+                       calls=BWD_PROFILE_CALLS):
+    """The backward's device time per wrapper call, from a torch.profiler
+    trace of `calls` warm calls (no host time in it): (the backward kernel,
+    the rest of the call's device work: the zero fill of the level
+    gradients and the levels' int32 copy, the sum of both, which run one
+    after the other on the stream). The trace goes to build/."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+
+    def run():
+        roi_align_cuda.roi_align_backward(g, rois, lvls, shapes,
+                                          [True] * len(shapes), ROI_STRIDES,
+                                          out, sr)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    trace = REPO / "build" / f"backward_trace_{label}.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "dur" in e]
+    # the trace may miss some of the calls' activity: each kind of event
+    # (by name) gives its mean duration, once a call
+    by_name = collections.defaultdict(list)
+    for e in events:
+        by_name[e["name"]].append(e["dur"])
+    kernel = [n for n in by_name if "roi_align_backward" in n]
+    if len(kernel) != 1 or len(by_name[kernel[0]]) < calls // 2:
+        raise AssertionError(f"{calls} calls traced as "
+                             f"{ {n: len(v) for n, v in by_name.items()} }")
+    means = {n: sum(v) / len(v) / 1e3 for n, v in by_name.items()}
+    kernel_ms = means.pop(kernel[0])
+    rest_ms = sum(means.values())
+    return kernel_ms, rest_ms, kernel_ms + rest_ms
+
+
+def backward_inputs():
+    """Phase 6 (a)'s inputs, made from seeds: for each of BWD_SHAPES,
+    (name, images, uniform or clustered, the upstream gradient g, rois,
+    levels, level shapes, S, sr), on DEVICE."""
+    from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
+        map_roi_levels
+
+    rng = np.random.RandomState(6)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    for name, b, r, out, sr, kind in BWD_SHAPES:
+        shapes = [(b, ROI_CHANNELS, h, w) for h, w in ROI_LEVELS]
+        rois = torch.from_numpy(synthetic_rois(rng, b, r) if kind == "uniform"
+                                else clustered_rois(rng, b, r // b)).to(DEVICE)
+        lvls = map_roi_levels(rois, len(ROI_LEVELS))
+        g = torch.randn((r, ROI_CHANNELS, out, out), generator=gen,
+                        device=DEVICE)
+        yield name, b, kind, g, rois, lvls, shapes, out, sr
+
+
 def phase_roi_align_backward(card):
     """Phase 6 (a): the backward kernel against the plain backward at
     BWD_SHAPES on synthetic channels-last 256-channel maps of 512x640
     images, on `edge_rois` and on rois out of range (which must add
-    nothing). Returns one record per shape."""
+    nothing); call times, and the rois on each kernel path. Returns one
+    record per shape and a function that adds each shape's device time
+    from a profile, to be run after every other timing."""
     from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
         map_roi_levels
     from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
 
-    rng = np.random.RandomState(6)
-    gen = torch.Generator(device=DEVICE).manual_seed(7)
-    records = []
-    for name, b, r, out, sr in BWD_SHAPES:
-        shapes = [(b, ROI_CHANNELS, h, w) for h, w in ROI_LEVELS]
-        rois = torch.from_numpy(synthetic_rois(rng, b, r)).to(DEVICE)
-        lvls = map_roi_levels(rois, len(ROI_LEVELS))
+    gen = torch.Generator(device=DEVICE).manual_seed(8)   # edge, bad rois
+    records, inputs = [], []
+    for name, b, kind, g, rois, lvls, shapes, out, sr in backward_inputs():
+        r = rois.shape[0]
         per_level = torch.bincount(lvls, minlength=len(ROI_LEVELS)).tolist()
-        g = torch.randn((r, ROI_CHANNELS, out, out), generator=gen,
-                        device=DEVICE)
         err, share = compare_roi_align_backward(g, rois, lvls, shapes, out,
                                                 sr)
+        paths = backward_paths(g, rois, lvls, shapes, out, sr)
         edge = torch.from_numpy(edge_rois(b)).to(DEVICE)
         edge_lvls = map_roi_levels(edge, len(ROI_LEVELS))
         ge = torch.randn((edge.shape[0], ROI_CHANNELS, out, out),
                          generator=gen, device=DEVICE)
         edge_err, edge_share = compare_roi_align_backward(
             ge, edge, edge_lvls, shapes, out, sr)
+        edge_paths = backward_paths(ge, edge, edge_lvls, shapes, out, sr)
         # out of range: batch index b, -1, NaN; level 7 of 4
         bad = rois[:4].clone()
         bad[0, 0], bad[1, 0], bad[2, 0] = float(b), -1.0, float("nan")
@@ -1439,22 +1564,55 @@ def phase_roi_align_backward(card):
         torch.cuda.synchronize()
         if any(bool(x.any()) for x in none):
             raise AssertionError(f"{name}: rois out of range wrote gradient")
+        bad_paths = backward_paths(gb, bad, bad_lvls, shapes, out, sr)
+        if bad_paths["invalid"] != 4 or sum(paths.values()) != r:
+            raise AssertionError(f"{name}: paths {paths}, out of range "
+                                 f"{bad_paths}")
         ms, plain_ms = time_roi_align_backward(g, rois, lvls, shapes, out, sr)
         bms, by = roi_align_backward_bound(r, ROI_CHANNELS, out, sr, shapes)
         print(f"phase 6 RoIAlign backward {name} R={r} S={out} sr={sr} "
-              f"C={ROI_CHANNELS} ({b} images of {TRAIN_HW}, rois per level "
-              f"{per_level}): kernel vs plain max abs err {err:.3e} "
-              f"({share:.3e} of the level's max |grad|, bar {BWD_TOL}); "
-              f"{edge.shape[0]} edge rois {edge_err:.3e} ({edge_share:.3e});"
-              f" 4 rois out of range wrote nothing")
-        print(f"phase 6 RoIAlign backward {name}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), share of bound "
-              f"{bms / ms:.3f} [{card}]")
-        records.append(dict(shape=name, R=r, S=out, sr=sr, max_abs_err=err,
-                            err_share=share, edge_err_share=edge_share, ms=ms,
+              f"C={ROI_CHANNELS} ({b} images of {TRAIN_HW}, {kind} rois, "
+              f"rois per level {per_level}): kernel vs plain max abs err "
+              f"{err:.3e} ({share:.3e} of the level's max |grad|, bar "
+              f"{BWD_TOL}); {edge.shape[0]} edge rois {edge_err:.3e} "
+              f"({edge_share:.3e}); 4 rois out of range wrote nothing")
+        print(f"phase 6 RoIAlign backward {name} kernel paths: "
+              f"{shares(paths)}; edge rois: {shares(edge_paths)}; out of "
+              f"range: {shares(bad_paths)}")
+        print(f"phase 6 RoIAlign backward {name}: call {ms:.4f} ms (CUDA "
+              f"events around whole wrapper calls), plain {plain_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}) [{card}]")
+        records.append(dict(shape=name, R=r, S=out, sr=sr, rois=kind,
+                            max_abs_err=err, err_share=share,
+                            edge_err_share=edge_share, ms=ms,
                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                            per_level=per_level))
-    return records
+                            per_level=per_level, paths=paths))
+        inputs.append((g, rois, lvls, shapes, out, sr))
+
+    def device_times():
+        """Each shape's device ms from a profile (`backward_device_ms`):
+        `device_ms` is the kernel and the zero fill, the call's device
+        work."""
+        for rec, args in zip(records, inputs):
+            add_device_ms(card, rec, *args)
+    return records, device_times
+
+
+def add_device_ms(card, rec, g, rois, lvls, shapes, out, sr):
+    """Put the backward's device times for these inputs into `rec`
+    (device_ms: the kernel and the rest of the call's device work) and
+    print them beside the call time and the bound."""
+    label = rec["shape"].replace(" ", "_")
+    k_ms, rest_ms, busy_ms = backward_device_ms(g, rois, lvls, shapes, out,
+                                                sr, label)
+    rec.update(device_ms=busy_ms, kernel_ms=k_ms, fill_ms=rest_ms)
+    print(f"phase 6 RoIAlign backward {rec['shape']} (R={rec['R']}, "
+          f"S={out}, sr={sr}), device time per call from a profile of "
+          f"{BWD_PROFILE_CALLS} calls: kernel {k_ms:.4f} ms, zero fill and "
+          f"level copy {rest_ms:.4f} ms, together {busy_ms:.4f} ms (call "
+          f"{rec['ms']:.4f} ms); bound {rec['bound_ms']:.4f} ms, share "
+          f"{rec['bound_ms'] / busy_ms:.3f} (kernel alone "
+          f"{rec['bound_ms'] / k_ms:.3f}) [{card}]")
 
 
 def train_samples(rng, n, hw=None):
@@ -1714,6 +1872,7 @@ def phase_train(card):
     f_ms, f_plain = time_roi_align(feats, rois, lvls, out, sr)
     f_bms, f_by = roi_align_bound(feats, rois, lvls, out, sr)
     b_ms, b_plain = time_roi_align_backward(g, rois, lvls, shapes, out, sr)
+    b_paths = backward_paths(g, rois, lvls, shapes, out, sr)
     b_bms, b_by = roi_align_backward_bound(rois.shape[0], g.shape[1], out, sr,
                                            shapes)
     print(f"phase 6 train step (Adap Faster R-CNN, {spg} image of "
@@ -1726,14 +1885,18 @@ def phase_train(card):
           f" per level {per_level}): forward kernel == plain (torch.equal); "
           f"backward kernel vs plain {err:.3e} "
           f"({share:.3e} of the level's max); forward kernel {f_ms:.4f} ms "
-          f"(plain {f_plain:.4f}, bound {f_bms:.4f} {f_by}), backward kernel "
-          f"{b_ms:.4f} ms (plain {b_plain:.4f}, bound {b_bms:.4f} {b_by}); "
-          f"forward + backward {f_ms + b_ms:.4f} ms, share of the step "
-          f"{(f_ms + b_ms) / step_ms:.4f} [{card}]")
+          f"(plain {f_plain:.4f}, bound {f_bms:.4f} {f_by}), backward call "
+          f"{b_ms:.4f} ms (plain {b_plain:.4f}, bound {b_bms:.4f} {b_by}; "
+          f"paths {shares(b_paths)}); forward + backward {f_ms + b_ms:.4f} "
+          f"ms, share of the step {(f_ms + b_ms) / step_ms:.4f} [{card}]")
     slice_bwd = dict(shape="faster_rcnn train slice", R=rois.shape[0], S=out,
-                     sr=sr, max_abs_err=err, err_share=share, ms=b_ms,
-                     plain_ms=b_plain, bound_ms=b_bms, bound_by=b_by,
-                     per_level=per_level)
+                     sr=sr, rois="train step", max_abs_err=err,
+                     err_share=share, ms=b_ms, plain_ms=b_plain,
+                     bound_ms=b_bms, bound_by=b_by, per_level=per_level,
+                     paths=b_paths)
+    bwd_args = (g, rois, lvls, shapes, out, sr)
+    STEP_BACKWARD.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(bwd_args, STEP_BACKWARD)
     slice_fwd = dict(shape="faster_rcnn train slice", R=rois.shape[0], S=out,
                      sr=sr, max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
                      bound_ms=f_bms, bound_by=f_by, per_level=per_level)
@@ -1752,8 +1915,10 @@ def phase_train(card):
                            TRAIN_TIMED_STEPS)
         print(f"phase 6 train step again, after every profile of the run: "
               f"{after_ms:.4f} ms (before them {step_ms:.4f} ms) [{card}]")
+        add_device_ms(card, slice_bwd, *bwd_args)
         numbers = dict(step_ms=step_ms, img_s=spg * 1e3 / step_ms,
-                       peak_gib=peak, k2_fwd_ms=f_ms, k2_bwd_ms=b_ms,
+                       peak_gib=peak, k2_fwd_ms=f_ms, k2_bwd_call_ms=b_ms,
+                       k2_bwd_device_ms=slice_bwd["device_ms"],
                        k2_share_of_step=(f_ms + b_ms) / step_ms,
                        profile_wall_ms=wall_ms, profile_busy_ms=busy_ms,
                        idle_share=1 - busy_ms / wall_ms,
@@ -1797,7 +1962,7 @@ def main():
     del tiles, stage
     frcnn_launches, frcnn, slice_record = phase_frcnn(card, frames)
     mask_launches, mask, mask_records = phase_mask(card, frames)
-    bwd_shapes = phase_roi_align_backward(card)
+    bwd_shapes, bwd_device_times = phase_roi_align_backward(card)
     train_launches, train_fwd, train_bwd, train_profile = phase_train(card)
     # the profiles last: once torch.profiler has traced the card, later
     # launches of the process can cost more host time (phase 6 times the
@@ -1806,6 +1971,7 @@ def main():
     phase_profile(card, frcnn, frames, "faster_rcnn")
     phase_profile(card, mask, frames, "mask_rcnn")
     train_profile()
+    bwd_device_times()
     records["roi_align"] = dict(
         slice_record, by_shape=roi_shapes + [slice_record] + mask_records
         + [train_fwd])

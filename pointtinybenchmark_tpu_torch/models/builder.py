@@ -1,15 +1,16 @@
 """Build ported models from mmdet-style config dicts.
 
 Counterpart of pointtinybenchmark_tpu/models/builder.py for the ported
-types only. A dict maps each `type` to its class. As in the JAX builder,
-config keys a class does not take (such as `style`, `norm_cfg`'s siblings)
-are dropped, so configs translate unchanged; the training keys
-(`frozen_stages`, the heads' losses, `train_cfg`) are taken.
+types only. A dict maps each `type` to its class. A config key that a
+class does not take raises `NotImplementedError`, unless `IGNORED` lists it
+for that class as a key that changes nothing in the port: the JAX builder
+drops such keys silently, and a dropped structural key (`dcn`,
+`stage_with_dcn`) would build another network than JAX's. The training
+keys (`frozen_stages`, the heads' losses, `train_cfg`) are taken.
 """
 from __future__ import annotations
 
 import inspect
-import logging
 from typing import Optional, Union
 
 import torch
@@ -26,9 +27,7 @@ from .roi_heads.bbox_head import Shared2FCBBoxHead
 from .roi_heads.mask_head import FCNMaskHead
 from .roi_heads.standard_roi_head import StandardRoIHead
 
-logger = logging.getLogger("ptb_torch")
-
-__all__ = ["build_detector", "build_module", "MODULES"]
+__all__ = ["build_detector", "build_module", "MODULES", "IGNORED"]
 
 MODULES = {
     "ResNet": ResNet,
@@ -39,6 +38,11 @@ MODULES = {
     "StandardRoIHead": StandardRoIHead,
     "Shared2FCBBoxHead": Shared2FCBBoxHead,
     "FCNMaskHead": FCNMaskHead,
+}
+# {type: keys a class may leave out}: RetinaHead's `loss_bbox` configures
+# a RetinaNet loss, and the port runs RetinaNet for inference only
+IGNORED = {
+    "RetinaHead": ("loss_bbox",),
 }
 SINGLE_STAGE = ("SingleStageDetector", "RetinaNet")
 TWO_STAGE = {"TwoStageDetector": TwoStageDetector,
@@ -52,9 +56,11 @@ def build_module(cfg: dict) -> nn.Module:
         raise KeyError(f"{kind} is not ported: {sorted(MODULES)}")
     cls = MODULES[kind]
     accepted = set(inspect.signature(cls.__init__).parameters) - {"self"}
-    dropped = sorted(set(args) - accepted)
-    if dropped:
-        logger.debug("build_module(%s): dropping config keys %s", kind, dropped)
+    unknown = sorted(set(args) - accepted - set(IGNORED.get(kind, ())))
+    if unknown:
+        raise NotImplementedError(
+            f"{kind}: config keys {unknown} are not ported (the port's "
+            f"{cls.__name__} takes {sorted(accepted)})")
     return cls(**{k: v for k, v in args.items() if k in accepted})
 
 

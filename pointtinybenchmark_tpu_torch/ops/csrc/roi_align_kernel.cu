@@ -70,17 +70,51 @@
 // from the forward's own sample table (`sample_table`), so they are the
 // forward's bit for bit; each added value is the plain version's autograd
 // term, (g * (1/sr^2)) * (wy * wx), rounded alike. Only the order of the
-// sums differs: float atomics add in no fixed order, so the result is not
-// bit-exact. Design: one block per (roi, 32-channel chunk); the chunk's
-// upstream gradient (32 x S^2 floats, one contiguous run of the (R, C, S, S)
-// input) is staged in shared memory with coalesced loads; each warp takes
-// one bin at a time, a lane per channel, so every atomicAdd of a warp lands
-// on 32 consecutive floats of one cell (one 128-byte line). What bounds it
-// on this card: bytes, in principle (the upstream gradient read and the
-// level gradients written once, at S = 7 sr = 1 ~8 operations per upstream
-// value); in practice the atomics, which go to L2 one value each and
-// serialise where rois share cells (the sampled rois cluster on the gts). A
-// roi whose batch index or level is out of range writes nothing.
+// sums differs: rois add to shared cells by float atomics in no fixed
+// order, so the result is not bit-exact.
+//
+// What bounds it on this card: bytes, in principle (the upstream gradient
+// read and the level gradients written once, at S = 7 sr = 1 ~8 operations
+// per upstream value). The first version sent every tap of every sample to
+// global memory as its own scalar atomicAdd (4 S^2 sr^2 per roi and
+// channel), most of them onto the same few cells of a small roi, and ran at
+// 6-14% of the bound. This one is the transpose of the forward:
+//
+// 1. Once per block, the roi's sample table and, per axis, the forward's
+//    grid (`axis_map`: the roi's window of cells or its tap slots,
+//    whichever is shorter), each sample's taps as grid cells, and for each
+//    grid cell the samples that touch it (a contiguous run: taps are
+//    monotone in the sample index).
+// 2. Gather: a thread owns (grid cell, 4 channels) for each chunk of its
+//    stage and sums, in a fixed order, the terms of the samples that touch
+//    its cell; the sums stay in registers (no shared-memory grid, so no roi
+//    needs bands and there are no shared atomics), and go to the level
+//    gradient once:
+// 3. one 16-byte vector atomic (`atomicAdd(float4*, float4)`, sm_90's
+//    red.global.add.v4.f32) for 4 channels when C % 4 == 0 and the buffers
+//    are 16-byte aligned (chosen per launch, as the forward's kVec), else a
+//    scalar atomic a channel. Cells no in-map sample touches are skipped.
+// 4. The upstream gradient of a stage (up to 4 chunks of 32 channels at
+//    S = 7, one at S = 14: one contiguous run of the (R, C, S, S) input)
+//    is copied to shared memory with cp.async while the tables are built,
+//    then transposed to (bin, channel) and scaled by 1/sr^2 there, so that
+//    a thread reads 4 channels of a bin as one 16-byte load. A launch where
+//    two copies of one chunk and the tables do not fit the block's budget
+//    (kBlockBudget: from S = 21 at sr = 1, S = 20 at sr >= 5) reads the
+//    upstream gradient from global memory instead, a chunk a block (the
+//    global path).
+// 5. Blocks: one per stage of a roi (R = 512 at S = 7: 2 blocks of 4
+//    chunks a roi; at S = 14: 8 of one), and a block holds exactly one
+//    stage. Measured on the H100 (roi_align_ablation.py, its
+//    bwd_one_block_per_roi and bwd_block_per_chunk copies): one block per
+//    roi walking its stages, the next stage's copy in flight during this
+//    one's gather, is slower at every shape (most at S = 14, where 256
+//    rois then fill only 256 blocks); a block per chunk is slower at S = 7
+//    (the tables built 8 times a roi).
+// What bounds it now (same ablation): at S = 14 sr = 2 the gather (the
+// flush adds nothing measurable); at S = 7 sr = 1 the gather and the
+// flush, a third of the time (scalar atomics would double it).
+// A roi whose batch index or level is out of range writes nothing.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -625,71 +659,332 @@ int dispatch(const Levels& lv, int channels, const float* rois,
 }
 
 // the level gradients, (B, H, W, C) contiguous each, zeroed by the caller
+// (a __grid_constant__ argument: indexed by the roi's level in place, not
+// copied to the stack)
 struct LevelGrads {
   float* grad[kMaxLevels];
 };
 
-// Block (roi r, chunk k): the upstream gradient of channels [32 k, 32 k +
-// width) of roi r into the level gradient of its level (see the note at the
-// top). grad_out is (R, C, S, S) contiguous.
-__global__ void __launch_bounds__(kThreads)
-roi_align_backward_kernel(const Levels lv, const LevelGrads lg, int channels,
-                          const float* __restrict__ rois,
-                          const int* __restrict__ lvls, int out_size, int sr,
-                          int aligned, const float* __restrict__ grad_out) {
-  extern __shared__ __align__(16) float smem[];
-  const int s = out_size * sr;
-  const int bins = out_size * out_size;
-  const int ld = tile_ld(bins);
-  float* tile = smem;                                       // kChunk * ld
-  Tap* ty = reinterpret_cast<Tap*>(tile + kChunk * ld);     // s
-  Tap* tx = ty + s;                                         // s
+// the backward's stage: up to kBwdMaxStage chunks of the upstream gradient,
+// as far as two copies of it (as loaded, and transposed) fit kBwdStageBudget
+constexpr size_t kBwdStageBudget = 56 * 1024;
+constexpr int kBwdMaxStage = 4;
 
-  const int n_chunks = (channels + kChunk - 1) / kChunk;
-  const size_t r = blockIdx.x / n_chunks;
-  const int k = blockIdx.x - static_cast<int>(r) * n_chunks;
-  const float* roi = rois + r * 5;
-  const int l = lvls[r];
-  if (!valid_roi(lv, roi, l)) return;                       // writes nothing
-  sample_table(lv, roi, l, out_size, sr, aligned, ty, tx);
-  const int c0 = k * kChunk;
-  const int width = min(kChunk, channels - c0);
-  // the chunk: `width` rows of `bins` values, one contiguous run, into rows
-  // of odd length ld (the lanes of a warp then read distinct banks)
-  const float* src = grad_out + (r * channels + c0) * bins;
-  for (int i = threadIdx.x; i < width * bins; i += kThreads) {
-    const int c = i / bins;
-    tile[c * ld + (i - c * bins)] = src[i];
+// One sample along one axis, for the backward: the grid cell of its tap 0
+// (kOutside set when the sample is outside the map; tap 1 is the next grid
+// cell, or in a window the same clamped cell with weight 0), the offset of
+// its bin along the axis (oy * S along y, ox along x) and its tap weights.
+struct __align__(16) BwdSample {
+  int c0;
+  int bin;
+  float w0, w1;
+};
+
+// One grid cell along one axis: its map row or column, and the samples
+// k_lo..k_hi whose taps touch it (none when k_lo > k_hi). In a window they
+// are those whose tap 0 is the cell or the one before: a contiguous run,
+// since taps are monotone in the sample index; in slots, sample j / 2.
+struct __align__(16) BwdCell {
+  int src;
+  int k_lo, k_hi;
+  int pad;
+};
+
+// 4 channels (group g of chunk p of the stage) of the scaled upstream
+// gradient of a bin: staged and transposed, (chunk, bin, kChunk channels)
+struct SharedGrad {
+  const float4* g;
+  int bins;
+  __device__ __forceinline__ float4 operator()(int p, int bin, int g4) const {
+    return g[(p * bins + bin) * kGroups + g4];
   }
-  __syncthreads();
+};
 
-  const int lane = threadIdx.x % 32;          // the channel c0 + lane
-  if (lane >= width) return;
-  const float inv_count = bin_scale(sr);
-  const int wl = lv.w[l];
+// the same read from the (R, C, S, S) input and scaled here (the global
+// path, one chunk a stage): src is the chunk's first channel of the roi
+struct GlobalGrad {
+  const float* src;
+  int bins;
+  int width;         // channels in the chunk
+  float inv_count;
+  __device__ __forceinline__ float4 operator()(int, int bin, int g4) const {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 4 * g4 + j;
+      v[j] = c < width ? __fmul_rn(__ldg(src + c * bins + bin), inv_count)
+                       : 0.0f;
+    }
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+// v added to 4 channels of a cell of the level gradient, n of which exist:
+// one 16-byte vector atomic (sm_90) when kVec, else one atomic a channel
+template <bool kVec>
+__device__ __forceinline__ void flush(float* dst, float4 v, int n) {
+  if constexpr (kVec) {
+    atomicAdd(reinterpret_cast<float4*>(dst), v);
+  } else {
+    atomicAdd(dst, v.x);
+    if (n > 1) atomicAdd(dst + 1, v.y);
+    if (n > 2) atomicAdd(dst + 2, v.z);
+    if (n > 3) atomicAdd(dst + 3, v.w);
+  }
+}
+
+// The gather: thread unit u is (grid cell, 4-channel group), for each of the
+// nk chunks of the stage (at most kMaxNk, one accumulator each: the sample
+// loads and weights serve all of them; kMaxNk = 1 for stages of one chunk,
+// where more accumulators cost time). It sums, over the samples
+// whose taps touch its cell along y and along x (a fixed order), the
+// sample's scaled upstream gradient times the tap's weight (wy * wx, the
+// plain version's product), and adds each chunk's sum to the cell's level
+// gradient once. c_first: the stage's first channel.
+template <bool kVec, int kMaxNk, class Grad>
+__device__ __forceinline__ void gather_flush(
+    const Grad& grad, const BwdSample* sy, const BwdSample* sx,
+    const BwdCell* cy, const BwdCell* cx, int ny, int nx, int nk,
+    int c_first, int channels, float* gmap, int wl) {
+  const int n_units = ny * nx * kGroups;
   const size_t cs = static_cast<size_t>(channels);
-  float* grad = lg.grad[l] +
-                static_cast<size_t>(roi[0]) * lv.h[l] * wl * cs + c0 + lane;
-  for (int bin = threadIdx.x / 32; bin < bins; bin += kThreads / 32) {
-    const int oy = bin / out_size;
-    const int ox = bin - oy * out_size;
-    const float g = __fmul_rn(tile[lane * ld + bin], inv_count);
-    for (int iy = 0; iy < sr; ++iy) {
-      const Tap a = ty[oy * sr + iy];
-      const size_t y0 = static_cast<size_t>(a.i0 & kCell) * wl;
-      const size_t y1 = static_cast<size_t>(a.i1) * wl;
-      for (int ix = 0; ix < sr; ++ix) {
-        const Tap b = tx[ox * sr + ix];
-        if ((a.i0 | b.i0) < 0) continue;    // outside the map: no gradient
-        const size_t x0 = b.i0 & kCell;
-        const size_t x1 = b.i1;
-        atomicAdd(grad + (y0 + x0) * cs, __fmul_rn(g, __fmul_rn(a.w0, b.w0)));
-        atomicAdd(grad + (y0 + x1) * cs, __fmul_rn(g, __fmul_rn(a.w0, b.w1)));
-        atomicAdd(grad + (y1 + x0) * cs, __fmul_rn(g, __fmul_rn(a.w1, b.w0)));
-        atomicAdd(grad + (y1 + x1) * cs, __fmul_rn(g, __fmul_rn(a.w1, b.w1)));
+  for (int u = threadIdx.x; u < n_units; u += kThreads) {
+    const int g4 = u % kGroups;
+    const int cell = u / kGroups;
+    const int j = cell / nx;
+    const int i = cell - j * nx;
+    const BwdCell ay = cy[j];
+    const BwdCell ax = cx[i];
+    float4 acc[kMaxNk];
+#pragma unroll
+    for (int p = 0; p < kMaxNk; ++p) {
+      acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    bool any = false;
+    for (int ky = ay.k_lo; ky <= ay.k_hi; ++ky) {
+      const BwdSample a = sy[ky];
+      if (a.c0 < 0) continue;            // outside the map: no gradient
+      const float wy = a.c0 == j ? a.w0 : a.w1;
+      for (int kx = ax.k_lo; kx <= ax.k_hi; ++kx) {
+        const BwdSample b = sx[kx];
+        if (b.c0 < 0) continue;
+        const float w = __fmul_rn(wy, b.c0 == i ? b.w0 : b.w1);
+#pragma unroll
+        for (int p = 0; p < kMaxNk; ++p) {
+          if (p < nk) {
+            acc[p] = f4_add(acc[p], f4_scale(grad(p, a.bin + b.bin, g4), w));
+          }
+        }
+        any = true;
+      }
+    }
+    if (!any) continue;
+    float* dst = gmap + (static_cast<size_t>(ay.src) * wl + ax.src) * cs +
+                 c_first + 4 * g4;
+#pragma unroll
+    for (int p = 0; p < kMaxNk; ++p) {
+      const int c = c_first + p * kChunk + 4 * g4;
+      if (p < nk && c < channels) {
+        flush<kVec>(dst + p * kChunk, acc[p], channels - c);
       }
     }
   }
+}
+
+// The copy of a stage into buf: the chunks [k, k + nk) of a roi's upstream
+// gradient src, one contiguous run, with cp.async (the caller commits the
+// group)
+template <bool kVec>
+__device__ __forceinline__ void copy_stage(float* buf, const float* src,
+                                           int k, int nk, int channels,
+                                           int bins) {
+  const int c_lo = k * kChunk;
+  const int c_hi = min((k + nk) * kChunk, channels);
+  const float* from = src + static_cast<size_t>(c_lo) * bins;
+  const int n = (c_hi - c_lo) * bins;
+  if constexpr (kVec) {
+    for (int i = threadIdx.x; i < n / 4; i += kThreads) {
+      cp_async16(buf + 4 * i, from + 4 * i);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      cp_async4(buf + i, from + i);
+    }
+  }
+}
+
+// A landed stage of nk chunks (width channels), (channel, bin) as loaded
+// in buf -> (chunk, bin, channel) in gs, times 1 / sr^2: the plain
+// version's gradient of each sample (channels past width are 0)
+__device__ __forceinline__ void transpose_stage(float* gs, const float* buf,
+                                                int nk, int width, int bins,
+                                                float inv_count) {
+  for (int i = threadIdx.x; i < nk * kChunk * bins; i += kThreads) {
+    const int cc = i % kChunk;
+    const int rest = i / kChunk;
+    const int p = rest / bins;
+    const int c = p * kChunk + cc;
+    gs[i] = c < width ? __fmul_rn(buf[c * bins + rest - p * bins], inv_count)
+                      : 0.0f;
+  }
+}
+
+// The gather of a transposed stage (nk chunks from chunk k), kc chunks a
+// stage at most
+template <bool kVec>
+__device__ __forceinline__ void gather_stage(
+    const float* gs, int bins, int kc, const BwdSample* sy,
+    const BwdSample* sx, const BwdCell* cy, const BwdCell* cx, int ny,
+    int nx, int nk, int k, int channels, float* gmap, int wl) {
+  const SharedGrad grad{reinterpret_cast<const float4*>(gs), bins};
+  if (kc == 1) {
+    gather_flush<kVec, 1>(grad, sy, sx, cy, cx, ny, nx, nk, k * kChunk,
+                          channels, gmap, wl);
+  } else {
+    gather_flush<kVec, kBwdMaxStage>(grad, sy, sx, cy, cx, ny, nx, nk,
+                                     k * kChunk, channels, gmap, wl);
+  }
+}
+
+// Block (roi r, stage t): the upstream gradient of the chunks [t kc, t kc +
+// kc) of roi r into the level gradient of its level (see the note at the
+// top). grad_out is (R, C, S, S) contiguous. staged: the stage is copied to
+// shared memory; else it is one chunk, read from global memory.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 4)
+roi_align_backward_kernel(const Levels lv,
+                          const __grid_constant__ LevelGrads lg,
+                          int channels, const float* __restrict__ rois,
+                          const int* __restrict__ lvls, int out_size, int sr,
+                          int aligned, int stages, int kc, int staged,
+                          const float* __restrict__ grad_out,
+                          int* __restrict__ path_counts) {
+  extern __shared__ __align__(16) float smem[];
+  const int s = out_size * sr;
+  const int bins = out_size * out_size;
+  const int stage = staged ? kc * kChunk * bins : 0;
+  float* buf = smem;                                   // stage, as loaded
+  float* gs = buf + stage;                             // stage, transposed
+  Tap* ty = reinterpret_cast<Tap*>(gs + stage);        // s: map cells
+  Tap* tx = ty + s;                                    // s
+  BwdSample* sy = reinterpret_cast<BwdSample*>(tx + s);   // s: grid cells
+  BwdSample* sx = sy + s;                              // s
+  BwdCell* cy = reinterpret_cast<BwdCell*>(sx + s);    // 2 s
+  BwdCell* cx = cy + 2 * s;                            // 2 s
+
+  const size_t r = blockIdx.x / stages;
+  const int t = blockIdx.x - static_cast<int>(r) * stages;
+  const int n_chunks = (channels + kChunk - 1) / kChunk;
+  const int k = t * kc;                                // the first chunk
+  const int nk = min(kc, n_chunks - k);
+  const float* roi = rois + r * 5;
+  const int l = lvls[r];
+  const bool count = path_counts != nullptr && t == 0 && threadIdx.x == 0;
+  if (!valid_roi(lv, roi, l)) {                        // writes nothing
+    if (count) atomicAdd(path_counts + kInvalid, 1);
+    return;
+  }
+  if (count) atomicAdd(path_counts + (staged ? kWhole : kGlobal), 1);
+  const float* src = grad_out + r * channels * bins;   // the roi's (C, S, S)
+  if (staged) copy_stage<kVec>(buf, src, k, nk, channels, bins);
+  cp_async_commit();
+  // the tables, while the stage is in flight: the forward's taps, its grid
+  // per axis (window or slots), each sample's taps as grid cells and each
+  // grid cell's samples
+  sample_table(lv, roi, l, out_size, sr, aligned, ty, tx);
+  __syncthreads();
+  const AxisMap my = axis_map(ty, 0, s - 1);
+  const AxisMap mx = axis_map(tx, 0, s - 1);
+  for (int u = threadIdx.x; u < 2 * s; u += kThreads) {
+    const bool is_x = u >= s;
+    const int j = is_x ? u - s : u;
+    const Tap a = is_x ? tx[j] : ty[j];
+    const AxisMap m = is_x ? mx : my;
+    const int c0 = m.lo >= 0 ? (a.i0 & kCell) - m.lo : 2 * j;
+    (is_x ? sx : sy)[j] = BwdSample{c0 | (a.i0 & kOutside),
+                                    is_x ? j / sr : j / sr * out_size,
+                                    a.w0, a.w1};
+  }
+  for (int u = threadIdx.x; u < my.n + mx.n; u += kThreads) {
+    const bool is_x = u >= my.n;
+    const int j = is_x ? u - my.n : u;
+    const Tap* tp = is_x ? tx : ty;
+    const AxisMap m = is_x ? mx : my;
+    int k_lo = j >> 1;
+    int k_hi = j >> 1;
+    if (m.lo >= 0) {
+      k_lo = s;
+      k_hi = -1;
+      for (int q = 0; q < s; ++q) {
+        if ((tp[q].i0 & kCell) - m.lo == j || tp[q].i1 - m.lo == j) {
+          k_lo = min(k_lo, q);
+          k_hi = q;
+        }
+      }
+    }
+    (is_x ? cx : cy)[j] = BwdCell{grid_source(tp, m, j), k_lo, k_hi, 0};
+  }
+  const int hl = lv.h[l];
+  const int wl = lv.w[l];
+  float* gmap = lg.grad[l] +
+                static_cast<size_t>(roi[0]) * hl * wl * channels;
+  const float inv_count = bin_scale(sr);
+
+  if (!staged) {
+    __syncthreads();
+    const int c0 = k * kChunk;
+    gather_flush<kVec, 1>(
+        GlobalGrad{src + static_cast<size_t>(c0) * bins, bins,
+                   min(kChunk, channels - c0), inv_count},
+        sy, sx, cy, cx, my.n, mx.n, 1, c0, channels, gmap, wl);
+    return;
+  }
+  cp_async_wait<0>();
+  __syncthreads();         // the stage landed, the tables are built
+  transpose_stage(gs, buf, nk, min(nk * kChunk, channels - k * kChunk), bins,
+                  inv_count);
+  __syncthreads();
+  gather_stage<kVec>(gs, bins, kc, sy, sx, cy, cx, my.n, mx.n, nk, k,
+                     channels, gmap, wl);
+}
+
+// the backward's launch: chunks a stage, stages a roi (a block each),
+// shared memory
+template <bool kVec>
+int launch_backward(const Levels& lv, const LevelGrads& lg, int channels,
+                    const float* rois, const int* lvls, int n_rois,
+                    int out_size, int sr, int aligned, const float* grad_out,
+                    int* path_counts, cudaStream_t stream) {
+  // the upstream gradient is staged when two copies of one chunk (as
+  // loaded, and transposed) and the tables fit the block's budget
+  // (kBlockBudget: S <= 20 at sr <= 4, not S = 21 at sr = 1), up to
+  // kBwdMaxStage chunks a stage as far as kBwdStageBudget allows; else a
+  // block reads its one chunk from global memory (the global path)
+  const size_t chunk = static_cast<size_t>(kChunk) * out_size * out_size * 4;
+  const size_t tables = 8 * static_cast<size_t>(out_size) * sr * sizeof(Tap);
+  const bool staged = 2 * chunk + tables <= kBlockBudget;
+  const int fit = static_cast<int>(kBwdStageBudget / (2 * chunk));
+  const int kc_max = !staged ? 1
+                     : fit < 1 ? 1 : fit < kBwdMaxStage ? fit : kBwdMaxStage;
+  // the roi's chunks in even stages of at most kc_max
+  const int n_chunks = (channels + kChunk - 1) / kChunk;
+  const int stages = (n_chunks + kc_max - 1) / kc_max;
+  const int kc = (n_chunks + stages - 1) / stages;
+  const long long blocks = static_cast<long long>(n_rois) * stages;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (staged ? 2 * static_cast<size_t>(kc) * chunk : 0) +
+                      tables;
+  auto kernel = roi_align_backward_kernel<kVec>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      lv, lg, channels, rois, lvls, out_size, sr, aligned, stages, kc,
+      staged ? 1 : 0, grad_out, path_counts);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -736,7 +1031,9 @@ extern "C" int ptb_roi_align(const void* const* feats, const int* heights,
 // S) f32 contiguous into `grads`, one zeroed (B, H_l, W_l, C) f32 buffer per
 // level (the caller zeroes them). Launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() after the launch (or the error
-// of a refused argument or attribute).
+// of a refused argument or attribute). `path_counts`, when not null, is 4
+// int32 on the card to which each roi adds one at its path: staged (whole),
+// never bands, the upstream gradient read from global memory, invalid.
 extern "C" int ptb_roi_align_backward(const void* grad_out,
                                       void* const* grads, const int* heights,
                                       const int* widths, const float* strides,
@@ -744,7 +1041,7 @@ extern "C" int ptb_roi_align_backward(const void* grad_out,
                                       const void* rois, const void* lvls,
                                       int n_rois, int out_size,
                                       int sampling_ratio, int aligned,
-                                      void* stream) {
+                                      void* path_counts, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || out_size < 1 ||
       sampling_ratio < 1 || channels < 1 || n_rois < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -753,29 +1050,24 @@ extern "C" int ptb_roi_align_backward(const void* grad_out,
   LevelGrads lg;
   lv.n = n_levels;
   lv.batch = batch;
+  bool vec = channels % 4 == 0 && reinterpret_cast<size_t>(grad_out) % 16 == 0;
   for (int l = 0; l < n_levels; ++l) {
     lv.feat[l] = nullptr;
     lg.grad[l] = static_cast<float*>(grads[l]);
     lv.h[l] = heights[l];
     lv.w[l] = widths[l];
     lv.stride[l] = strides[l];
+    vec = vec && reinterpret_cast<size_t>(grads[l]) % 16 == 0;
   }
-  const long long n_chunks = (channels + kChunk - 1) / kChunk;
-  const long long blocks = n_chunks * n_rois;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = kChunk * tile_ld(out_size * out_size) * sizeof(float) +
-                      2 * static_cast<size_t>(out_size) * sampling_ratio *
-                          sizeof(Tap);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        roi_align_backward_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  roi_align_backward_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      lv, lg, channels, static_cast<const float*>(rois),
-      static_cast<const int*>(lvls), out_size, sampling_ratio, aligned,
-      static_cast<const float*>(grad_out));
-  return static_cast<int>(cudaGetLastError());
+  const auto* g = static_cast<const float*>(grad_out);
+  const auto* r = static_cast<const float*>(rois);
+  const auto* lv_idx = static_cast<const int*>(lvls);
+  auto* counts = static_cast<int*>(path_counts);
+  auto st = static_cast<cudaStream_t>(stream);
+  return vec ? launch_backward<true>(lv, lg, channels, r, lv_idx, n_rois,
+                                     out_size, sampling_ratio, aligned, g,
+                                     counts, st)
+             : launch_backward<false>(lv, lg, channels, r, lv_idx, n_rois,
+                                      out_size, sampling_ratio, aligned, g,
+                                      counts, st);
 }

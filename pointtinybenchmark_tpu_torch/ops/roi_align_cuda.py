@@ -11,9 +11,13 @@ build or launch raises.
 `launches` counts kernel launches by name, so a run can show that it went
 through the kernels. To hold a kernel against its plain version on the
 card, call `ops/roi_align.py::roi_align_multilevel_plain` or
-`roi_align_backward_plain` directly. `PATHS` names the forward kernel's
-paths for a roi (taps staged whole or in bands of rows, read from global
-memory, or an out-of-range roi); pass `path_counts` to count them.
+`roi_align_backward_plain` directly. `PATHS` names the kernels' paths for
+a roi; pass `path_counts` to either launch to count them. The forward's:
+taps staged whole or in bands of rows, read from global memory, or an
+out-of-range roi. The backward's: the upstream gradient staged ("whole"),
+read from global memory (when two copies of a 32-channel chunk and the
+tables do not fit the block's shared memory: from S = 21 at sr = 1), or an
+out-of-range roi; it has no bands.
 """
 from __future__ import annotations
 
@@ -55,7 +59,7 @@ def build_library() -> ctypes.CDLL:
         lib.ptb_roi_align_backward.argtypes = [
             vp, ctypes.POINTER(vp), ctypes.POINTER(ci), ctypes.POINTER(ci),
             ctypes.POINTER(ctypes.c_float), ci, ci, ci, vp, vp, ci, ci, ci, ci,
-            vp]
+            vp, vp]
         lib.ptb_roi_align_backward.restype = ci
         _lib = lib
         return lib
@@ -81,6 +85,14 @@ def _check_args(dev: torch.device, n: int, strides: Sequence[int],
                          f"{sampling_ratio}: both must be >= 1")
 
 
+def _check_counts(dev: torch.device,
+                  path_counts: torch.Tensor | None) -> None:
+    if path_counts is not None and (
+            path_counts.shape != (len(PATHS),) or path_counts.device != dev
+            or path_counts.dtype != torch.int32):
+        raise ValueError(f"path_counts must be ({len(PATHS)},) int32 on {dev}")
+
+
 def roi_align_forward(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                       lvls: torch.Tensor, strides: Sequence[int],
                       output_size: int = 7, sampling_ratio: int = 2,
@@ -104,10 +116,7 @@ def roi_align_forward(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                              f"float32 on {dev}, got {tuple(f.shape)} "
                              f"{f.dtype} on {f.device}")
     r = rois.shape[0]
-    if path_counts is not None and (
-            path_counts.shape != (len(PATHS),) or path_counts.device != dev
-            or path_counts.dtype != torch.int32):
-        raise ValueError(f"path_counts must be ({len(PATHS)},) int32 on {dev}")
+    _check_counts(dev, path_counts)
     out = torch.empty((r, c, output_size, output_size), dtype=torch.float32,
                       device=dev)
     if r == 0:
@@ -138,8 +147,9 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
                        shapes: Sequence[Tuple[int, int, int, int]],
                        channels_last: Sequence[bool],
                        strides: Sequence[int], output_size: int = 7,
-                       sampling_ratio: int = 2,
-                       aligned: bool = True) -> Tuple[torch.Tensor, ...]:
+                       sampling_ratio: int = 2, aligned: bool = True,
+                       path_counts: torch.Tensor | None = None
+                       ) -> Tuple[torch.Tensor, ...]:
     """Launch the backward kernel: the gradient of `roi_align_forward` with
     respect to its level maps. grad_out (R, C, S, S) f32 on a CUDA device
     (any strides: it is made contiguous); rois, lvls as the forward took
@@ -148,7 +158,7 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
     channels-last buffer: a level whose `channels_last` entry is False gets
     an NCHW-contiguous copy instead, the layout of its map. R = 0 gives
     zeros and launches nothing; a roi the forward gave NaN (batch index or
-    level out of range) adds nothing."""
+    level out of range) adds nothing. `path_counts` as for the forward."""
     dev = rois.device
     _check_args(dev, len(shapes), strides, rois, lvls, output_size,
                 sampling_ratio)
@@ -164,6 +174,7 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
             or len(channels_last) != len(shapes):
         raise ValueError(f"level shapes {shapes} must share (B={b}, C={c}), "
                          f"one channels_last flag each")
+    _check_counts(dev, path_counts)
     sizes = [b * h * w * c for _, _, h, w in shapes]
     flat = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
     grads, start = [], 0
@@ -184,6 +195,7 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
             (ctypes.c_float * n)(*[float(s) for s in strides]),
             n, b, c, rois.data_ptr(), lvls.data_ptr(), r, int(output_size),
             int(sampling_ratio), int(bool(aligned)),
+            None if path_counts is None else path_counts.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"roi_align_backward launch failed: "

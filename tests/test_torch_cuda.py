@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (edge_rois, plain_nms, sorted_nms_inputs,
-                        synthetic_boxes, synthetic_rois, threshold_tie_boxes)
+from chip_smoke import (clustered_rois, edge_rois, plain_nms,
+                        sorted_nms_inputs, synthetic_boxes, synthetic_rois,
+                        threshold_tie_boxes)
 from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
     map_roi_levels
 from pointtinybenchmark_tpu_torch.ops import (nms, nms_cuda, roi_align,
@@ -371,3 +372,71 @@ def test_roi_align_backward_is_linear(cuda):
                                             [True] * 4, (4, 8, 16, 32), 7, 1)
     torch.cuda.synchronize()
     _assert_grads_close(two, [2 * x for x in one])
+
+
+def _bwd_case(cuda, case):
+    """(g, rois, lvls, level shapes, S, sr, the path every roi must take)
+    for one case of the backward kernel's paths and flushes."""
+    rng = np.random.RandomState(11)
+    c, out, sr, path = 256, 7, 1, "whole"
+    if case == "whole":
+        rois = synthetic_rois(rng, 2, 512)
+    elif case == "elongated":
+        # the forward cuts these into bands (1:8 at level 0, S=14 sr=2); the
+        # backward's grid lives in registers and takes them whole
+        rois = np.asarray([(0, 10, 10, 34, 202), (1, 100, 20, 292, 44),
+                           (0, 300, 200, 324, 392)], np.float32)
+        out, sr = 14, 2
+    elif case == "global":
+        # S=24: one 32-channel chunk of the upstream gradient, twice, is over
+        # the block's budget, so it is read from global memory
+        rois = synthetic_rois(rng, 2, 64)
+        out, path = 24, "global"
+    elif case == "invalid":
+        rois = synthetic_rois(rng, 2, 6)
+        rois[0, 0], rois[1, 0], rois[2, 0] = 2.0, -1.0, float("nan")
+        path = "invalid"
+    elif case in ("c20", "c13"):      # C % 32 != 0; C % 4 != 0 (scalar flush)
+        rois = synthetic_rois(rng, 2, 256)
+        c, out, sr = int(case[1:]), 14, 2
+    elif case == "identical":         # the worst flush contention
+        rois = np.tile(np.asarray([[1, 200, 150, 230, 190]], np.float32),
+                       (64, 1))
+        out, sr = 14, 2
+    elif case == "clustered":         # Mask R-CNN training's positives
+        rois = clustered_rois(rng, 2, 128)
+        out, sr = 14, 2
+    rois = torch.from_numpy(rois).to(cuda)
+    lvls = map_roi_levels(rois, len(BWD_LEVELS))
+    if case == "invalid":
+        lvls[3:] = torch.tensor([7, -1, 4], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    g = torch.randn((rois.shape[0], c, out, out), generator=gen, device=cuda)
+    shapes = [(2, c, h, w) for h, w in BWD_LEVELS]
+    return g, rois, lvls, shapes, out, sr, path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["whole", "elongated", "global", "invalid",
+                                  "c20", "c13", "identical", "clustered"])
+def test_roi_align_backward_paths_match_plain(cuda, case):
+    """Every roi takes the expected path of the backward kernel (its own
+    counts, summing to R), and the gradient is the plain backward's within
+    1e-5 of each level's max; out-of-range rois add nothing."""
+    g, rois, lvls, shapes, out, sr, path = _bwd_case(cuda, case)
+    counts = torch.zeros(len(roi_align_cuda.PATHS), dtype=torch.int32,
+                         device=cuda)
+    cl = [True] * len(shapes)
+    got = roi_align_cuda.roi_align_backward(g, rois, lvls, shapes, cl,
+                                            (4, 8, 16, 32), out, sr,
+                                            path_counts=counts)
+    torch.cuda.synchronize()
+    paths = dict(zip(roi_align_cuda.PATHS, counts.tolist()))
+    assert paths[path] == rois.shape[0] == sum(paths.values()), paths
+    if case == "invalid":
+        assert not any(bool(x.any()) for x in got)
+        return
+    want = roi_align.roi_align_backward_plain(g, rois, lvls, shapes, cl,
+                                              (4, 8, 16, 32), out, sr)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want)

@@ -31,6 +31,7 @@ from pointtinybenchmark_tpu_torch.data.device_pipeline import \
     DevicePreprocessor
 from pointtinybenchmark_tpu_torch.data.tiling import tile_grid
 from pointtinybenchmark_tpu_torch.models import build_detector
+from pointtinybenchmark_tpu_torch.models.builder import build_module
 from pointtinybenchmark_tpu_torch.utils.config import Config
 from pointtinybenchmark_tpu_torch.utils.jax_weights import load_jax_variables
 
@@ -429,3 +430,35 @@ def test_roi_head_simple_test_matches_jax(frcnn_pair):
         ref = _dets_np(want, i)
         assert ref[0].shape[0] > 10 and len(np.unique(ref[1])) == 2
         assert_dets_match(ref, _dets_np(got, i))
+
+
+# ------------------------------------------------------------ the builder
+PORT_CONFIGS = (RETINA_CFG,
+                "configs/tinyperson/faster_rcnn_r50_fpn_1x_tinyperson640.py",
+                "configs/coco/mask_rcnn_r50_fpn_1x_coco.py")
+DCN_CFG = "configs/coco/faster_rcnn_r50_fpn_dconv_c3_c5_1x_coco.py"
+
+
+@pytest.mark.parametrize("path", PORT_CONFIGS)
+def test_port_configs_still_build(path):
+    """Every config the port runs builds, with no key refused."""
+    cfg = Config.fromfile(path)
+    model = build_detector(dict(cfg.model), cfg.get("train_cfg"),
+                           cfg.get("test_cfg"), device="cpu")
+    assert sum(p.numel() for p in model.parameters()) > 2e7
+
+
+@pytest.mark.parametrize("key", ["dcn", "stage_with_dcn"])
+def test_build_module_refuses_structural_keys(key):
+    """A key the port's class does not take raises and names itself and
+    the class: the deformable-convolution config does not build as a
+    network without DCN."""
+    cfg = Config.fromfile(DCN_CFG)
+    if key == "dcn":
+        with pytest.raises(NotImplementedError, match=r"ResNet.*'dcn'"):
+            build_detector(dict(cfg.model), cfg.get("train_cfg"),
+                           cfg.get("test_cfg"), device="cpu")
+    backbone = {k: v for k, v in dict(cfg.model["backbone"]).items()
+                if k in ("type", "depth", key)}
+    with pytest.raises(NotImplementedError, match=f"ResNet.*'{key}'"):
+        build_module(backbone)
