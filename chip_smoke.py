@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the kernels of ops/csrc with nvcc (one nvcc per source, started
-together), then runs four main paths, the tiled protocol of Adap
+together), then runs six main paths, the tiled protocol of Adap
 RetinaNet-c, Adap Faster R-CNN and COCO Mask R-CNN, each on two 1920x1080
-uint8 frames, and Adap Faster R-CNN training:
+uint8 frames, and the training of Adap Faster R-CNN, Adap RetinaNet-c and
+COCO Mask R-CNN:
 
 1. kernel vs plain, NMS: the IoU-bitmask and greedy-reduce kernels against
    their plain PyTorch version on the card, on synthetic TinyPerson-like
@@ -81,16 +82,48 @@ uint8 frames, and Adap Faster R-CNN training:
    forward and backward on the step's own rois and their share, the peak
    memory above what the earlier phases hold; (f) a profile of warm steps,
    then the backward's device time on the step's rois, whose inputs go to
-   STEP_BACKWARD for time_backward.py.
+   STEP_BACKWARD for time_backward.py;
+7. Adap RetinaNet-c training (the clipg config at full width: ResNet-50
+   with frozen_stages=1, FPN-256 from stride 4, RetinaHead with 4 stacked
+   convs and 9 anchors, focal loss, grad_clip max_norm 1) with seeded
+   weights: (a) `train_detector` for 20 iterations on 4 synthetic 512x640
+   images: launches per step {0, 0, 0, 0} (the path has no NMS and no
+   RoIAlign, so it runs none of the port's kernels), finite losses,
+   positives in every step, the frozen stem and layer1 bit-identical and
+   every other parameter changed; (b) the card against the CPU on one
+   step: float32 losses within LOSS_TOL, and in float64 each gradient
+   within GRAD_TOL of its parameter's max (float32 rounding alone moves
+   the full-width network's gradients by ~6e-3 of that, printed); (c)
+   train-step ms, img/s, peak memory; (d) a profile of warm steps (idle
+   share, device ms by family);
+8. COCO Mask R-CNN training (configs/coco/mask_rcnn_r50_fpn_1x_coco.py at
+   full width with its train_cfg, samples_per_gpu 2) with seeded weights on
+   synthetic 800x1333 images padded to 32, 5-30 objects of COCO-like sizes
+   each with an elliptical bitmask, 80 classes: (a) `train_detector`:
+   launches per step {iou_bitmask: 1, greedy_reduce: 1, roi_align: 2,
+   roi_align_backward: 2}, finite losses (loss_mask included), positives in
+   both stages, frozen parameters unchanged, the rest changed; (b) one step
+   with the kernels against one with the plain RoIAlign from the same
+   weights and draws: equal losses, gradients within GRAD_TOL; (c) on that
+   step's own launches: K2 forward torch.equal and backward within BWD_TOL
+   of their plain versions on the bbox rois (S=7, sr=2) and the mask rois
+   (S=14, sr=2), rois per kernel path, times and bounds, and K1 alone at
+   the step's RPN NMS; (d) the card against the CPU on one step of one
+   smaller image (MASK_CPU_HW; fewer proposals, both samplers taking every
+   candidate, the CPU fed the card's proposals, which must equal the plain
+   NMS's): losses within LOSS_TOL; (e) train-step ms, img/s, peak memory;
+   (f) a profile of warm steps and the backward's device time on the
+   step's rois.
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
 {"ok": true, "device": {...}}; the line before it is the card's name and
 power limit, and the line before that lists each kernel with its launches on
 the main paths, its error against the plain version, its time, the plain
-version's time and its bound (`by_shape`: K1 at every launch shape; for
-RoIAlign the phase-2 shapes and the slices' rois; for its backward the
-phase-6 shapes and the train step's rois; `ms` is whole wrapper calls
+version's time and its bound (`by_shape`: K1 at every launch shape and
+the Mask R-CNN train step's RPN NMS; for RoIAlign the phase-2 shapes, the
+slices' rois and the train steps' rois; for its backward the phase-6
+shapes and the train steps' rois; `ms` is whole wrapper calls
 between CUDA events, as for every kernel, and the backward adds
 `device_ms`, its kernel's and zero fill's device time from a profile).
 """
@@ -156,6 +189,25 @@ TRAIN_IMAGES = 4
 TRAIN_EPOCHS = 5                 # 20 iterations at samples_per_gpu=1
 TRAIN_TIMED_STEPS = 10
 TRAIN_PROFILE_STEPS = 5
+# phase 7: RetinaNet-c training runs no TPU kernel (no NMS, no RoIAlign)
+RETINA_TRAIN_LAUNCHES = {"iou_bitmask": 0, "greedy_reduce": 0,
+                         "roi_align": 0, "roi_align_backward": 0}
+# phase 8: a Mask R-CNN train step launches K1 once (the RPN's proposal
+# NMS), K2 forward and backward twice (the bbox rois, S=7 sr=2, and the
+# mask rois, S=14 sr=2)
+MASK_TRAIN_LAUNCHES = {"iou_bitmask": 1, "greedy_reduce": 1, "roi_align": 2,
+                       "roi_align_backward": 2}
+MASK_TRAIN_IMAGES = 4
+MASK_TRAIN_EPOCHS = 5            # 10 iterations at samples_per_gpu=2
+# objects an image and their sides in px (log-uniform, COCO's small to
+# large), 80 classes
+COCO_OBJECTS = (5, 30)
+COCO_SIDES = (10.0, 400.0)
+# phase 8 (d), the card against the CPU: one image at this size (padded to
+# 32), at most this many gts, rpn_proposal max_per_img this many
+MASK_CPU_HW = (400, 667)
+MASK_CPU_GTS = 32
+MASK_CPU_PROPOSALS = 100
 # (name, images, rois, S, sr, roi set): the K2 backward at Faster R-CNN
 # training's rois (512 an image), Mask R-CNN training's bbox rois and its
 # mask rois (128 positives an image; standard_roi_head.py:207-219), on
@@ -554,7 +606,7 @@ def roi_align_bound(feats, rois, lvls, out, sr):
     return bound(nbytes, 8 * sr * sr * r * c * out * out)
 
 
-def k1_row(card, name, sboxes, ok, order, n_valid, thr):
+def k1_row(card, name, sboxes, ok, order, n_valid, thr, phase="1"):
     """Each kernel of the pair alone against its plain version at one launch
     shape: kernel A's defined bits and kernel B's keep set must be equal.
     Returns {kernel: record} with times, bound and, for B, the walk's
@@ -592,7 +644,8 @@ def k1_row(card, name, sboxes, ok, order, n_valid, thr):
                     PLAIN_ITERS), keep_err,
             bound(greedy_reduce_bytes(MAX_OUT, order, keep, n_valid), 0))}
     nv = n_valid.tolist()
-    print(f"phase 1 {name} B={b} N={n} thr={thr}: n_valid {min(nv)}..{max(nv)},"
+    print(f"phase {phase} {name} B={b} N={n} thr={thr}: n_valid "
+          f"{min(nv)}..{max(nv)},"
           f" kept {int(num.min())}..{int(num.max())} (kernel == plain: "
           f"defined bits and keep sets)")
     out = {}
@@ -613,7 +666,8 @@ def k1_row(card, name, sboxes, ok, order, n_valid, thr):
             rec.update(steps=max(steps), ns_per_step=kms * 1e6 / max(steps))
             extra = (f", {max(steps)} serial steps per walk (64 rows each), "
                      f"{rec['ns_per_step']:.1f} ns per step")
-        print(f"phase 1 {k} {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+        print(f"phase {phase} {k} {name}: kernel {kms:.4f} ms, plain "
+              f"{pms:.4f} ms, "
               f"bound {bms:.4f} ms ({by}), share of bound "
               f"{bms / kms:.3f}{extra} [{card}]")
         out[k] = rec
@@ -1598,7 +1652,7 @@ def phase_roi_align_backward(card):
     return records, device_times
 
 
-def add_device_ms(card, rec, g, rois, lvls, shapes, out, sr):
+def add_device_ms(card, rec, g, rois, lvls, shapes, out, sr, phase="6"):
     """Put the backward's device times for these inputs into `rec`
     (device_ms: the kernel and the rest of the call's device work) and
     print them beside the call time and the bound."""
@@ -1606,7 +1660,7 @@ def add_device_ms(card, rec, g, rois, lvls, shapes, out, sr):
     k_ms, rest_ms, busy_ms = backward_device_ms(g, rois, lvls, shapes, out,
                                                 sr, label)
     rec.update(device_ms=busy_ms, kernel_ms=k_ms, fill_ms=rest_ms)
-    print(f"phase 6 RoIAlign backward {rec['shape']} (R={rec['R']}, "
+    print(f"phase {phase} RoIAlign backward {rec['shape']} (R={rec['R']}, "
           f"S={out}, sr={sr}), device time per call from a profile of "
           f"{BWD_PROFILE_CALLS} calls: kernel {k_ms:.4f} ms, zero fill and "
           f"level copy {rest_ms:.4f} ms, together {busy_ms:.4f} ms (call "
@@ -1691,18 +1745,84 @@ def covering_budgets(model, anchors, gts):
         model.roi_head.train_cfg["sampler"], num=4 * props, pos_fraction=0.5)
 
 
+def train_run(card, phase, cfg, samples, epochs, expected, positives):
+    """`train_detector` from seeded weights on `samples` for `epochs`, with
+    the kernels' launches counted from zero around it: the launches per step
+    must be `expected`, every loss finite, each count of `positives` above
+    its floor in every step, the frozen stem and stages bit-identical and
+    every other parameter changed. Returns the model (back at its initial
+    weights), those weights and the run's launches."""
+    import tempfile
+
+    from pointtinybenchmark_tpu_torch.engine.optimizer import \
+        frozen_param_names
+    from pointtinybenchmark_tpu_torch.engine.train import train_detector
+
+    spg = int(cfg.data["samples_per_gpu"])
+    model = train_model(cfg)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    run_cfg = cfg.to_dict()
+    run_cfg.update(runner=dict(type="EpochBasedRunner", max_epochs=epochs),
+                   log_config=dict(interval=1),
+                   checkpoint_config=dict(interval=epochs),
+                   evaluation=dict(interval=epochs + 1))
+    iters = epochs * len(samples) // spg
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as work:
+        result = train_detector(model, samples, run_cfg, work, device=DEVICE,
+                                seed=0)
+        ckpts = sorted(p.name for p in Path(work).glob("*.pth"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    history = result["history"]
+    per_step = {k: v / iters for k, v in launches.items()}
+    print(f"phase {phase} train_detector: {len(history)} iterations logged "
+          f"in {wall:.2f} s (host clock, a sync per iteration for the log); "
+          f"checkpoints {ckpts}; launches {launches}, per step {per_step}")
+    if len(history) != iters or per_step != expected:
+        raise AssertionError(f"{len(history)} iterations, launches per step "
+                             f"{per_step}, expected {expected}")
+    keys = [k for k in history[0] if k.startswith("loss") or "num_pos" in k
+            or k in ("rcnn_acc", "nan_seen")]
+    for e in history:
+        print("  step {step}: ".format(**e) + ", ".join(
+            f"{k} {e[k]:.5f}" for k in keys) + f", lr {e['lr']:.3e}")
+    if not all(np.isfinite(e[k]) for e in history for k in keys) \
+            or any(e["nan_seen"] for e in history):
+        raise AssertionError("a loss of the run is not finite")
+    # a dense head's count is at least 1 an image by its normalisation
+    low = {k: min(e[k] for e in history) for k in positives}
+    if any(low[k] <= floor for k, floor in positives.items()):
+        raise AssertionError(f"a stage had no positive: least counts {low}, "
+                             f"floors {positives}")
+    frozen = set(frozen_param_names(model, model.backbone.frozen_stages))
+    after = model.state_dict()
+    unchanged = [n for n, _ in model.named_parameters()
+                 if n not in frozen and torch.equal(after[n], init[n])]
+    moved = [n for n in frozen if not torch.equal(after[n], init[n])]
+    print(f"phase {phase} after the run: {len(frozen)} frozen tensors (stem, "
+          f"layer1) bit-identical: {not moved}; trainable tensors unchanged: "
+          f"{unchanged or 'none'}")
+    if moved or unchanged:
+        raise AssertionError(f"frozen moved {moved[:4]}, trainable unchanged "
+                             f"{unchanged[:4]}")
+    del result, after
+    model.load_state_dict(init)
+    return model, init, launches
+
+
 def phase_train(card):
     """Phase 6 (b)-(e): Adap Faster R-CNN training at full width. Returns
     the launches of the train_detector run, the forward's and the
     backward's records on the step's rois, and the profile (f), to be run
     after every timing."""
-    import tempfile
-
     from pointtinybenchmark_tpu_torch.data.loader import DetCollator
-    from pointtinybenchmark_tpu_torch.engine.optimizer import (
-        build_optimizer, frozen_param_names)
+    from pointtinybenchmark_tpu_torch.engine.optimizer import build_optimizer
     from pointtinybenchmark_tpu_torch.engine.train import (
-        batch_to_device, init_train_state, make_train_step, train_detector)
+        batch_to_device, init_train_state, make_train_step)
     from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
     from pointtinybenchmark_tpu_torch.utils.config import Config
 
@@ -1721,58 +1841,9 @@ def phase_train(card):
     held = torch.cuda.memory_allocated()
 
     # (b) train_detector, launches counted from zero
-    model = train_model(cfg)
-    init = {k: v.clone() for k, v in model.state_dict().items()}
-    run_cfg = cfg.to_dict()
-    run_cfg.update(runner=dict(type="EpochBasedRunner",
-                               max_epochs=TRAIN_EPOCHS),
-                   log_config=dict(interval=1),
-                   checkpoint_config=dict(interval=TRAIN_EPOCHS),
-                   evaluation=dict(interval=TRAIN_EPOCHS + 1))
-    iters = TRAIN_EPOCHS * TRAIN_IMAGES // spg
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=REPO / "build") as work:
-        result = train_detector(model, samples, run_cfg, work, device=DEVICE,
-                                seed=0)
-        ckpts = sorted(p.name for p in Path(work).glob("*.pth"))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    history = result["history"]
-    per_step = {k: v / iters for k, v in launches.items()}
-    print(f"phase 6 train_detector: {len(history)} iterations logged in "
-          f"{wall:.2f} s (host clock, a sync per iteration for the log); "
-          f"checkpoints {ckpts}; launches {launches}, per step {per_step}")
-    if len(history) != iters or per_step != TRAIN_LAUNCHES:
-        raise AssertionError(f"{len(history)} iterations, launches per step "
-                             f"{per_step}, expected {TRAIN_LAUNCHES}")
-    keys = [k for k in history[0] if k.startswith("loss") or "num_pos" in k
-            or k in ("rcnn_acc", "nan_seen")]
-    for e in history:
-        print("  step {step}: ".format(**e) + ", ".join(
-            f"{k} {e[k]:.5f}" for k in keys) + f", lr {e['lr']:.3e}")
-    if not all(np.isfinite(e[k]) for e in history for k in keys) \
-            or any(e["nan_seen"] for e in history):
-        raise AssertionError("a loss of the run is not finite")
-    if min(e["rcnn_num_pos"] for e in history) <= 0 \
-            or min(e["rpn_num_pos"] for e in history) <= spg:
-        raise AssertionError("a stage had no positive (the RPN's count is "
-                             "at least 1 an image by its normalisation)")
-    frozen = set(frozen_param_names(model, model.backbone.frozen_stages))
-    after = model.state_dict()
-    unchanged = [n for n, _ in model.named_parameters()
-                 if n not in frozen and torch.equal(after[n], init[n])]
-    moved = [n for n in frozen if not torch.equal(after[n], init[n])]
-    print(f"phase 6 after the run: {len(frozen)} frozen tensors (stem, "
-          f"layer1) bit-identical: {not moved}; trainable tensors unchanged: "
-          f"{unchanged or 'none'}")
-    if moved or unchanged:
-        raise AssertionError(f"frozen moved {moved[:4]}, trainable unchanged "
-                             f"{unchanged[:4]}")
-    del result, after
-    model.load_state_dict(init)
+    model, init, launches = train_run(card, "6", cfg, samples, TRAIN_EPOCHS,
+                                      TRAIN_LAUNCHES,
+                                      {"rpn_num_pos": spg, "rcnn_num_pos": 0})
 
     collator = DetCollator(tuple(cfg.loader["pad_shape"]),
                            max_gt=int(cfg.loader["max_gt"]),
@@ -1927,6 +1998,371 @@ def phase_train(card):
     return launches, slice_fwd, slice_bwd, profile
 
 
+# ------------------------------------------- phase 7: RetinaNet-c training
+def double_step(cfg, collated, seed, device):
+    """one_step of a fresh seeded model in float64 on `device`: (metrics,
+    gradients)."""
+    from pointtinybenchmark_tpu_torch.engine.train import batch_to_device
+
+    batch = {k: v.double() if v.is_floating_point() else v
+             for k, v in batch_to_device(collated, device).items()}
+    return one_step(train_model(cfg, device=device).double(), cfg, batch,
+                    seed, device=device)
+
+
+def grad_error(got, want):
+    """The worst |gradient difference| of a parameter over that
+    parameter's max |gradient|, over every parameter of `want`."""
+    return max(float((got[n].cpu() - w.cpu()).abs().max())
+               / max(float(w.abs().max()), 1e-30) for n, w in want.items())
+
+
+def time_step(card, phase, label, cfg, model, batch, held, images):
+    """Warm train steps of `model` on `batch` by CUDA events (no host sync
+    between them), and the peak memory above `held`. Returns the numbers
+    and a function that profiles warm steps and prints them as JSON, to be
+    run after every timing of the run."""
+    from pointtinybenchmark_tpu_torch.engine.optimizer import build_optimizer
+    from pointtinybenchmark_tpu_torch.engine.train import (init_train_state,
+                                                           make_train_step)
+
+    opt = build_optimizer(model, cfg.optimizer, cfg.get("optimizer_config"),
+                          cfg.get("lr_config"), 4, 12,
+                          model.backbone.frozen_stages)
+    step = make_train_step(model, opt)
+    state = init_train_state(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(state, batch, gen), TRAIN_TIMED_STEPS)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    hw = tuple(batch["img"].shape[1:3])
+    print(f"phase {phase} train step ({label}, {images} image(s) of {hw}, "
+          f"f32, TF32 off, warm, CUDA events over {TRAIN_TIMED_STEPS} steps, "
+          f"no host sync between them): {step_ms:.4f} ms, "
+          f"{images * 1e3 / step_ms:.4f} img/s; peak memory {peak:.3f} GiB "
+          f"above the {held / 2 ** 30:.3f} GiB the earlier phases hold "
+          f"[{card}]")
+    numbers = dict(step_ms=step_ms, img_s=images * 1e3 / step_ms,
+                   peak_gib=peak)
+
+    def profile():
+        wall_ms, busy_ms, fam = device_profile(
+            card, lambda: step(state, batch, gen), label,
+            TRAIN_PROFILE_STEPS, f"warm train steps of {images} image(s)")
+        numbers.update(profile_wall_ms=wall_ms, profile_busy_ms=busy_ms,
+                       idle_share=1 - busy_ms / wall_ms,
+                       unprofiled_idle_share=1 - busy_ms / step_ms,
+                       families=fam)
+        print(json.dumps({label: numbers}))
+    return numbers, profile
+
+
+def phase_retina_train(card):
+    """Phase 7: Adap RetinaNet-c training at full width (the clipg config:
+    ResNet-50 with frozen_stages=1, FPN-256 from stride 4, RetinaHead with 4
+    stacked convs and 9 anchors, focal loss, grad_clip max_norm 1) with
+    seeded weights: (a) `train_detector` for 20 iterations on 4 synthetic
+    512x640 images (launches, losses, positives, frozen and trainable
+    parameters: `train_run`); (b) the card against the CPU on one step
+    (the focal loss samples nothing, so both see the same step): losses in
+    float32 within LOSS_TOL, and gradients in float64 within GRAD_TOL of
+    each parameter's max (in float32 the full-width network's gradients
+    carry rounding of ~6e-3 of a parameter's max on one device alone,
+    ReLU masks and sums in another order: the float32 difference is
+    printed beside the CPU's own float32-vs-float64 one, not held to
+    GRAD_TOL); (c) train-step ms, img/s and peak memory. Returns the run's
+    launches and the profile (d), to be run after every timing."""
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.train import batch_to_device
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(str(CONFIG))
+    spg = int(cfg.data["samples_per_gpu"])
+    samples = train_samples(np.random.RandomState(9), TRAIN_IMAGES)
+    print(f"phase 7 training config: {CONFIG.name}, samples_per_gpu {spg}, "
+          f"pad_shape {tuple(cfg.loader['pad_shape'])}, optimizer "
+          f"{dict(cfg.optimizer)}, grad_clip "
+          f"{cfg.optimizer_config.get('grad_clip')}, lr_config "
+          f"{dict(cfg.lr_config)}; {TRAIN_IMAGES} synthetic images, gts per "
+          f"image {[len(s['gt_bboxes']) for s in samples]}; no NMS and no "
+          f"RoIAlign on this path, so no kernel of the port launches")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+
+    # (a) train_detector, launches counted from zero
+    model, init, launches = train_run(card, "7", cfg, samples, TRAIN_EPOCHS,
+                                      RETINA_TRAIN_LAUNCHES,
+                                      {"num_pos": spg})
+
+    # (b) the card against the CPU on one step
+    collator = DetCollator(tuple(cfg.loader["pad_shape"]),
+                           max_gt=int(cfg.loader["max_gt"]),
+                           max_gt_ignore=int(cfg.loader["max_gt_ignore"]))
+    collated = collator(samples[:spg])
+    batch = batch_to_device(collated, DEVICE)
+    card_m, card_g = one_step(model, cfg, batch, seed=3)
+    model.load_state_dict(init)
+    cpu_m, cpu_g = one_step(train_model(cfg, device="cpu"), cfg,
+                            batch_to_device(collated, "cpu"), seed=3,
+                            device="cpu")
+    loss_keys = [k for k in cpu_m if k.startswith("loss") or k == "num_pos"]
+    errs = {k: abs(card_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-30)
+            for k in loss_keys}
+    f32_worst = grad_error(card_g, cpu_g)
+    del card_g, init
+    _, card_g64 = double_step(cfg, collated, 3, DEVICE)
+    _, cpu_g64 = double_step(cfg, collated, 3, "cpu")
+    worst = grad_error(card_g64, cpu_g64)
+    rounding = grad_error(cpu_g, cpu_g64)
+    print("phase 7 one step, card vs CPU, float32 rel err: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + f" (bar {LOSS_TOL}); "
+        f"worst gradient error of its parameter's max |grad|: float64 "
+        f"{worst:.3e} (bar {GRAD_TOL}), float32 {f32_worst:.3e} (not held; "
+        f"the CPU's float32 against its float64: {rounding:.3e})")
+    if max(errs.values()) > LOSS_TOL or worst > GRAD_TOL:
+        raise AssertionError(f"card vs CPU: {card_m} vs {cpu_m}, gradient "
+                             f"{worst}")
+    del cpu_g, card_g64, cpu_g64
+
+    # (c) timing
+    _, profile = time_step(card, "7", "retinanet_c_train", cfg, model, batch,
+                           held, spg)
+    return launches, profile
+
+
+# ------------------------------------------ phase 8: Mask R-CNN training
+def coco_train_samples(rng, n, hw=None):
+    """n training samples as a COCO dataset hands them to the collator: a
+    normalised (H, W, 3) float32 image and 5-30 objects (COCO_OBJECTS) with
+    log-uniform sides of 10-400 px (COCO_SIDES: small to large), aspect
+    ratios around 1, labels of 80 classes, and for each object the ellipse
+    inscribed in its box as an (H, W) uint8 bitmask."""
+    h, w = hw or COCO_HW
+    out = []
+    for _ in range(n):
+        k = rng.randint(COCO_OBJECTS[0], COCO_OBJECTS[1] + 1)
+        side = np.exp(rng.uniform(*np.log(COCO_SIDES), k))
+        aspect = np.exp(rng.normal(0.0, 0.4, k))
+        bw = np.minimum(side * np.sqrt(aspect), w - 1)
+        bh = np.minimum(side / np.sqrt(aspect), h - 1)
+        x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+        boxes = np.stack([x1, y1, x1 + bw, y1 + bh], 1).astype(np.float32)
+        masks = np.zeros((k, h, w), np.uint8)
+        for i, (a, b, c, d) in enumerate(boxes.astype(np.float64)):
+            ya, yb = int(b), min(int(np.ceil(d)), h)
+            xa, xb = int(a), min(int(np.ceil(c)), w)
+            yy, xx = np.mgrid[ya:yb, xa:xb] + 0.5
+            masks[i, ya:yb, xa:xb] = (((xx - (a + c) / 2) / ((c - a) / 2)) ** 2
+                                      + ((yy - (b + d) / 2) / ((d - b) / 2))
+                                      ** 2 <= 1.0)
+        out.append(dict(img=rng.randn(h, w, 3).astype(np.float32),
+                        gt_bboxes=boxes,
+                        gt_labels=rng.randint(0, 80, k).astype(np.int64),
+                        gt_masks=masks))
+    return out
+
+
+def step_rois(card, fwd, bwd):
+    """The K2 forward (torch.equal) and backward (within BWD_TOL) against
+    their plain versions on one train step's recorded launches, with the
+    rois on each kernel path, call times and bounds. Returns the forward's
+    and the backward's records and the backward's inputs, one per forward
+    launch."""
+    f_rows, b_rows, b_inputs = [], [], []
+    for (feats, rois, lvls, _, out, sr, *_), _, _ in fwd:
+        feats = [f.detach() for f in feats]
+        g = next(args[0] for args, _, _ in bwd if args[0].shape[-1] == out)
+        shapes = [tuple(f.shape) for f in feats]
+        name = f"mask_rcnn train step {'bbox' if out == 7 else 'mask'} rois"
+        r = rois.shape[0]
+        per_level = torch.bincount(lvls, minlength=len(ROI_LEVELS)).tolist()
+        _, f_err = compare_roi_align(feats, rois, lvls, out, sr)
+        f_paths = roi_paths(feats, rois, lvls, out, sr)
+        err, share = compare_roi_align_backward(g, rois, lvls, shapes, out,
+                                                sr)
+        b_paths = backward_paths(g, rois, lvls, shapes, out, sr)
+        f_ms, f_plain = time_roi_align(feats, rois, lvls, out, sr)
+        f_bms, f_by = roi_align_bound(feats, rois, lvls, out, sr)
+        b_ms, b_plain = time_roi_align_backward(g, rois, lvls, shapes, out,
+                                                sr)
+        b_bms, b_by = roi_align_backward_bound(r, g.shape[1], out, sr, shapes)
+        print(f"phase 8 {name} (R={r}, S={out}, sr={sr}, per level "
+              f"{per_level}): forward kernel == plain (torch.equal), paths "
+              f"{shares(f_paths)}; backward kernel vs plain {err:.3e} "
+              f"({share:.3e} of the level's max, bar {BWD_TOL}), paths "
+              f"{shares(b_paths)}")
+        print(f"phase 8 {name}: forward kernel {f_ms:.4f} ms (plain "
+              f"{f_plain:.4f}, bound {f_bms:.4f} {f_by}), backward call "
+              f"{b_ms:.4f} ms (plain {b_plain:.4f}, bound {b_bms:.4f} {b_by})"
+              f" [{card}]")
+        f_rows.append(dict(shape=name, R=r, S=out, sr=sr, max_abs_err=f_err,
+                           ms=f_ms, plain_ms=f_plain, bound_ms=f_bms,
+                           bound_by=f_by, per_level=per_level,
+                           paths=f_paths))
+        b_rows.append(dict(shape=name, R=r, S=out, sr=sr, rois="train step",
+                           max_abs_err=err, err_share=share, ms=b_ms,
+                           plain_ms=b_plain, bound_ms=b_bms, bound_by=b_by,
+                           per_level=per_level, paths=b_paths))
+        b_inputs.append((g, rois, lvls, shapes, out, sr))
+    return f_rows, b_rows, b_inputs
+
+
+def phase_mask_train(card):
+    """Phase 8: COCO Mask R-CNN training at full width
+    (configs/coco/mask_rcnn_r50_fpn_1x_coco.py with its train_cfg,
+    samples_per_gpu 2) with seeded weights, on synthetic 800x1333 images
+    padded to 32 (`coco_train_samples`): (a) `train_detector` (launches per
+    step {1, 1, 2, 2}, finite losses, loss_mask included, positives in both
+    stages, frozen and trainable parameters: `train_run`); (b) one step
+    with the kernels against one with the plain RoIAlign from the same
+    weights and draws: equal losses, gradients within GRAD_TOL; (c) on that
+    step's own launches, K2 forward (torch.equal) and backward (BWD_TOL)
+    against their plain versions with paths, times and bounds, and K1
+    alone at the step's RPN NMS (`k1_row`); (d) the card against the CPU
+    on one step of one MASK_CPU_HW image (rpn_proposal max_per_img
+    MASK_CPU_PROPOSALS, at most MASK_CPU_GTS gts, both samplers taking
+    every candidate, the CPU fed the card's proposals, which must equal
+    the plain NMS's): losses within LOSS_TOL; (e) train-step ms, img/s and
+    peak memory. Returns the run's launches, the K1 and K2 records at the
+    step's shapes and the profile (f) with the backward's device times,
+    to be run after every timing."""
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.train import batch_to_device
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda, roi_align_cuda
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(str(MASK_CONFIG))
+    spg = int(cfg.data["samples_per_gpu"])
+    samples = coco_train_samples(np.random.RandomState(10), MASK_TRAIN_IMAGES)
+    print(f"phase 8 training config: {MASK_CONFIG.name}, samples_per_gpu "
+          f"{spg}, loader {dict(cfg.loader)}, optimizer "
+          f"{dict(cfg.optimizer)}, rpn sampler "
+          f"{dict(cfg.train_cfg['rpn']['sampler'])}, rpn_proposal "
+          f"{dict(cfg.train_cfg['rpn_proposal'])}, rcnn sampler "
+          f"{dict(cfg.train_cfg['rcnn']['sampler'])}; {MASK_TRAIN_IMAGES} "
+          f"synthetic {COCO_HW} images, objects per image "
+          f"{[len(s['gt_bboxes']) for s in samples]}, sides "
+          f"{COCO_SIDES} px, 80 classes, an elliptical bitmask each")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+
+    # (a) train_detector, launches counted from zero
+    model, init, launches = train_run(card, "8", cfg, samples,
+                                      MASK_TRAIN_EPOCHS, MASK_TRAIN_LAUNCHES,
+                                      {"rpn_num_pos": spg, "rcnn_num_pos": 0})
+    collator = DetCollator(None, int(cfg.loader["size_divisor"]),
+                           max_gt=int(cfg.loader["max_gt"]))
+    batch = batch_to_device(collator(samples[:spg]), DEVICE)
+    print(f"phase 8 batch: img {tuple(batch['img'].shape)}, gt_masks "
+          f"{tuple(batch['gt_masks'].shape)} {batch['gt_masks'].dtype}")
+
+    # (b) one step with the kernels against one with the plain RoIAlign
+    # (forward and backward), from the same weights and draws; the kernel
+    # step's launches are recorded for (c)
+    torch.backends.cudnn.deterministic = True
+    fwd, bwd, bits, walks = [], [], [], []
+    reset_launches()
+    with recorded(roi_align_cuda, "roi_align_forward", fwd), \
+            recorded(roi_align_cuda, "roi_align_backward", bwd), \
+            recorded(nms_cuda, "iou_bitmask", bits), \
+            recorded(nms_cuda, "greedy_reduce", walks):
+        got, got_grads = one_step(model, cfg, batch, seed=3)
+    k_launches = read_launches()
+    model.load_state_dict(init)
+    reset_launches()
+    with plain_roi_align():
+        want, want_grads = one_step(model, cfg, batch, seed=3)
+    p_launches = read_launches()
+    model.load_state_dict(init)
+    torch.backends.cudnn.deterministic = False
+    loss_keys = [k for k in want if k.startswith("loss") or "num_pos" in k]
+    worst = grad_error(got_grads, want_grads)
+    print(f"phase 8 one step, kernels vs plain RoIAlign: launches "
+          f"{k_launches} vs {p_launches}; " + ", ".join(
+              f"{k} {got[k]:.6f}" for k in loss_keys) + f"; losses equal: "
+          f"{all(got[k] == want[k] for k in loss_keys)}; worst gradient "
+          f"error {worst:.3e} of its parameter's max |grad| (bar "
+          f"{GRAD_TOL})")
+    if k_launches != MASK_TRAIN_LAUNCHES or p_launches["roi_align"] \
+            or p_launches["roi_align_backward"]:
+        raise AssertionError(f"launches {k_launches}, plain {p_launches}")
+    if any(got[k] != want[k] for k in loss_keys) or worst > GRAD_TOL:
+        raise AssertionError(f"kernels vs plain: {got} vs {want}, gradient "
+                             f"{worst}")
+    del got_grads, want_grads
+
+    # (c) the kernels on the step's own launches
+    f_rows, b_rows, b_inputs = step_rois(card, fwd, bwd)
+    (sboxes, thr, n_valid), _, _ = bits[0]
+    (_, ok, order, max_out, _), _, _ = walks[0]
+    if max_out != MAX_OUT:
+        raise AssertionError(f"the RPN's NMS keeps {max_out}, not {MAX_OUT}")
+    k1 = k1_row(card, "mask_rcnn train step RPN", sboxes, ok, order, n_valid,
+                thr, phase="8")
+    del fwd, bwd, bits, walks
+
+    # (d) the card against the CPU on one step of one smaller image
+    small = coco_train_samples(np.random.RandomState(11), 1, MASK_CPU_HW)
+    small_collator = DetCollator(None, int(cfg.loader["size_divisor"]),
+                                 max_gt=MASK_CPU_GTS)
+    small_batch = small_collator(small)
+    hw = small_batch["img"].shape[1:3]
+    anchors = 3 * sum(-(-hw[0] // s) * -(-hw[1] // s)
+                      for s in (4, 8, 16, 32, 64))
+
+    def prepare(m):
+        m.train_proposal_cfg["max_per_img"] = MASK_CPU_PROPOSALS
+        covering_budgets(m, anchors, MASK_CPU_GTS)
+        return m
+    prepare(model)
+    calls = []
+    with recorded(model.rpn_head, "get_proposals", calls):
+        card_m, _ = one_step(model, cfg, batch_to_device(small_batch, DEVICE),
+                             seed=4)
+    args, kwargs, got_props = calls[0]
+    with torch.no_grad(), plain_nms():
+        want_props = model.rpn_head.get_proposals(*args, **kwargs)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, w) for g, w in zip(got_props, want_props))
+    print(f"phase 8 (d) the step's proposals ({tuple(hw)} image, "
+          f"{got_props[0].shape[1]} proposals, valid "
+          f"{got_props[2].sum(1).tolist()}): NMS kernels == plain NMS "
+          f"(torch.equal): {same}")
+    if not same:
+        raise AssertionError("the train step's proposals differ from those "
+                             "of the plain NMS")
+    cpu_model = prepare(train_model(cfg, device="cpu"))
+    props = tuple(t.cpu() for t in got_props)
+    cpu_model.rpn_head.get_proposals = lambda *a, **k: props
+    cpu_m, _ = one_step(cpu_model, cfg, batch_to_device(small_batch, "cpu"),
+                        seed=4, device="cpu")
+    errs = {k: abs(card_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-30)
+            for k in loss_keys}
+    print(f"phase 8 (d) one step, card vs CPU (one {tuple(hw)} image, "
+          f"{len(small[0]['gt_bboxes'])} gts, rpn_proposal max_per_img "
+          f"{MASK_CPU_PROPOSALS}, every candidate sampled, the card's "
+          f"proposals), rel err: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()))
+    if max(errs.values()) > LOSS_TOL:
+        raise AssertionError(f"card vs CPU: {card_m} vs {cpu_m}")
+    del cpu_model, calls, props, args, kwargs, got_props, want_props, init
+    model = train_model(cfg)
+
+    # (e) timing
+    numbers, step_profile = time_step(card, "8", "mask_rcnn_train", cfg,
+                                      model, batch, held, spg)
+
+    def profile():
+        """(f) a profile of warm steps, then the backward's device time on
+        the step's rois."""
+        step_profile()
+        for rec, args in zip(b_rows, b_inputs):
+            add_device_ms(card, rec, *args, phase="8")
+    return launches, k1, f_rows, b_rows, profile
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1964,6 +2400,9 @@ def main():
     mask_launches, mask, mask_records = phase_mask(card, frames)
     bwd_shapes, bwd_device_times = phase_roi_align_backward(card)
     train_launches, train_fwd, train_bwd, train_profile = phase_train(card)
+    retina_train_launches, retina_train_profile = phase_retina_train(card)
+    (mask_train_launches, mask_train_k1, mask_train_fwd, mask_train_bwd,
+     mask_train_profile) = phase_mask_train(card)
     # the profiles last: once torch.profiler has traced the card, later
     # launches of the process can cost more host time (phase 6 times the
     # train step before and after them)
@@ -1972,15 +2411,21 @@ def main():
     phase_profile(card, mask, frames, "mask_rcnn")
     train_profile()
     bwd_device_times()
+    retina_train_profile()
+    mask_train_profile()
+    for k in ("iou_bitmask", "greedy_reduce"):
+        records[k]["by_shape"].append(mask_train_k1[k])
     records["roi_align"] = dict(
         slice_record, by_shape=roi_shapes + [slice_record] + mask_records
-        + [train_fwd])
-    records["roi_align_backward"] = dict(train_bwd,
-                                         by_shape=bwd_shapes + [train_bwd])
+        + [train_fwd] + mask_train_fwd)
+    records["roi_align_backward"] = dict(
+        train_bwd, by_shape=bwd_shapes + [train_bwd] + mask_train_bwd)
 
     by_path = {"adap_retinanet_c": retina_launches,
                "faster_rcnn": frcnn_launches, "mask_rcnn": mask_launches,
-               "faster_rcnn_train": train_launches}
+               "faster_rcnn_train": train_launches,
+               "adap_retinanet_c_train": retina_train_launches,
+               "mask_rcnn_train": mask_train_launches}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],

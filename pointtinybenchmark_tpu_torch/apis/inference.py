@@ -11,9 +11,11 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..engine.checkpoint import is_jax_checkpoint, load_jax_checkpoint
 from ..engine.test import DeviceTiledInference
 from ..models.builder import build_detector
 from ..utils.config import Config
+from ..utils.jax_weights import load_jax_variables
 
 __all__ = ["init_detector", "inference_detector_tiled", "DetectorHandle"]
 
@@ -32,9 +34,10 @@ def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
                   *, device: Union[str, torch.device] = "cuda",
                   seed: int = 0) -> DetectorHandle:
     """Build the config's detector on `device`, the card unless the caller
-    asks for the CPU. Weights are drawn from
-    `seed`, or loaded from `checkpoint`: a `state_dict` of this package's
-    model saved with `torch.save`."""
+    asks for the CPU. Weights are drawn from `seed`, or loaded from
+    `checkpoint`: a JAX package `.ckpt` (its params and batch_stats, as
+    the JAX `init_detector` takes them), or else a `state_dict` of this
+    package's model saved with `torch.save`."""
     if isinstance(config, str):
         config = Config.fromfile(config)
     model = build_detector(dict(config.model),
@@ -43,7 +46,10 @@ def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
                            config.get("test_cfg")
                            or config.model.get("test_cfg"),
                            device=device, seed=seed)
-    if checkpoint is not None:
+    if checkpoint is not None and is_jax_checkpoint(checkpoint):
+        state = load_jax_checkpoint(checkpoint)["state"]
+        load_jax_variables(model, state["params"], state.get("batch_stats"))
+    elif checkpoint is not None:
         sd = torch.load(checkpoint, map_location=device, weights_only=True)
         model.load_state_dict(sd.get("state_dict", sd))
     return DetectorHandle(model, config)

@@ -7,9 +7,11 @@ float image is padded at the bottom and right to the batch's shape,
 `size_divisor`; the batch carries each image's content shape, its scale
 factor (from `img_metas`, [1, 1, 1, 1] when absent) and the metas. For
 training, the gt boxes are padded to `max_gt` rows (`gt_bboxes`,
-`gt_valid`, `gt_labels`) and the ignore regions to `max_gt_ignore`
-(`gt_bboxes_ignore`, `gt_ignore_valid`). Host numpy in, host numpy out;
-the engines move the arrays to the model's device. The loader runs on
+`gt_valid`, `gt_labels`), the ignore regions to `max_gt_ignore`
+(`gt_bboxes_ignore`, `gt_ignore_valid`) and the gt bitmaps, each sample's
+(n, H, W) uint8 `gt_masks`, to (B, max_gt, H_pad, W_pad) uint8 with zeros
+at the bottom and right and in the empty rows. Host numpy in, host numpy
+out; the engines move the arrays to the model's device. The loader runs on
 threads only (no worker processes).
 """
 from __future__ import annotations
@@ -81,6 +83,13 @@ class DetCollator:
             batch["gt_bboxes_ignore"], batch["gt_ignore_valid"] = \
                 self._pad_boxes([s["gt_bboxes_ignore"] for s in samples],
                                 self.max_gt_ignore)
+        if "gt_masks" in samples[0]:
+            gm = np.zeros((len(samples), self.max_gt, th, tw), np.uint8)
+            for i, s in enumerate(samples):
+                m = np.asarray(s["gt_masks"])
+                n = min(len(m), self.max_gt)
+                gm[i, :n, :m.shape[1], :m.shape[2]] = m[:n]
+            batch["gt_masks"] = gm
         return batch
 
 

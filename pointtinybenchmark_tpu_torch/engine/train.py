@@ -34,7 +34,9 @@ import torch
 from torch import nn
 
 from ..data.loader import DataLoader, DetCollator
-from .checkpoint import load_checkpoint, save_checkpoint
+from ..utils.jax_weights import load_jax_variables
+from .checkpoint import (is_jax_checkpoint, load_checkpoint,
+                         load_jax_checkpoint, save_checkpoint)
 from .optimizer import SGD, build_optimizer
 
 __all__ = ["make_train_step", "init_train_state", "train_detector",
@@ -43,7 +45,7 @@ __all__ = ["make_train_step", "init_train_state", "train_detector",
 logger = logging.getLogger("ptb_torch")
 
 BATCH_KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape",
-              "gt_bboxes_ignore", "gt_ignore_valid")
+              "gt_bboxes_ignore", "gt_ignore_valid", "gt_masks")
 
 
 def init_train_state(device: Union[str, torch.device]
@@ -114,12 +116,14 @@ def train_detector(model: nn.Module, dataset, cfg, work_dir: str,
     the card unless the caller asks for the CPU. `model` is a built
     detector (moved to `device`); `dataset` any indexable of sample dicts
     (img (H, W, 3) float, gt_bboxes (n, 4), gt_labels (n,), optionally
-    gt_bboxes_ignore); `cfg` the config (data.samples_per_gpu, loader,
-    runner, optimizer, optimizer_config, lr_config, log_config,
-    checkpoint_config, evaluation, check). `eval_fn(model)` -> metrics is
-    called as the evaluation config says. Checkpoints are the port's own
-    (`engine/checkpoint.py`): `resume_from` continues their step, epoch,
-    optimizer and train state, `load_from` takes their weights. Returns
+    gt_bboxes_ignore (k, 4) and, for Mask R-CNN, gt_masks (n, H, W) uint8);
+    `cfg` the config (data.samples_per_gpu, loader, runner, optimizer,
+    optimizer_config, lr_config, log_config, checkpoint_config,
+    evaluation, check). `eval_fn(model)` -> metrics is
+    called as the evaluation config says. `resume_from` continues a
+    checkpoint of the port's own (`engine/checkpoint.py`): its step,
+    epoch, optimizer and train state; `load_from` takes the weights of one,
+    or the params and batch_stats of a JAX package `.ckpt`. Returns
     the model, the optimizer, the train state and the logged history."""
     os.makedirs(work_dir, exist_ok=True)
     model.to(device)
@@ -158,6 +162,10 @@ def train_detector(model: nn.Module, dataset, cfg, work_dir: str,
         by_epoch=not iter_based)
     state = init_train_state(device)
     start_epoch = 0
+    if resume_from and is_jax_checkpoint(resume_from):
+        raise NotImplementedError("resume_from a JAX checkpoint (optax's "
+                                  "momentum traces) is not ported; "
+                                  "load_from takes its weights")
     if resume_from:
         ck = load_checkpoint(resume_from, map_location=device)
         model.load_state_dict(ck["state_dict"])
@@ -167,9 +175,13 @@ def train_detector(model: nn.Module, dataset, cfg, work_dir: str,
         start_epoch = int(ck["meta"].get("epoch", 0))
         logger.info("resumed from %s (epoch %d)", resume_from, start_epoch)
     elif load_from:
-        model.load_state_dict(load_checkpoint(load_from,
-                                              map_location=device)
-                              ["state_dict"])
+        if is_jax_checkpoint(load_from):
+            jax_state = load_jax_checkpoint(load_from)["state"]
+            load_jax_variables(model, jax_state["params"],
+                               jax_state.get("batch_stats"))
+        else:
+            model.load_state_dict(load_checkpoint(
+                load_from, map_location=device)["state_dict"])
         logger.info("loaded weights from %s", load_from)
     train_step = make_train_step(model, optimizer)
 

@@ -1,9 +1,10 @@
-"""ResNet backbone with bottleneck blocks (mmdet resnet.py, style='pytorch').
+"""ResNet backbone (mmdet resnet.py, style='pytorch').
 
 Counterpart of pointtinybenchmark_tpu/models/backbones/resnet.py (`ResNet`,
-`Bottleneck`) for depths 50/101/152. The stride sits on the 3x3 conv; BN
-always uses its running statistics (`norm_eval`, the TinyPerson configs
-freeze backbone BN). Padding matches the flax model: the 1x1 stride-2
+`BasicBlock`, `Bottleneck`): basic blocks for depths 18/34, bottlenecks for
+50/101/152. The stride sits on the (first) 3x3 conv; BN always uses its
+running statistics (`norm_eval`, the TinyPerson configs freeze backbone
+BN). Padding matches the flax model: the 1x1 stride-2
 downsample pads nothing (flax SAME is 0 there), and the stem max-pool pads
 with -inf, as MaxPool2d(3, 2, 1) does. `frozen_stages` is kept for the
 optimizer, which leaves the stem and stages 1..frozen_stages unchanged
@@ -18,9 +19,29 @@ from torch import nn
 
 from ..utils import kaiming_init
 
-__all__ = ["ResNet", "Bottleneck"]
+__all__ = ["ResNet", "BasicBlock", "Bottleneck"]
 
-ARCH_SETTINGS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.downsample = (nn.Sequential(
+            nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
+            nn.BatchNorm2d(planes)) if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        identity = x if self.downsample is None else self.downsample(x)
+        return torch.relu(y + identity)
 
 
 class Bottleneck(nn.Module):
@@ -49,6 +70,13 @@ class Bottleneck(nn.Module):
         return torch.relu(y + identity)
 
 
+ARCH_SETTINGS = {18: (BasicBlock, (2, 2, 2, 2)),
+                 34: (BasicBlock, (3, 4, 6, 3)),
+                 50: (Bottleneck, (3, 4, 6, 3)),
+                 101: (Bottleneck, (3, 4, 23, 3)),
+                 152: (Bottleneck, (3, 8, 36, 3))}
+
+
 class ResNet(nn.Module):
 
     def __init__(self, depth: int = 50, num_stages: int = 4,
@@ -67,16 +95,17 @@ class ResNet(nn.Module):
                                bias=False)
         self.bn1 = nn.BatchNorm2d(base_channels)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        block, stage_blocks = ARCH_SETTINGS[depth]
         inplanes, planes = base_channels, base_channels
         self.res_layers = []
         for i in range(num_stages):
             blocks = []
-            for j in range(ARCH_SETTINGS[depth][i]):
+            for j in range(stage_blocks[i]):
                 s = strides[i] if j == 0 else 1
                 need_down = j == 0 and (s != 1 or
-                                        inplanes != planes * Bottleneck.expansion)
-                blocks.append(Bottleneck(inplanes, planes, s, need_down))
-                inplanes = planes * Bottleneck.expansion
+                                        inplanes != planes * block.expansion)
+                blocks.append(block(inplanes, planes, s, need_down))
+                inplanes = planes * block.expansion
             name = f"layer{i + 1}"
             self.add_module(name, nn.Sequential(*blocks))
             self.res_layers.append(name)

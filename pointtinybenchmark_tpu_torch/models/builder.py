@@ -2,11 +2,10 @@
 
 Counterpart of pointtinybenchmark_tpu/models/builder.py for the ported
 types only. A dict maps each `type` to its class. A config key that a
-class does not take raises `NotImplementedError`, unless `IGNORED` lists it
-for that class as a key that changes nothing in the port: the JAX builder
-drops such keys silently, and a dropped structural key (`dcn`,
-`stage_with_dcn`) would build another network than JAX's. The training
-keys (`frozen_stages`, the heads' losses, `train_cfg`) are taken.
+class does not take raises `NotImplementedError`: the JAX builder drops
+such keys silently, and a dropped structural key (`dcn`, `stage_with_dcn`)
+would build another network than JAX's. The training keys
+(`frozen_stages`, the heads' losses, `train_cfg`) are taken.
 """
 from __future__ import annotations
 
@@ -27,7 +26,7 @@ from .roi_heads.bbox_head import Shared2FCBBoxHead
 from .roi_heads.mask_head import FCNMaskHead
 from .roi_heads.standard_roi_head import StandardRoIHead
 
-__all__ = ["build_detector", "build_module", "MODULES", "IGNORED"]
+__all__ = ["build_detector", "build_module", "MODULES"]
 
 MODULES = {
     "ResNet": ResNet,
@@ -38,11 +37,6 @@ MODULES = {
     "StandardRoIHead": StandardRoIHead,
     "Shared2FCBBoxHead": Shared2FCBBoxHead,
     "FCNMaskHead": FCNMaskHead,
-}
-# {type: keys a class may leave out}: RetinaHead's `loss_bbox` configures
-# a RetinaNet loss, and the port runs RetinaNet for inference only
-IGNORED = {
-    "RetinaHead": ("loss_bbox",),
 }
 SINGLE_STAGE = ("SingleStageDetector", "RetinaNet")
 TWO_STAGE = {"TwoStageDetector": TwoStageDetector,
@@ -56,12 +50,12 @@ def build_module(cfg: dict) -> nn.Module:
         raise KeyError(f"{kind} is not ported: {sorted(MODULES)}")
     cls = MODULES[kind]
     accepted = set(inspect.signature(cls.__init__).parameters) - {"self"}
-    unknown = sorted(set(args) - accepted - set(IGNORED.get(kind, ())))
+    unknown = sorted(set(args) - accepted)
     if unknown:
         raise NotImplementedError(
             f"{kind}: config keys {unknown} are not ported (the port's "
             f"{cls.__name__} takes {sorted(accepted)})")
-    return cls(**{k: v for k, v in args.items() if k in accepted})
+    return cls(**args)
 
 
 def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
@@ -72,11 +66,13 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
     """Build a detector with seeded random weights, in eval mode, on
     `device` (the card unless the caller asks for the CPU). Weights are
     drawn on the CPU from `torch.Generator` seeded with `seed`, so a seed
-    gives the same weights on every device. A two-stage detector's RPN gets
-    `train_cfg["rpn"]` and `test_cfg["rpn"]`, its RoI head
-    `train_cfg["rcnn"]` and `test_cfg["rcnn"]` and the built bbox head
-    and, for Mask R-CNN, mask head; the detector keeps
-    `train_cfg["rpn_proposal"]` (JAX two_stage.py:38-45)."""
+    gives the same weights on every device. A single-stage detector's head
+    gets `train_cfg` and `test_cfg` (JAX single_stage.py:38-43); a
+    two-stage detector's RPN gets `train_cfg["rpn"]` and
+    `test_cfg["rpn"]`, its RoI head `train_cfg["rcnn"]` and
+    `test_cfg["rcnn"]` and the built bbox head and, for Mask R-CNN, mask
+    head; the detector keeps `train_cfg["rpn_proposal"]` (JAX
+    two_stage.py:38-45)."""
     cfg = dict(cfg)
     kind = cfg.pop("type")
     train_cfg = cfg.get("train_cfg") or train_cfg
@@ -85,6 +81,7 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
     neck = build_module(cfg["neck"]) if cfg.get("neck") else None
     if kind in SINGLE_STAGE:
         head_cfg = dict(cfg["bbox_head"])
+        head_cfg.setdefault("train_cfg", train_cfg)
         head_cfg.setdefault("test_cfg", test_cfg)
         model = SingleStageDetector(backbone=backbone, neck=neck,
                                     bbox_head=build_module(head_cfg))

@@ -2,7 +2,9 @@
 the AnchorHead machinery (mmdet dense_heads/retina_head.py).
 
 Counterpart of pointtinybenchmark_tpu/models/dense_heads/retina_head.py,
-without norm layers (the ported configs set none).
+without norm layers (the ported configs set none). Training is AnchorHead's
+`loss`: with the focal loss no sampler, each image normalised by its
+positives.
 """
 from __future__ import annotations
 
@@ -25,13 +27,15 @@ class RetinaHead(AnchorHead):
                  anchor_generator: Optional[dict] = None,
                  bbox_coder: Optional[dict] = None,
                  loss_cls: Optional[dict] = None,
+                 loss_bbox: Optional[dict] = None,
+                 train_cfg: Optional[dict] = None,
                  test_cfg: Optional[dict] = None):
         if norm_cfg:
             raise NotImplementedError("RetinaHead norm_cfg is not ported")
         self.stacked_convs = stacked_convs
         super().__init__(num_classes, in_channels, feat_channels,
-                         anchor_generator, bbox_coder, loss_cls,
-                         test_cfg=test_cfg)
+                         anchor_generator, bbox_coder, loss_cls, loss_bbox,
+                         train_cfg, test_cfg)
 
     def _init_layers(self) -> None:
         chans = [self.in_channels] + [self.feat_channels] * self.stacked_convs

@@ -3,11 +3,13 @@
 Counterpart of pointtinybenchmark_tpu/models/detectors/single_stage.py::
 SingleStageDetector. The public functions take NHWC images, like the JAX
 model; the input is permuted once to NCHW, which leaves it physically
-channels-last in memory, the layout cuDNN prefers.
+channels-last in memory, the layout cuDNN prefers. `forward_train` is the
+network's outputs into the head's `loss`, with the padded batch shape as
+`pad_shape`.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -39,6 +41,15 @@ class SingleStageDetector(nn.Module):
     def forward(self, img: torch.Tensor):
         """img (B, H, W, 3) -> per-level (cls_outs, reg_outs), NCHW."""
         return self.bbox_head(self.extract_feat(img))
+
+    def forward_train(self, img: torch.Tensor, batch: Dict[str, torch.Tensor],
+                      generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """img (B, H, W, 3); batch: gt_bboxes (B, G, 4), gt_labels (B, G),
+        gt_valid (B, G) and optionally gt_bboxes_ignore, gt_ignore_valid.
+        `generator` (on the img's device) draws a sampling loss's
+        priorities. Returns the head's losses and num_pos."""
+        batch = dict(batch, pad_shape=tuple(img.shape[1:3]))
+        return self.bbox_head.loss(*self(img), batch, generator)
 
     def simple_test(self, img: torch.Tensor,
                     img_shapes: torch.Tensor) -> DetResult:

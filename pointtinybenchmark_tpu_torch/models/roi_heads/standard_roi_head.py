@@ -25,7 +25,16 @@ inline sampler has it), and a fixed-size top-k gathers `num` rois per image
 weight); their RoIAlign features (the kernel's forward, and its backward in
 the gradient) go through the bbox head into softmax cross-entropy and L1 on
 the label's deltas, both averaged over the sampled rois. Proposals carry no
-gradient. The mask loss is not ported yet.
+gradient. With a mask head and `gt_masks` in the batch, the mask loss
+(JAX `_mask_loss`) runs on each image's first min(num * pos_fraction, num)
+gathered rois by a stable descending sort of the positives (`lax.top_k`'s
+order: every positive, since the sampler caps them at that budget): their
+mask extractor's features (RoIAlign at the mask head's S, the kernels on
+the card) through the mask head, the label's channel against
+`mask_target`'s crops of the gt bitmaps, binary cross-entropy with logits
+averaged over each crop, weighted by the positives and divided by
+max(positives, 1). JAX's `_mask_extras` hook (Mask Scoring R-CNN) is not
+ported.
 """
 from __future__ import annotations
 
@@ -39,8 +48,9 @@ from ...core.bbox import delta_coder_fns
 from ...core.post_processing import DetResult, multiclass_nms
 from ...core.samplers import topk_mask
 from ..losses import build_loss
+from ..losses.cross_entropy_loss import binary_cross_entropy_with_logits
 from .bbox_head import Shared2FCBBoxHead
-from .mask_head import FCNMaskHead
+from .mask_head import FCNMaskHead, mask_target
 from .roi_extractor import single_roi_extract
 
 __all__ = ["StandardRoIHead"]
@@ -94,15 +104,20 @@ class StandardRoIHead(nn.Module):
             self.mask_head.init_weights(generator)
 
     @staticmethod
-    def _extract(feats: Sequence[torch.Tensor], boxes: torch.Tensor,
-                 cfg: dict) -> torch.Tensor:
-        """boxes (B, P, 4) -> RoI features (B * P, C, S, S), image-major."""
+    def _rois(boxes: torch.Tensor) -> torch.Tensor:
+        """boxes (B, P, 4) -> rois (B * P, 5) with the batch index,
+        image-major."""
         b, p = boxes.shape[:2]
         batch_idx = torch.arange(b, dtype=boxes.dtype,
                                  device=boxes.device).repeat_interleave(p)
-        rois = torch.cat([batch_idx[:, None], boxes.reshape(b * p, 4)], 1)
-        return single_roi_extract(feats[:len(cfg["featmap_strides"])], rois,
-                                  **cfg)
+        return torch.cat([batch_idx[:, None], boxes.reshape(b * p, 4)], 1)
+
+    @classmethod
+    def _extract(cls, feats: Sequence[torch.Tensor], boxes: torch.Tensor,
+                 cfg: dict) -> torch.Tensor:
+        """boxes (B, P, 4) -> RoI features (B * P, C, S, S), image-major."""
+        return single_roi_extract(feats[:len(cfg["featmap_strides"])],
+                                  cls._rois(boxes), **cfg)
 
     def forward(self, feats: Sequence[torch.Tensor], proposals: torch.Tensor):
         """feats: per-level (B, C, H, W); proposals (B, P, 4) -> bbox head
@@ -180,10 +195,10 @@ class StandardRoIHead(nn.Module):
                       batch: Dict[str, torch.Tensor],
                       generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """feats: per-level (B, C, H, W); proposals (B, P, 4) with validity
-        (B, P); batch: gt_bboxes (B, G, 4), gt_labels, gt_valid. Returns
-        loss_cls, loss_bbox, acc and num_pos."""
-        if self.mask_head is not None and "gt_masks" in batch:
-            raise NotImplementedError("the mask loss is not ported yet")
+        (B, P); batch: gt_bboxes (B, G, 4), gt_labels, gt_valid and, for
+        the mask loss, gt_masks (B, G, H, W) uint8. Returns loss_cls,
+        loss_bbox, acc and num_pos, and with a mask head and gt_masks
+        loss_mask."""
         scfg = dict(self.train_cfg.get("sampler", dict(
             type="RandomSampler", num=512, pos_fraction=0.25, neg_pos_ub=-1,
             add_gt_as_proposals=True)))
@@ -216,8 +231,35 @@ class StandardRoIHead(nn.Module):
         labels = torch.where(sel_pos, gt_labels.gather(1, safe),
                              self.num_classes)
         cls_score, bbox_pred = self(feats, sel_boxes)
-        return self._bbox_loss(cls_score, bbox_pred, labels, deltas,
-                               sel_pos.float(), sampled.gather(1, idx).float())
+        out = self._bbox_loss(cls_score, bbox_pred, labels, deltas,
+                              sel_pos.float(), sampled.gather(1, idx).float())
+        if self.mask_head is not None and "gt_masks" in batch:
+            out["loss_mask"] = self._mask_loss(
+                feats, sel_boxes, labels, sel_pos.float(), safe,
+                batch["gt_masks"], max(1, pos_budget))
+        return out
+
+    def _mask_loss(self, feats: Sequence[torch.Tensor], boxes: torch.Tensor,
+                   labels: torch.Tensor, pos_w: torch.Tensor,
+                   gt_idx: torch.Tensor, gt_masks: torch.Tensor,
+                   pos_budget: int) -> torch.Tensor:
+        """The gathered rois' boxes (B, S, 4), labels, positives (float)
+        and gt indices (B, S) -> the mask loss of each image's first
+        `pos_budget` rois by positives."""
+        nc = self.num_classes
+        k = min(pos_budget, pos_w.shape[1])
+        sel = torch.sort(pos_w, dim=1, descending=True, stable=True)[1][:, :k]
+        boxes = boxes.gather(1, sel[..., None].expand(-1, -1, 4))
+        labels = labels.gather(1, sel).reshape(-1)
+        pos = pos_w.gather(1, sel).reshape(-1)
+        logits = self.mask_forward(feats, boxes)      # (B * K, nc, 2S, 2S)
+        targets = mask_target(gt_masks, self._rois(boxes),
+                              gt_idx.gather(1, sel).reshape(-1),
+                              logits.shape[-1])
+        logit = logits[torch.arange(logits.shape[0], device=logits.device),
+                       labels.clamp(0, nc - 1)]
+        bce = binary_cross_entropy_with_logits(logit, targets)
+        return (bce.mean(dim=(1, 2)) * pos).sum() / pos.sum().clamp(min=1.0)
 
     @staticmethod
     def _sample(assigned: torch.Tensor, num_sample: int, pos_budget: int,

@@ -3,8 +3,9 @@
 The inverse of tools/model_converters/torch2jax.py::
 convert_detector_state_dict for the ported modules: flax's names become
 mmdet's (`backbone_m/layer1_block0/Conv_0` -> `backbone.layer1.0.conv1`,
-the downsample in the block's last Conv_/BatchNorm_ slot ->
-`downsample.0/1`; `neck_m/extra_conv{k}` -> `neck.fpn_convs.{n_lateral+k}`;
+the downsample in the block's last Conv_/BatchNorm_ slot (3 in a
+bottleneck, 2 in a basic block) -> `downsample.0/1`;
+`neck_m/extra_conv{k}` -> `neck.fpn_convs.{n_lateral+k}`;
 `bbox_head_m/cls_conv{i}/Conv_0` -> `bbox_head.cls_convs.{i}.conv`;
 `rpn_head_m/rpn_conv` -> `rpn_head.rpn_conv`; `roi_head_m/bbox_head_m/
 shared_fc{i}` -> `roi_head.bbox_head.shared_fcs.{i}`; `roi_head_m/
@@ -31,6 +32,8 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.backbones.resnet import BasicBlock
+
 __all__ = ["load_jax_variables", "jax_to_state_dict"]
 
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
@@ -46,9 +49,10 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
             yield prefix + (str(k),), v
 
 
-def _backbone_module(scope: Tuple[str, ...]) -> Optional[str]:
+def _backbone_module(scope: Tuple[str, ...],
+                     basic: bool = False) -> Optional[str]:
     """('Conv_0',) -> 'conv1'; ('layer2_block0', 'BatchNorm_3') ->
-    'layer2.0.downsample.1'."""
+    'layer2.0.downsample.1' (`basic`: 'BatchNorm_2')."""
     if len(scope) == 1:
         m = re.fullmatch(r"(Conv|BatchNorm)_0", scope[0])
         return None if m is None else ("conv1" if m[1] == "Conv" else "bn1")
@@ -59,18 +63,20 @@ def _backbone_module(scope: Tuple[str, ...]) -> Optional[str]:
     if blk is None or layer is None:
         return None
     k = int(layer[2])
+    down = 2 if basic else 3
     base = f"layer{blk[1]}.{blk[2]}"
-    if k < 3:
+    if k < down:
         return f"{base}.{'conv' if layer[1] == 'Conv' else 'bn'}{k + 1}"
-    if k == 3:
+    if k == down:
         return f"{base}.downsample.{0 if layer[1] == 'Conv' else 1}"
     return None
 
 
-def _torch_key(path: Tuple[str, ...], n_lateral: int) -> Optional[str]:
+def _torch_key(path: Tuple[str, ...], n_lateral: int,
+               basic: bool = False) -> Optional[str]:
     top, *scope, leaf = path
     if top == "backbone_m":
-        mod = _backbone_module(tuple(scope))
+        mod = _backbone_module(tuple(scope), basic)
         if mod is None:
             return None
         if leaf == "kernel":
@@ -113,17 +119,19 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int) -> Optional[str]:
 
 
 def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
-                      roi_feat_size: int = 7) -> Dict[str, torch.Tensor]:
+                      roi_feat_size: int = 7,
+                      basic_blocks: bool = False) -> Dict[str, torch.Tensor]:
     """Flax trees -> {mmdet name: tensor}. `roi_feat_size` is the RoI
-    head's S (the first shared FC's input is S * S * C). Raises on any leaf
-    it cannot place."""
+    head's S (the first shared FC's input is S * S * C); `basic_blocks`
+    says that the backbone is a ResNet-18/34. Raises on any leaf it cannot
+    place."""
     n_lateral = sum(1 for k in params.get("neck_m", {})
                     if str(k).startswith("lateral_conv"))
     out: Dict[str, torch.Tensor] = {}
     unused = []
     for tree in (params, batch_stats or {}):
         for path, val in _leaves(tree):
-            key = _torch_key(path, n_lateral)
+            key = _torch_key(path, n_lateral, basic_blocks)
             if key is None or key in out:
                 unused.append("/".join(path))
                 continue
@@ -151,7 +159,9 @@ def load_jax_variables(model: torch.nn.Module, params: Mapping,
     roi_head = getattr(model, "roi_head", None)
     sd = jax_to_state_dict(params, batch_stats,
                            roi_head.bbox_head.roi_feat_size if roi_head
-                           is not None else 7)
+                           is not None else 7,
+                           any(isinstance(m, BasicBlock)
+                               for m in model.modules()))
     own = {k: v for k, v in model.state_dict().items()
            if not k.endswith("num_batches_tracked")}
     missing = sorted(set(own) - set(sd))

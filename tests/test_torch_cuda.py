@@ -1,5 +1,7 @@
 """The CUDA kernels (NMS pair, multilevel RoIAlign) against their plain
-PyTorch versions, on the card.
+PyTorch versions, on the card; and train steps on the card: the RoIAlign
+kernels on a Mask R-CNN step's own rois, a RetinaNet-c step against the
+CPU's.
 
 These tests import no JAX, so they run where only the port is installed:
 
@@ -12,13 +14,21 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (clustered_rois, edge_rois, plain_nms,
-                        sorted_nms_inputs, synthetic_boxes, synthetic_rois,
-                        threshold_tie_boxes)
+from chip_smoke import (CONFIG, GRAD_TOL, LOSS_TOL, MASK_CONFIG,
+                        clustered_rois, coco_train_samples,
+                        compare_roi_align, compare_roi_align_backward,
+                        double_step, edge_rois, grad_error, one_step,
+                        plain_nms,
+                        recorded, sorted_nms_inputs, synthetic_boxes,
+                        synthetic_rois, threshold_tie_boxes, train_model,
+                        train_samples)
+from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+from pointtinybenchmark_tpu_torch.engine.train import batch_to_device
 from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
     map_roi_levels
 from pointtinybenchmark_tpu_torch.ops import (nms, nms_cuda, roi_align,
                                               roi_align_cuda)
+from pointtinybenchmark_tpu_torch.utils.config import Config
 
 
 @pytest.fixture
@@ -440,3 +450,66 @@ def test_roi_align_backward_paths_match_plain(cuda, case):
                                               (4, 8, 16, 32), out, sr)
     torch.cuda.synchronize()
     _assert_grads_close(got, want)
+
+
+# ---------------------------------------------------------- train steps
+@pytest.fixture
+def no_tf32(cuda):
+    """f32 convolutions and products on the card, as on the CPU."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.cuda
+def test_mask_rcnn_train_step_roi_align_matches_plain(cuda):
+    """One step of the COCO Mask R-CNN config at full width on two 400x667
+    images with masks: both RoIAlign launches (bbox rois S=7 sr=2, mask
+    rois S=14 sr=2), forward torch.equal to plain and backward within 1e-5
+    of each level's max, on the step's own features, rois and gradients."""
+    cfg = Config.fromfile(str(MASK_CONFIG))
+    model = train_model(cfg, device=cuda)
+    samples = coco_train_samples(np.random.RandomState(12), 2, (400, 667))
+    batch = batch_to_device(DetCollator(None, 32, max_gt=32)(samples), cuda)
+    fwd, bwd = [], []
+    with recorded(roi_align_cuda, "roi_align_forward", fwd), \
+            recorded(roi_align_cuda, "roi_align_backward", bwd):
+        metrics, _ = one_step(model, cfg, batch, seed=0, device=cuda)
+    assert np.isfinite(metrics["loss_mask"]) and metrics["rcnn_num_pos"] > 0
+    assert sorted(args[4:6] for args, _, _ in fwd) == [(7, 2), (14, 2)]
+    assert sorted(args[0].shape[-1] for args, _, _ in bwd) == [7, 14]
+    for (feats, rois, lvls, _, out, sr, *_), _, _ in fwd:
+        feats = [f.detach() for f in feats]
+        g = next(a[0] for a, _, _ in bwd if a[0].shape[-1] == out)
+        compare_roi_align(feats, rois, lvls, out, sr)
+        compare_roi_align_backward(g, rois, lvls,
+                                   [tuple(f.shape) for f in feats], out, sr)
+
+
+@pytest.mark.cuda
+def test_retinanet_c_train_step_matches_cpu(no_tf32):
+    """One step of the Adap RetinaNet-c clipg config at full width on one
+    512x640 image (the focal loss samples nothing): the card's float32
+    losses within 1e-4 of the CPU's, and in float64 each gradient within
+    1e-4 of its parameter's max (float32 rounding alone moves the
+    full-width network's gradients by ~6e-3 of a parameter's max:
+    chip_smoke phase 7 prints it)."""
+    cfg = Config.fromfile(str(CONFIG))
+    collated = DetCollator((512, 640))(
+        train_samples(np.random.RandomState(13), 1))
+    got, _ = one_step(train_model(cfg, device=no_tf32), cfg,
+                      batch_to_device(collated, no_tf32), seed=0,
+                      device=no_tf32)
+    want, _ = one_step(train_model(cfg, device="cpu"), cfg,
+                       batch_to_device(collated, "cpu"), seed=0,
+                       device="cpu")
+    assert want["num_pos"] > 1
+    for k in ("loss", "loss_cls", "loss_bbox", "num_pos"):
+        assert abs(got[k] - want[k]) <= LOSS_TOL * abs(want[k]), k
+    _, got_g = double_step(cfg, collated, 0, no_tf32)
+    _, want_g = double_step(cfg, collated, 0, "cpu")
+    assert grad_error(got_g, want_g) <= GRAD_TOL

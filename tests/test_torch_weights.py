@@ -119,7 +119,8 @@ def test_port_imports_no_jax():
             "pointtinybenchmark_tpu_torch.ops.iou, "
             "pointtinybenchmark_tpu_torch.models.losses, "
             "pointtinybenchmark_tpu_torch.data.loader; "
-            "assert not {'jax', 'flax', 'optax'} & set(sys.modules); "
+            "assert not {'jax', 'flax', 'optax', 'msgpack'} & "
+            "set(sys.modules); "
             "assert not [m for m in sys.modules "
             "if m.split('.')[0] == 'pointtinybenchmark_tpu']")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
