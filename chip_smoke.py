@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Builds the kernels of ops/csrc with nvcc (one nvcc per source, started
-together), then runs six main paths, the tiled protocol of Adap
-RetinaNet-c, Adap Faster R-CNN and COCO Mask R-CNN, each on two 1920x1080
-uint8 frames, and the training of Adap Faster R-CNN, Adap RetinaNet-c and
-COCO Mask R-CNN:
+together), then runs ten main paths, the tiled protocol of Adap
+RetinaNet-c, Adap Faster R-CNN, COCO Mask R-CNN and Adap P2P, each on two
+1920x1080 uint8 frames, the training of Adap Faster R-CNN, Adap
+RetinaNet-c, COCO Mask R-CNN, P2P and CPR, and CPR's point refinement:
 
 1. kernel vs plain, NMS: the IoU-bitmask and greedy-reduce kernels against
    their plain PyTorch version on the card, on synthetic TinyPerson-like
@@ -17,7 +17,9 @@ COCO Mask R-CNN:
    (K1_SHAPES), kernel A's defined bits and kernel B's keep sets identical,
    with times, bounds and the walk's serial steps; and on box pairs whose
    IoU is the threshold or one of its float neighbours, also moved right by
-   the largest class offset of an 80-class NMS;
+   the largest class offset of an 80-class NMS, and on pairs of 16x16
+   boxes (P2P's pseudo boxes) at P2P's threshold 0.01, with and without
+   that offset (`square_tie_boxes`);
 2. kernel vs plain, RoIAlign: the multilevel RoIAlign kernel against its
    plain version, bit for bit (torch.equal), on synthetic channels-last FPN
    maps of 256 channels and TinyPerson-sized rois of many tiles in shuffled
@@ -113,17 +115,47 @@ COCO Mask R-CNN:
    candidate, the CPU fed the card's proposals, which must equal the plain
    NMS's): losses within LOSS_TOL; (e) train-step ms, img/s, peak memory;
    (f) a profile of warm steps and the backward's device time on the
-   step's rois.
+   step's rois;
+9. Adap P2P on TinyPerson (configs/tinyperson/p2p_r50_fpns4_1x_
+   tinyperson640.py at full width: ResNet-50, FPN-256 at stride 4 only,
+   P2PHead with 4+4 GN(32) convs) with seeded weights and cls_out.bias set
+   to 0 so that candidates pass score_thr: (a) `inference_detector_tiled`
+   on the two frames: launches {iou_bitmask: 2, greedy_reduce: 2} (the
+   per-tile pseudo-box NMS at IoU 0.01, the global merge), candidates and
+   kept points per tile, merged detections and points equal to those with
+   the plain NMS, the head's outputs against the CPU on one tile, K1 alone
+   against its plain version on the run's own two launches, protocol and
+   forward-only img/s; (b) `train_detector` (Adam, the top-k auction at
+   topk_k 5) for 20 iterations on 4 synthetic 512x640 images with 20-200
+   TinyPerson-like gts: no kernel launch, finite losses, num_pos a
+   multiple of topk_k and equal to topk_k x the valid gts of a step, the
+   frozen stem and layer1 bit-identical and the rest changed; the auction's
+   rounds, iterations and host reads per step; the card's auction equal to
+   the CPU's on the card's own cost matrix (both stopped at
+   AUCTION_CPU_ITERS iterations a round); the CPU's step, fed the card's
+   assignment, against the card's; the auction's ms, train-step ms, img/s,
+   peak memory and a profile (GroupNorm's share among the families);
+10. CPR on TinyPersonV2 (configs/tinypersonv2/cpr/coarse_point_refine_r50_
+   fpns4_1x_tinypersonv2_640.py at full width) with seeded weights and
+   cls_out.bias set to 0 so that bag scores pass merge_th: (a)
+   `run_test`'s counterpart `run_refine_test` on 8 640x640 images with 50
+   coarse points each (no kernel launch; every row's ids, finite points
+   within the bag radius), `refine_test` on the card against the CPU on
+   one image (points, scores, not_refine), img/s; (b) `train_detector` at
+   random_remove_rate 0.4 (the bag-point drop drawn from the step's
+   generator) for 10 iterations of 2 images with 20-200 gts: finite
+   losses; one step at rate 0 on the card against the CPU; train-step ms,
+   img/s, peak memory; profiles of both paths.
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
 {"ok": true, "device": {...}}; the line before it is the card's name and
 power limit, and the line before that lists each kernel with its launches on
 the main paths, its error against the plain version, its time, the plain
-version's time and its bound (`by_shape`: K1 at every launch shape and
-the Mask R-CNN train step's RPN NMS; for RoIAlign the phase-2 shapes, the
-slices' rois and the train steps' rois; for its backward the phase-6
-shapes and the train steps' rois; `ms` is whole wrapper calls
+version's time and its bound (`by_shape`: K1 at every launch shape, the
+Mask R-CNN train step's RPN NMS and P2P's two protocol launches; for
+RoIAlign the phase-2 shapes, the slices' rois and the train steps' rois;
+for its backward the phase-6 shapes and the train steps' rois; `ms` is whole wrapper calls
 between CUDA events, as for every kernel, and the backward adds
 `device_ms`, its kernel's and zero fill's device time from a profile).
 """
@@ -199,6 +231,34 @@ MASK_TRAIN_LAUNCHES = {"iou_bitmask": 1, "greedy_reduce": 1, "roi_align": 2,
                        "roi_align_backward": 2}
 MASK_TRAIN_IMAGES = 4
 MASK_TRAIN_EPOCHS = 5            # 10 iterations at samples_per_gpu=2
+# phase 9: Adap P2P on TinyPerson. Its protocol launches K1 twice, the
+# per-tile pseudo-box NMS (IoU 0.01) and the global merge; its training
+# and CPR's (phase 10) launch no kernel of the port
+P2P_CONFIG = REPO / "configs/tinyperson/p2p_r50_fpns4_1x_tinyperson640.py"
+P2P_LAUNCHES = {"iou_bitmask": 2, "greedy_reduce": 2, "roi_align": 0,
+                "roi_align_backward": 0}
+NO_LAUNCHES = {"iou_bitmask": 0, "greedy_reduce": 0, "roi_align": 0,
+               "roi_align_backward": 0}
+P2P_THR = 0.01                   # the config's pseudo-box NMS threshold
+P2P_GTS = (20, 201)              # gts an image, TinyPerson-like
+P2P_TRAIN_IMAGES = 4
+P2P_TRAIN_EPOCHS = 5             # 20 iterations at samples_per_gpu=1
+AUCTION_TIMED = 5
+# the card's auction against the CPU's on the step's cost matrix, both
+# stopped at this many iterations a round (then the greedy completion):
+# the whole auction runs for tens of thousands of iterations there, too
+# long for the CPU
+AUCTION_CPU_ITERS = 128
+# phase 10: CPR on TinyPersonV2: refinement of 8 640x640 images with 50
+# coarse points each (16x16 pseudo boxes, the JAX bench's cpr shape), and
+# training at samples_per_gpu 2
+CPR_CONFIG = REPO / ("configs/tinypersonv2/cpr/"
+                     "coarse_point_refine_r50_fpns4_1x_tinypersonv2_640.py")
+CPR_HW = (640, 640)
+CPR_IMAGES = 8
+CPR_POINTS = 50
+CPR_TRAIN_IMAGES = 4
+CPR_TRAIN_EPOCHS = 5             # 10 iterations at samples_per_gpu=2
 # objects an image and their sides in px (log-uniform, COCO's small to
 # large), 80 classes
 COCO_OBJECTS = (5, 30)
@@ -274,6 +334,10 @@ KERNEL_FAMILIES = (
     ("dgrad", "convolution dgrad (data gradient)"),
     ("wgrad", "convolution wgrad (weight gradient)"),
     ("multi_tensor_apply", "optimizer (foreach elementwise)"),
+    ("rowwisemoments", "GroupNorm"), ("computefusedparams", "GroupNorm"),
+    ("groupnorm", "GroupNorm"), ("group_norm", "GroupNorm"),
+    ("computeinternalgradients", "GroupNorm"),
+    ("backwardfusedparams", "GroupNorm"), ("gammabeta", "GroupNorm"),
     ("sort", "sort"),
     ("nhwctonchw", "cuDNN layout transpose"),
     ("nchwtonhwc", "cuDNN layout transpose"),
@@ -355,6 +419,72 @@ def threshold_tie_boxes(thr, per_target=4, x_offset=0):
     if boxes[:, 2].max() >= 2 ** 24:
         raise ValueError(f"x_offset {x_offset}: coordinates reach 2**24")
     return boxes, np.asarray([q for *_, q in pairs], np.float32)
+
+
+def _ulps(v, k):
+    """The float32 values from k ulps below v to k above (v > 0)."""
+    i = np.asarray(v, np.float32).view(np.int32)
+    return (i + np.arange(-k, k + 1, dtype=np.int32)).view(np.float32)
+
+
+def _pair_iou(a, b):
+    """float32 IoU of box a against boxes b (..., 4), in the operation order
+    of nms_cuda.iou_bitmask_plain."""
+    ix1, iy1 = np.maximum(a[0], b[..., 0]), np.maximum(a[1], b[..., 1])
+    ix2, iy2 = np.minimum(a[2], b[..., 2]), np.minimum(a[3], b[..., 3])
+    inter = np.maximum(ix2 - ix1, 0) * np.maximum(iy2 - iy1, 0)
+    area_a = (a[2] - a[0]) * (a[3] - a[1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    union = np.maximum((area_a + area_b) - inter, np.float32(1e-6))
+    return inter / union
+
+
+def square_tie_boxes(thr, side=16, per_target=4, x_offset=0):
+    """Pairs of side x side boxes (P2P's pseudo boxes) whose float32 IoU is
+    exactly thr or one of its two float neighbours: numpy (2P, 4) f32, pair
+    p an anchor box at (x_offset, 40 p) (row 2p) and a box shifted right
+    and down by about side - sqrt(inter) (row 2p + 1), where inter is the
+    overlap that gives thr; no two pairs overlap. The IoU of two boxes of
+    one size depends on the overlap alone, and at 0.01 the float32 values
+    it takes skip some: so the shifted box's right edge may also move by up
+    to 4 float32 steps (its width is side within 1e-5 px). Each pair is
+    searched at its own position, since float32 rounds the shifted
+    coordinates differently at each: near the solution, x over up to 2,001
+    float32 values (overlap widths of 1-4 px) and, for each, y over 257.
+    Returns (boxes, iou (P,) f32)."""
+    t, s = np.float32(thr), np.float32(side)
+    targets = (np.nextafter(t, np.float32(-1)), t,
+               np.nextafter(t, np.float32(2)))
+    inter = float(t) * 2 * side * side / (1 + float(t))
+    boxes, ious = [], []
+    for k, target in enumerate(targets):
+        for q in range(per_target):
+            p = k * per_target + q
+            ox, oy = np.float32(x_offset), np.float32(40 * p)
+            a = np.asarray([ox, oy, ox + s, oy + s], np.float32)
+            xs = _ulps(ox + s - np.float32(np.sqrt(inter)), 1000)
+            iw = a[2] - xs
+            xs, iw = xs[(iw >= 1) & (iw <= 4)], iw[(iw >= 1) & (iw <= 4)]
+            ys = np.stack([_ulps(oy + s - np.float32(inter / w), 128)
+                           for w in iw])                        # (X, Y)
+            for step in (0, 1, -1, 2, -2, 3, -3, 4, -4):
+                x2 = (xs + s).view(np.int32) + np.int32(step)
+                b = np.stack(np.broadcast_arrays(
+                    xs[:, None], ys, x2.view(np.float32)[:, None], ys + s),
+                    -1)
+                iou = _pair_iou(a, b)
+                hit = np.argwhere(iou == target)
+                if len(hit):
+                    break
+            else:
+                raise AssertionError(f"no IoU of {target!r} at {ox}, {oy}")
+            i, j = hit[0]
+            boxes += [a, b[i, j]]
+            ious.append(iou[i, j])
+    boxes = np.stack(boxes).astype(np.float32)
+    if boxes[:, 2].max() >= 2 ** 24:
+        raise ValueError(f"x_offset {x_offset}: coordinates reach 2**24")
+    return boxes, np.asarray(ious, np.float32)
 
 
 def edge_rois(b, tile_hw=(512, 640)):
@@ -732,10 +862,15 @@ def phase_kernels(card):
           f"{ms:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]")
 
     # IoUs on the threshold and its float neighbours, also moved by the
-    # largest class offset of Mask R-CNN's 80-class NMS
-    for thr, x_offset in ((0.5, 0), (0.7, 0), (0.5, OFFSET_80_CLASSES),
-                          (0.7, OFFSET_80_CLASSES)):
-        tie, iou = threshold_tie_boxes(thr, x_offset=x_offset)
+    # largest class offset of Mask R-CNN's 80-class NMS; at P2P's 0.01 on
+    # its 16x16 pseudo boxes
+    for thr, x_offset, make in (
+            (0.5, 0, threshold_tie_boxes), (0.7, 0, threshold_tie_boxes),
+            (0.5, OFFSET_80_CLASSES, threshold_tie_boxes),
+            (0.7, OFFSET_80_CLASSES, threshold_tie_boxes),
+            (P2P_THR, 0, square_tie_boxes),
+            (P2P_THR, OFFSET_80_CLASSES, square_tie_boxes)):
+        tie, iou = make(thr, x_offset=x_offset)
         tie = torch.from_numpy(tie)[None].to(DEVICE)
         every = torch.tensor([tie.shape[1]], dtype=torch.int32, device=DEVICE)
         got = nms_cuda.defined_words(nms_cuda.iou_bitmask(tie, thr, every),
@@ -746,9 +881,9 @@ def phase_kernels(card):
         if not torch.equal(got, want):
             raise AssertionError(f"threshold ties at {thr}, x offset "
                                  f"{x_offset}: kernel != plain")
-        print(f"phase 1 threshold ties at {thr}, x offset {x_offset}: "
-              f"{len(iou)} pairs with IoU {np.unique(iou).tolist()}, kernel "
-              f"bits == plain bits")
+        print(f"phase 1 threshold ties at {thr}, x offset {x_offset} "
+              f"({make.__name__}): {len(iou)} pairs with IoU "
+              f"{np.unique(iou).tolist()}, kernel bits == plain bits")
 
     # the JSON line keeps the B=12 row, comparable with earlier measurements
     return {k: dict(rows[0][k], by_shape=[r[k] for r in rows])
@@ -1669,15 +1804,16 @@ def add_device_ms(card, rec, g, rois, lvls, shapes, out, sr, phase="6"):
           f"{rec['bound_ms'] / k_ms:.3f}) [{card}]")
 
 
-def train_samples(rng, n, hw=None):
+def train_samples(rng, n, hw=None, gts=(20, 61)):
     """n training samples as a dataset hands them to the collator: a
-    normalised (H, W, 3) float32 image, 20-60 TinyPerson-like gts (10-40 px
+    normalised (H, W, 3) float32 image, 20-60 (`gts`) TinyPerson-like gts
+    (10-40 px
     boxes around cluster centres, `synthetic_boxes`' kind) of class 0, and
     two ignore regions."""
     h, w = hw or TRAIN_HW
     out = []
     for _ in range(n):
-        k = rng.randint(20, 61)
+        k = rng.randint(*gts)
         boxes, _, valid, _ = synthetic_boxes(rng, 1, 2 * k)
         boxes = boxes[0][valid[0]][:k]
         boxes = np.clip(boxes, 0, [w, h, w, h]).astype(np.float32)
@@ -1745,13 +1881,16 @@ def covering_budgets(model, anchors, gts):
         model.roi_head.train_cfg["sampler"], num=4 * props, pos_fraction=0.5)
 
 
-def train_run(card, phase, cfg, samples, epochs, expected, positives):
+def train_run(card, phase, cfg, samples, epochs, expected, positives,
+              require_change=True):
     """`train_detector` from seeded weights on `samples` for `epochs`, with
     the kernels' launches counted from zero around it: the launches per step
     must be `expected`, every loss finite, each count of `positives` above
     its floor in every step, the frozen stem and stages bit-identical and
-    every other parameter changed. Returns the model (back at its initial
-    weights), those weights and the run's launches."""
+    every other parameter changed (with `require_change`; else the
+    unchanged ones are only listed: a warmup from lr x 0.001 moves some by
+    less than a float32 step in a few iterations). Returns the model (back
+    at its initial weights), those weights and the run's launches."""
     import tempfile
 
     from pointtinybenchmark_tpu_torch.engine.optimizer import \
@@ -1805,8 +1944,9 @@ def train_run(card, phase, cfg, samples, epochs, expected, positives):
     moved = [n for n in frozen if not torch.equal(after[n], init[n])]
     print(f"phase {phase} after the run: {len(frozen)} frozen tensors (stem, "
           f"layer1) bit-identical: {not moved}; trainable tensors unchanged: "
-          f"{unchanged or 'none'}")
-    if moved or unchanged:
+          f"{unchanged or 'none'}" + ("" if require_change else
+                                       " (listed, not held)"))
+    if moved or (unchanged and require_change):
         raise AssertionError(f"frozen moved {moved[:4]}, trainable unchanged "
                              f"{unchanged[:4]}")
     del result, after
@@ -2363,6 +2503,396 @@ def phase_mask_train(card):
     return launches, k1, f_rows, b_rows, profile
 
 
+# ------------------------------------------------ phase 9: P2P (points)
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    """Inside this block `module.<name>` is `fn`."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def check_points(results, label, side=16.0):
+    """Each frame's merged P2P detections: pseudo boxes of `side` round
+    finite points inside the frame."""
+    h, w = FRAME_HW
+    for i, r in enumerate(results):
+        bb = r["bboxes"]
+        n = bb.shape[0]
+        cx, cy = (bb[:, 0] + bb[:, 2]) / 2, (bb[:, 1] + bb[:, 3]) / 2
+        first = [(round(float(a), 2), round(float(b), 2), round(float(c), 4))
+                 for a, b, c in zip(cx[:3], cy[:3], bb[:3, 4])]
+        print(f"{label} frame {i}: {n} points kept by the global merge, "
+              f"first (cx, cy, score) {first}")
+        if not 1 <= n <= 1000 or not np.isfinite(bb).all():
+            raise AssertionError(f"frame {i}: {bb.shape} detections")
+        if not ((cx >= 0).all() and (cy >= 0).all() and (cx <= w).all()
+                and (cy <= h).all()
+                and np.allclose(bb[:, 2:4] - bb[:, :2], side, atol=1e-3)):
+            raise AssertionError(f"frame {i}: points outside the frame")
+
+
+def phase_p2p(card, frames):
+    """Phase 9 (a): Adap P2P's tiled protocol at full width (ResNet-50,
+    FPN-256 at stride 4, P2PHead with 4+4 GN(32) convs) on the two frames:
+    launches, candidates and kept points per tile, the card against the CPU
+    on one tile, detections equal to those with the plain NMS, K1 against
+    its plain version on the run's own two launches, img/s. Returns the
+    launches, the handle (for the profile) and the K1 rows."""
+    from pointtinybenchmark_tpu_torch.apis.inference import (
+        inference_detector_tiled, init_detector)
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda
+
+    handle = init_detector(str(P2P_CONFIG), device=DEVICE, seed=0)
+    model, head = handle.model, handle.model.bbox_head
+    # cls_out.bias = logit(0.01) keeps every score of random weights at
+    # ~0.01, under score_thr 0.05; a zero bias puts them near 0.5
+    with torch.no_grad():
+        head.cls_out.bias.zero_()
+    print("phase 9: cls_out.bias set to 0 so that candidates pass score_thr "
+          "(with the focal prior no score of random weights does)")
+
+    torch.backends.cudnn.deterministic = True
+    bits, walks = [], []
+    reset_launches()
+    with recorded(nms_cuda, "iou_bitmask", bits), \
+            recorded(nms_cuda, "greedy_reduce", walks):
+        results = inference_detector_tiled(handle, list(frames))
+    launches = read_launches()
+    print(f"phase 9 launches on the P2P path: {launches}")
+    if launches != P2P_LAUNCHES:
+        raise AssertionError(f"expected one per-tile and one global launch of "
+                             f"each NMS kernel, got {launches}")
+    with plain_nms():
+        results_plain = inference_detector_tiled(handle, list(frames))
+    torch.backends.cudnn.deterministic = False
+    check_points(results, "phase 9")
+    for i, (r, p) in enumerate(zip(results, results_plain)):
+        if not (np.array_equal(r["bboxes"], p["bboxes"])
+                and np.array_equal(r["labels"], p["labels"])):
+            raise AssertionError(f"frame {i}: kernel and plain NMS disagree")
+    print("phase 9: merged detections and points with the kernels == with "
+          "the plain NMS")
+
+    # K1 alone on the run's own launches: the per-tile NMS, then the merge
+    rows = []
+    for ((sboxes, thr, n_valid), _, _), ((_, ok, order, max_out, _), _, _), \
+            name in zip(bits, walks, ("P2P per-tile", "P2P global merge")):
+        if max_out != MAX_OUT:
+            raise AssertionError(f"{name} keeps {max_out}, not {MAX_OUT}")
+        rows.append(k1_row(card, name, sboxes, ok, order, n_valid, thr,
+                           phase="9"))
+    want = [((24, 1000, 4), P2P_THR), ((N_FRAMES, 12000, 4), 0.5)]
+    got = [(tuple(a[0].shape), a[1]) for a, _, _ in bits]
+    if got != want:
+        raise AssertionError(f"K1 launch shapes {got}, expected {want}")
+    del bits, walks
+
+    eng = next(iter(handle.tiled_engines.values()))
+    tiles = eng.pre(frames)
+    img_shapes = torch.tensor([eng.pre.tile_hw], dtype=torch.int32,
+                              device=DEVICE).expand(tiles.shape[0], 2)
+    cfg = head.test_cfg
+    with torch.no_grad():
+        cls_outs, pts_outs = model(tiles)
+        dets, _ = head.get_bboxes(cls_outs, pts_outs, img_shapes,
+                                  tuple(tiles.shape[1:3]))
+    top = torch.sigmoid(cls_outs[0]).flatten(1).sort(
+        1, descending=True).values[:, :int(cfg["nms_pre"])]
+    cands = (top > float(cfg["score_thr"])).sum(1).tolist()
+    kept = dets.valid.sum(1).tolist()
+    print(f"phase 9 per-tile NMS input (top {cfg['nms_pre']} of "
+          f"{cls_outs[0][0].numel()} cells, 16x16 pseudo boxes, IoU "
+          f"{P2P_THR}): candidates over score_thr {cands}")
+    print(f"phase 9 per-tile NMS kept points: {kept}")
+    if min(cands) <= 0 or min(kept) <= 0:
+        raise AssertionError("NMS got no work")
+
+    cpu_model = init_detector(str(P2P_CONFIG), device="cpu", seed=0).model
+    with torch.no_grad():
+        cpu_model.bbox_head.cls_out.bias.zero_()
+        ref = cpu_model(tiles[:1].cpu())
+    err = rel_err([cls_outs[0][:1], pts_outs[0][:1]], [ref[0][0], ref[1][0]])
+    print(f"phase 9 head outputs (cls_out, reg_out), card vs CPU on one "
+          f"tile: max rel err {err:.3e}")
+    if err > 1e-4:
+        raise AssertionError(f"card forward differs from CPU: {err}")
+    del cpu_model, ref
+
+    protocol, forward = throughput(handle, frames, tiles)
+
+    def post():
+        return head.get_bboxes(cls_outs, pts_outs, img_shapes,
+                               tuple(tiles.shape[1:3]))
+
+    def merge():
+        return eng.merge(dets)
+    post_ms, merge_ms = time_ms(post, ITERS), time_ms(merge, ITERS)
+    with plain_nms():
+        post_plain, merge_plain = (time_ms(post, PLAIN_ITERS),
+                                   time_ms(merge, PLAIN_ITERS))
+    print(f"phase 9 protocol ({N_FRAMES} frames of {eng.pre.n_views} tiles, "
+          f"host in the loop): {protocol:.4f} img/s [{card}]")
+    print(f"phase 9 forward only ({tiles.shape[0]} tiles, f32, TF32 off): "
+          f"{forward:.4f} img/s [{card}]")
+    print(f"phase 9 get_bboxes (top-k, pseudo boxes, per-tile NMS, "
+          f"B={tiles.shape[0]}): kernel {post_ms:.4f} ms, plain "
+          f"{post_plain:.4f} ms; global merge: kernel {merge_ms:.4f} ms, "
+          f"plain {merge_plain:.4f} ms [{card}]")
+    return launches, handle, rows
+
+
+def phase_p2p_train(card):
+    """Phase 9 (b): Adap P2P training at full width (Adam at lr 1e-4 with
+    linear warmup, grad_clip 35, HungarianAssignerV2 at topk_k 5, one
+    512x640 image a step, max_gt 200) with seeded weights on synthetic
+    images of 20-200 TinyPerson-like gts: `train_run` (no kernel launch, a
+    finite Adam step each iteration, num_pos a multiple of topk_k), the
+    auction's rounds, iterations and host reads per step; one step: num_pos
+    == topk_k x valid gts, the card's auction equal to the CPU auction on
+    the card's own cost matrix (both stopped at AUCTION_CPU_ITERS), the
+    CPU's step (fed the card's assignment) against the card's; the
+    auction's ms, train-step ms, img/s and peak memory. Returns the
+    launches and the profile."""
+    from pointtinybenchmark_tpu_torch.core import assigners
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.optimizer import Adam
+    from pointtinybenchmark_tpu_torch.engine.train import batch_to_device
+    from pointtinybenchmark_tpu_torch.models.dense_heads import p2p_head
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(str(P2P_CONFIG))
+    spg = int(cfg.data["samples_per_gpu"])
+    topk = int(cfg.train_cfg["assigner"]["topk_k"])
+    samples = train_samples(np.random.RandomState(12), P2P_TRAIN_IMAGES,
+                            gts=P2P_GTS)
+    print(f"phase 9 training config: {P2P_CONFIG.name}, samples_per_gpu "
+          f"{spg}, pad_shape {tuple(cfg.loader['pad_shape'])}, max_gt "
+          f"{cfg.loader['max_gt']}, optimizer {dict(cfg.optimizer)}, "
+          f"grad_clip {cfg.optimizer_config.get('grad_clip')}, assigner "
+          f"topk_k {topk}; {P2P_TRAIN_IMAGES} synthetic images, gts per "
+          f"image {[len(s['gt_bboxes']) for s in samples]}")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+
+    stats = assigners.auction_stats
+    for k in stats:
+        stats[k] = 0
+    model, init, launches = train_run(
+        card, "9", cfg, samples, P2P_TRAIN_EPOCHS, NO_LAUNCHES,
+        {"num_pos": topk * P2P_GTS[0] - 1})
+    iters = P2P_TRAIN_EPOCHS * P2P_TRAIN_IMAGES // spg
+    print(f"phase 9 auction in train_detector: per step "
+          f"{stats['rounds'] / iters:.1f} rounds, "
+          f"{stats['iterations'] / iters:.1f} iterations, "
+          f"{stats['syncs'] / iters:.1f} host reads (every "
+          f"{assigners.AUCTION_CHECK_EVERY} iterations and one a round for "
+          f"the completion)")
+
+    collator = DetCollator(tuple(cfg.loader["pad_shape"]),
+                           max_gt=int(cfg.loader["max_gt"]))
+    collated = collator(samples[:spg])
+    batch = batch_to_device(collated, DEVICE)
+    calls = []
+    with recorded(p2p_head, "topk_auction_match", calls):
+        card_m, _ = one_step(model, cfg, batch, seed=3)
+    model.load_state_dict(init)
+    (cost, gv, k), _, card_assigned = calls[0]
+    n_gts = int(collated["gt_valid"].sum())
+    print(f"phase 9 one step: num_pos {card_m['num_pos']:.0f} == topk_k "
+          f"{topk} x {n_gts} valid gts: {card_m['num_pos'] == topk * n_gts}")
+    if card_m["num_pos"] != topk * n_gts:
+        raise AssertionError(f"num_pos {card_m['num_pos']}")
+    capped = assigners.topk_auction_match(cost, gv, k,
+                                          max_iters=AUCTION_CPU_ITERS)
+    t0 = time.perf_counter()
+    cpu_capped = assigners.topk_auction_match(cost.cpu(), gv.cpu(), k,
+                                              max_iters=AUCTION_CPU_ITERS)
+    cpu_s = time.perf_counter() - t0
+    same = torch.equal(capped.cpu(), cpu_capped)
+    print(f"phase 9 auction, card vs CPU on the card's cost matrix "
+          f"{tuple(cost.shape)}, both stopped at {AUCTION_CPU_ITERS} "
+          f"iterations a round: assignments equal: {same} (the CPU took "
+          f"{cpu_s:.2f} s)")
+    if not same:
+        raise AssertionError("the card's auction differs from the CPU's")
+    a0 = dict(stats)
+    auction_ms = time_ms(lambda: assigners.topk_auction_match(cost, gv, k),
+                         AUCTION_TIMED)
+    per = {key: (stats[key] - a0[key]) / (AUCTION_TIMED + 1) for key in stats}
+    print(f"phase 9 auction alone on the step's cost matrix: {auction_ms:.4f} "
+          f"ms a call (CUDA events, the host reads inside), {per} per call "
+          f"[{card}]")
+
+    with swapped(p2p_head, "topk_auction_match",
+                 lambda *args: card_assigned.cpu()):
+        cpu_m, _ = one_step(train_model(cfg, device="cpu"), cfg,
+                            batch_to_device(collated, "cpu"), seed=3,
+                            device="cpu")
+    keys = [key for key in cpu_m if key.startswith("loss") or key == "num_pos"]
+    errs = {key: abs(card_m[key] - cpu_m[key]) / max(abs(cpu_m[key]), 1e-30)
+            for key in keys}
+    print("phase 9 one step, card vs CPU (the CPU fed the card's "
+          "assignment), rel err: " + ", ".join(
+              f"{key} {v:.3e}" for key, v in errs.items())
+          + f" (bar {LOSS_TOL})")
+    if max(errs.values()) > LOSS_TOL:
+        raise AssertionError(f"card vs CPU: {card_m} vs {cpu_m}")
+
+    for key in stats:
+        stats[key] = 0
+    numbers, profile = time_step(card, "9", "p2p_train", cfg, model, batch,
+                                 held, spg)
+    steps = TRAIN_TIMED_STEPS + 2
+    print(f"phase 9 the timed steps read the auction's convergence back "
+          f"{stats['syncs'] / steps:.1f} times a step "
+          f"({stats['iterations'] / steps:.1f} iterations)")
+    from pointtinybenchmark_tpu_torch.engine.optimizer import build_optimizer
+    if not isinstance(build_optimizer(model, cfg.optimizer), Adam):
+        raise AssertionError("the P2P config does not build Adam")
+    return launches, profile
+
+
+# ------------------------------------------------ phase 10: CPR (points)
+def cpr_samples(rng, n, hw, points):
+    """n images with `points` coarse points each (annotation ids from 1000
+    i), as 16x16 pseudo boxes round TinyPerson-like clusters, class 0; the
+    image a normalised float32 map."""
+    h, w = hw
+    out = []
+    for i in range(n):
+        k = points if np.isscalar(points) else rng.randint(*points)
+        centres = rng.rand(max(k // 5, 1), 2) * [w - 40, h - 40] + 20
+        c = (centres[rng.randint(0, len(centres), k)]
+             + rng.randn(k, 2) * 12).clip(2, [w - 2, h - 2])
+        out.append(dict(
+            img=rng.randn(h, w, 3).astype(np.float32),
+            gt_bboxes=np.concatenate([c - 8, c + 8], 1).astype(np.float32),
+            gt_labels=np.zeros(k, np.int64),
+            gt_anns_id=np.arange(k) + 1000 * i))
+    return out
+
+
+def phase_cpr(card):
+    """Phase 10: CPR on TinyPersonV2 at full width (ResNet-50, FPN-256 at
+    stride 4, CPRHead with 4 GN(32) convs, CirclePtFeatGenerator radius 5,
+    class-wise OutCircle negatives, the MIL loss), cls_out.bias set to 0
+    so that bag scores pass merge_th. (a) `run_refine_test` on 8 640x640
+    images of 50 coarse points (no kernel launch), refine_test on the card
+    against the CPU on one image, img/s; (b) `train_detector` at
+    random_remove_rate 0.4 (finite losses), one step at rate 0 on the card
+    against the CPU, train-step ms, img/s, peak memory. Returns the
+    launches of both paths and their profiles."""
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.test import run_refine_test
+    from pointtinybenchmark_tpu_torch.engine.train import batch_to_device
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(str(CPR_CONFIG))
+    model = train_model(cfg).eval()
+    with torch.no_grad():
+        model.bbox_head.cls_out.bias.zero_()
+    samples = cpr_samples(np.random.RandomState(13), CPR_IMAGES, CPR_HW,
+                          CPR_POINTS)
+    collator = DetCollator(CPR_HW, max_gt=int(cfg.loader["max_gt"]))
+    print(f"phase 10: {CPR_CONFIG.name}, cls_out.bias set to 0 so that bag "
+          f"scores pass merge_th; refinement of {CPR_IMAGES} images of "
+          f"{CPR_HW} with {CPR_POINTS} coarse points each")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    rows = run_refine_test(model, samples, collator, batch_size=CPR_IMAGES)
+    refine_launches = read_launches()
+    radius = 5 * 4
+    moved = []
+    for s, r in zip(samples, rows):
+        coarse = (s["gt_bboxes"][:, :2] + s["gt_bboxes"][:, 2:]) / 2
+        d = np.linalg.norm(r["points"][:, :2] - coarse, axis=1)
+        moved.append(int((d > 1e-3).sum()))
+        if not (np.array_equal(r["anns_id"], s["gt_anns_id"])
+                and np.isfinite(r["points"]).all() and (d <= radius).all()):
+            raise AssertionError("refined rows: ids, values or distances")
+    print(f"phase 10 run_refine_test: launches {refine_launches}; "
+          f"{len(rows)} images, rows {[len(r['points']) for r in rows]}, "
+          f"points moved per image {moved} (every refined point within the "
+          f"bag radius of {radius} px)")
+    if refine_launches != NO_LAUNCHES or sum(moved) == 0:
+        raise AssertionError(f"launches {refine_launches}, moved {moved}")
+
+    batch = batch_to_device(collator(samples), DEVICE)
+    with torch.no_grad():
+        pts, scores, _, nr = model.refine_test(batch["img"], batch)
+    cpu_model = train_model(cfg, device="cpu").eval()
+    with torch.no_grad():
+        cpu_model.bbox_head.cls_out.bias.zero_()
+        one = batch_to_device(collator(samples[:1]), "cpu")
+        c_pts, c_scores, _, c_nr = cpu_model.refine_test(one["img"], one)
+    v = one["gt_valid"][0]
+    p_err = float((pts[0].cpu() - c_pts[0])[v].abs().max())
+    s_err = float(((scores[0].cpu() - c_scores[0]) / c_scores[0].abs()
+                   .clamp(min=1e-12))[v].abs().max())
+    same_nr = torch.equal(nr[0].cpu()[v], c_nr[0][v])
+    print(f"phase 10 refine_test, card vs CPU on one image: points max abs "
+          f"err {p_err:.3e} px, scores max rel err {s_err:.3e}, not_refine "
+          f"equal {same_nr} ({int(c_nr[0][v].sum())} of {int(v.sum())} not "
+          f"refined)")
+    if p_err > 1e-3 or s_err > 1e-4 or not same_nr:
+        raise AssertionError("card refinement differs from the CPU's")
+    del cpu_model
+
+    def refine():
+        with torch.no_grad():
+            return model.refine_test(batch["img"], batch)
+    ms = time_ms(refine, ITERS)
+    print(f"phase 10 refine_test ({CPR_IMAGES} images of {CPR_HW}, "
+          f"{CPR_POINTS} points each, f32, TF32 off): {ms:.4f} ms, "
+          f"{CPR_IMAGES * 1e3 / ms:.4f} img/s [{card}]")
+
+    # (b) training
+    spg = int(cfg.data["samples_per_gpu"])
+    rate = float(cfg.model["bbox_head"]["loss_cfg"]["random_remove_rate"])
+    train = cpr_samples(np.random.RandomState(14), CPR_TRAIN_IMAGES, CPR_HW,
+                        P2P_GTS)
+    print(f"phase 10 training: samples_per_gpu {spg}, optimizer "
+          f"{dict(cfg.optimizer)}, grad_clip "
+          f"{cfg.optimizer_config.get('grad_clip')}, random_remove_rate "
+          f"{rate} (drawn from the step's generator); gts per image "
+          f"{[len(s['gt_bboxes']) for s in train]}")
+    tmodel, init, train_launches = train_run(
+        card, "10", cfg, train, CPR_TRAIN_EPOCHS, NO_LAUNCHES, {},
+        require_change=False)
+    collated = collator(train[:spg])
+    tbatch = batch_to_device(collated, DEVICE)
+    tmodel.bbox_head.loss_cfg["random_remove_rate"] = 0.0
+    card_m, _ = one_step(tmodel, cfg, tbatch, seed=3)
+    tmodel.load_state_dict(init)
+    tmodel.bbox_head.loss_cfg["random_remove_rate"] = rate
+    cpu = train_model(cfg, device="cpu")
+    cpu.bbox_head.loss_cfg["random_remove_rate"] = 0.0
+    cpu_m, _ = one_step(cpu, cfg, batch_to_device(collated, "cpu"), seed=3,
+                        device="cpu")
+    del cpu
+    keys = [k for k in cpu_m if k.startswith("loss")]
+    errs = {k: abs(card_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-30)
+            for k in keys}
+    print("phase 10 one step at random_remove_rate 0, card vs CPU, rel err: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bar {LOSS_TOL})")
+    if max(errs.values()) > LOSS_TOL:
+        raise AssertionError(f"card vs CPU: {card_m} vs {cpu_m}")
+    _, train_profile = time_step(card, "10", "cpr_train", cfg, tmodel, tbatch,
+                                 held, spg)
+
+    def profiles():
+        device_profile(card, refine, "cpr_refine", PROFILE_CALLS,
+                       f"warm refine_test calls of {CPR_IMAGES} images")
+        train_profile()
+    return refine_launches, train_launches, profiles
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2403,6 +2933,9 @@ def main():
     retina_train_launches, retina_train_profile = phase_retina_train(card)
     (mask_train_launches, mask_train_k1, mask_train_fwd, mask_train_bwd,
      mask_train_profile) = phase_mask_train(card)
+    p2p_launches, p2p, p2p_k1 = phase_p2p(card, frames)
+    p2p_train_launches, p2p_train_profile = phase_p2p_train(card)
+    cpr_launches, cpr_train_launches, cpr_profiles = phase_cpr(card)
     # the profiles last: once torch.profiler has traced the card, later
     # launches of the process can cost more host time (phase 6 times the
     # train step before and after them)
@@ -2413,8 +2946,12 @@ def main():
     bwd_device_times()
     retina_train_profile()
     mask_train_profile()
+    phase_profile(card, p2p, frames, "p2p")
+    p2p_train_profile()
+    cpr_profiles()
     for k in ("iou_bitmask", "greedy_reduce"):
         records[k]["by_shape"].append(mask_train_k1[k])
+        records[k]["by_shape"] += [row[k] for row in p2p_k1]
     records["roi_align"] = dict(
         slice_record, by_shape=roi_shapes + [slice_record] + mask_records
         + [train_fwd] + mask_train_fwd)
@@ -2425,7 +2962,9 @@ def main():
                "faster_rcnn": frcnn_launches, "mask_rcnn": mask_launches,
                "faster_rcnn_train": train_launches,
                "adap_retinanet_c_train": retina_train_launches,
-               "mask_rcnn_train": mask_train_launches}
+               "mask_rcnn_train": mask_train_launches,
+               "p2p": p2p_launches, "p2p_train": p2p_train_launches,
+               "cpr_refine": cpr_launches, "cpr_train": cpr_train_launches}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],

@@ -1,10 +1,12 @@
-"""Multi-level anchor grids (mmdet v2 AnchorGenerator semantics).
+"""Multi-level anchor grids (mmdet v2 AnchorGenerator semantics) and point
+grids (mmdet PointGenerator).
 
-Counterpart of pointtinybenchmark_tpu/core/anchors.py::AnchorGenerator, in
-numpy on the host: base anchors centred at (0, 0) (`center_offset=0`), w/h
-from base_size * scale * sqrt-ratio, octave scales
-`octave_base_scale * 2 ** (i / scales_per_octave)`, and per-level grids in
-(H, W, A) order. The tiny-object "Adap" recipe sets octave_base_scale=2.
+Counterpart of pointtinybenchmark_tpu/core/anchors.py::AnchorGenerator and
+::PointGenerator, in numpy on the host. Anchors: base anchors centred at
+(0, 0) (`center_offset=0`), w/h from base_size * scale * sqrt-ratio,
+octave scales `octave_base_scale * 2 ** (i / scales_per_octave)`, and
+per-level grids in (H, W, A) order. The tiny-object "Adap" recipe sets
+octave_base_scale=2. Points: (x, y, stride) at the cells' corners.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["AnchorGenerator"]
+__all__ = ["AnchorGenerator", "PointGenerator"]
 
 
 class AnchorGenerator:
@@ -100,3 +102,26 @@ class AnchorGenerator:
             flags.append(np.repeat((vy[:, None] & vx[None, :]).ravel(),
                                    self.num_base_anchors[i]))
         return flags
+
+
+class PointGenerator:
+    """Grid points (x, y, stride) at cell corners, x = ix * stride, as
+    mmdet's point_generator.py."""
+
+    def grid_points(self, featmap_size: Tuple[int, int],
+                    stride: int) -> np.ndarray:
+        """(H*W, 3) float32 rows of (x, y, stride), row-major."""
+        h, w = featmap_size
+        xx, yy = np.meshgrid(np.arange(0., w, dtype=np.float32) * stride,
+                             np.arange(0., h, dtype=np.float32) * stride)
+        ss = np.full_like(xx.ravel(), float(stride))
+        return np.stack([xx.ravel(), yy.ravel(), ss], axis=-1)
+
+    def valid_flags(self, featmap_size: Tuple[int, int],
+                    valid_size: Tuple[int, int]) -> np.ndarray:
+        """(H*W,) bool: the points of the first valid_size cells."""
+        h, w = featmap_size
+        vh, vw = valid_size
+        vx = np.arange(w) < vw
+        vy = np.arange(h) < vh
+        return (vy[:, None] & vx[None, :]).ravel()

@@ -1,6 +1,8 @@
-"""MaxIoUAssigner (mmdet max_iou_assigner.py), batched, static shapes.
+"""MaxIoUAssigner (mmdet max_iou_assigner.py) and the point matcher
+HungarianAssignerV2 with its top-k auction, batched, static shapes.
 
-Counterpart of pointtinybenchmark_tpu/core/assigners.py::MaxIoUAssigner.
+Counterpart of pointtinybenchmark_tpu/core/assigners.py::MaxIoUAssigner,
+`_auction_round`, `topk_auction_match` and HungarianAssignerV2.
 The JAX assigner runs one image under vmap; this one takes a batch of
 images at once: boxes (N, 4) shared by every image (anchors) or (B, N, 4)
 per image (proposals), gts padded to (B, G, 4) with a validity mask.
@@ -15,16 +17,34 @@ low-quality matches to every box that reaches a gt's best overlap
 (gt_max_assign_all).
 
 Encoding (mmdet): -1 ignore, 0 negative, j >= 1 matched to gt j - 1.
+
+The auction (`topk_auction_match`) is the JAX package's reverse auction,
+operation for operation, so that it picks the same predictions: scipy's
+assignment breaks the ties of a top-k > 1 matching otherwise. The images
+of a batch run as one (B, G, N) problem, each with its own value range and
+eps. An image whose valid gts are all assigned makes no bid, so its
+iterations change nothing; the loop therefore reads the convergence back
+to the host only every AUCTION_CHECK_EVERY iterations and stops at the
+first check after every image has converged, or at max_iters exactly.
+`auction_stats` counts the iterations run and those host reads.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..ops.iou import bbox_overlaps
+from .match_costs import build_match_cost
 
-__all__ = ["MaxIoUAssigner"]
+__all__ = ["MaxIoUAssigner", "HungarianAssignerV2", "topk_auction_match",
+           "auction_stats"]
+
+NEG = -1e9                 # benefit of a taken or invalid pair
+BIG = 1e8                  # cost of an invalid gt column
+AUCTION_CHECK_EVERY = 8    # iterations between host reads of convergence
+auction_stats: Dict[str, int] = {"rounds": 0, "iterations": 0, "syncs": 0}
 
 
 class MaxIoUAssigner:
@@ -97,3 +117,123 @@ class MaxIoUAssigner:
         else:
             labels = torch.full_like(assigned, -1)
         return assigned, max_overlaps, labels
+
+
+def _auction_round(benefit: torch.Tensor, eps: float,
+                   max_iters: int) -> torch.Tensor:
+    """One one-to-one assignment of every valid gt to a distinct pred, per
+    image (JAX `_auction_round`). benefit (B, G, N) float32, NEG where a
+    pair is not allowed. Returns owner (B, N) int32, gt index + 1 (0 =
+    unowned)."""
+    b, g, n = benefit.shape
+    dev = benefit.device
+    f32 = torch.float32
+    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    valid = benefit > NEG
+    row_valid = valid.any(2)                                   # (B, G)
+    vmax = torch.where(valid, benefit, -inf).amax((1, 2))
+    vmin = torch.where(valid, benefit, inf).amin((1, 2))
+    value_range = vmax - vmin
+    value_range = torch.where(torch.isfinite(value_range), value_range, 0.0)
+    eps_eff = torch.maximum(
+        value_range * torch.tensor(np.float32(5e-3 / max(g, 1)), device=dev),
+        torch.tensor(np.float32(eps), device=dev))[:, None]    # (B, 1)
+    gt_index = torch.arange(g, device=dev).expand(b, g)
+    price = torch.zeros((b, n), dtype=f32, device=dev)
+    owner = torch.zeros((b, n), dtype=torch.int32, device=dev)
+    assigned = torch.zeros((b, g), dtype=torch.bool, device=dev)
+    it = 0
+    while it < max_iters:
+        if it % AUCTION_CHECK_EVERY == 0:
+            auction_stats["syncs"] += 1
+            if not bool((~assigned & row_valid).any()):
+                break
+        value = benefit - price[:, None, :]                    # (B, G, N)
+        best_idx = value.argmax(2)                   # the first max
+        best_val = value.gather(2, best_idx[..., None])[..., 0]
+        # the max over all but the argmax: the second of the two largest
+        second_val = (value.topk(2, dim=2).values[..., 1] if n > 1
+                      else torch.full_like(best_val, -float("inf")))
+        bid = best_val - second_val + eps_eff
+        bidding = ~assigned & (best_val > NEG)
+        bid_amount = torch.where(bidding, bid, -inf)           # (B, G)
+        # each pred takes its highest bid, ties to the lowest gt index
+        win_bid = torch.full((b, n), -float("inf"), dtype=f32, device=dev)
+        win_bid.scatter_reduce_(1, best_idx, bid_amount, "amax")
+        top = bid_amount == win_bid.gather(1, best_idx)
+        win_gt = torch.full((b, n), g, dtype=torch.int64, device=dev)
+        win_gt.scatter_reduce_(1, best_idx, torch.where(top, gt_index, g),
+                               "amin")
+        has_bid = win_bid > -inf
+        owner = torch.where(has_bid, (win_gt + 1).to(torch.int32), owner)
+        price = torch.where(has_bid, price + win_bid, price)
+        counts = torch.zeros((b, g + 1), dtype=torch.int32, device=dev)
+        counts.scatter_add_(1, owner.long(), torch.ones_like(owner))
+        assigned = counts[:, 1:] > 0
+        it += 1
+    auction_stats["iterations"] += it
+    # greedy completion (only after the iteration cap): each valid gt left
+    # unmatched, in gt order, takes its best still-free valid pred
+    auction_stats["syncs"] += 1
+    pending = (~assigned & row_valid).nonzero().tolist()
+    for bi, gi in pending:
+        free = (owner[bi] == 0) & valid[bi, gi]
+        if bool(free.any()):
+            best = torch.where(free, benefit[bi, gi], -inf).argmax()
+            owner[bi, best] = gi + 1
+    return owner
+
+
+def topk_auction_match(cost: torch.Tensor, gt_valid: torch.Tensor,
+                       topk_k: int, eps: float = 1e-4,
+                       max_iters: int = 20000) -> torch.Tensor:
+    """Batched top-k assignment (JAX `topk_auction_match`): `topk_k`
+    rounds, each matching every valid gt to one more distinct prediction.
+    cost (B, N, G), gt_valid (B, G) bool. Returns assigned (B, N) int32, 0
+    background, j + 1 matched to gt j."""
+    b, n, g = cost.shape
+    gv = gt_valid[:, :, None]
+    benefit0 = torch.where(gv, -cost.float().transpose(1, 2), NEG)
+    assigned = torch.zeros((b, n), dtype=torch.int32, device=cost.device)
+    taken = torch.zeros((b, n), dtype=torch.bool, device=cost.device)
+    for _ in range(topk_k):
+        benefit = torch.where(taken[:, None, :], NEG, benefit0)
+        benefit = torch.where(gv, benefit, NEG)
+        owner = _auction_round(benefit, eps, max_iters)
+        auction_stats["rounds"] += 1
+        newly = (owner > 0) & ~taken
+        assigned = torch.where(newly, owner, assigned)
+        taken = taken | newly
+    return assigned
+
+
+class HungarianAssignerV2:
+    """The fork's one-to-many point matcher (JAX HungarianAssignerV2): the
+    cost is the sum of the classification costs and the point costs, and
+    an invalid gt column costs BIG. `topk_k` rounds of the auction."""
+
+    def __init__(self, cls_costs: Union[dict, Sequence[dict], None] = None,
+                 reg_costs: Union[dict, Sequence[dict], None] = None,
+                 topk_k: int = 1):
+        if cls_costs is None or reg_costs is None:
+            raise NotImplementedError(
+                "the default costs (ClassificationCost, BBoxL1Cost, "
+                "IoUCost) are not ported: give cls_costs and reg_costs")
+        cls_costs = (cls_costs if isinstance(cls_costs, (list, tuple))
+                     else [cls_costs])
+        reg_costs = (reg_costs if isinstance(reg_costs, (list, tuple))
+                     else [reg_costs])
+        self.cls_costs = [build_match_cost(c) for c in cls_costs]
+        self.reg_costs = [build_match_cost(c) for c in reg_costs]
+        self.topk_k = topk_k
+
+    def cost_matrix(self, bbox_pred: torch.Tensor, cls_pred: torch.Tensor,
+                    gt_bboxes: torch.Tensor, gt_labels: torch.Tensor,
+                    img_shape: torch.Tensor,
+                    gt_valid: torch.Tensor) -> torch.Tensor:
+        """bbox_pred (B, N, 2k), cls_pred (B, N, C), gt_bboxes (B, G, 2k),
+        gt_labels and gt_valid (B, G), img_shape (B, 2) -> (B, N, G)."""
+        cost = (sum(c(cls_pred, gt_labels) for c in self.cls_costs)
+                + sum(c(bbox_pred, gt_bboxes, img_shape)
+                      for c in self.reg_costs))
+        return torch.where(gt_valid[:, None, :], cost, BIG)

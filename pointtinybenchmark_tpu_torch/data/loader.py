@@ -8,7 +8,10 @@ float image is padded at the bottom and right to the batch's shape,
 factor (from `img_metas`, [1, 1, 1, 1] when absent) and the metas. For
 training, the gt boxes are padded to `max_gt` rows (`gt_bboxes`,
 `gt_valid`, `gt_labels`), the ignore regions to `max_gt_ignore`
-(`gt_bboxes_ignore`, `gt_ignore_valid`) and the gt bitmaps, each sample's
+(`gt_bboxes_ignore`, `gt_ignore_valid`), the point workflow's true boxes
+to `max_gt` rows (`gt_true_bboxes`) and its annotation ids to (B, max_gt)
+int64, -1 in the empty rows (`gt_anns_id`), and the gt bitmaps, each
+sample's
 (n, H, W) uint8 `gt_masks`, to (B, max_gt, H_pad, W_pad) uint8 with zeros
 at the bottom and right and in the empty rows. Host numpy in, host numpy
 out; the engines move the arrays to the model's device. The loader runs on
@@ -83,6 +86,15 @@ class DetCollator:
             batch["gt_bboxes_ignore"], batch["gt_ignore_valid"] = \
                 self._pad_boxes([s["gt_bboxes_ignore"] for s in samples],
                                 self.max_gt_ignore)
+        if "gt_true_bboxes" in samples[0]:
+            batch["gt_true_bboxes"], _ = self._pad_boxes(
+                [s["gt_true_bboxes"] for s in samples], self.max_gt)
+        if "gt_anns_id" in samples[0]:
+            ids = np.full((len(samples), self.max_gt), -1, np.int64)
+            for i, s in enumerate(samples):
+                n = min(len(s["gt_anns_id"]), self.max_gt)
+                ids[i, :n] = np.asarray(s["gt_anns_id"])[:n]
+            batch["gt_anns_id"] = ids
         if "gt_masks" in samples[0]:
             gm = np.zeros((len(samples), self.max_gt, th, tw), np.uint8)
             for i, s in enumerate(samples):

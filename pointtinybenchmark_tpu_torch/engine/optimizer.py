@@ -1,7 +1,8 @@
 """Optimizer and learning-rate schedule from mmdet-style configs.
 
 Counterpart of pointtinybenchmark_tpu/engine/optimizer.py
-(`build_lr_schedule`, `build_optimizer` for SGD, `frozen_param_mask`). The
+(`build_lr_schedule`, `build_optimizer` for SGD and Adam,
+`frozen_param_mask`). The
 JAX optimizer is an optax chain, and `SGD` here applies the same steps in
 the same order, so that a run can be held against it:
 
@@ -21,7 +22,9 @@ computed and count in the clipping norm, as in the JAX package (mmcv would
 clip only the parameters that require grad). Everything runs on the
 parameters' device with no host sync: `step(ok)` takes a 0-d bool tensor
 and, where it is False, leaves parameters, traces and the count as they
-were. `paramwise_cfg`, Nesterov momentum and Adam are not ported.
+were. `Adam` is optax.adam in the same chain (its class note).
+`paramwise_cfg`, Nesterov momentum, AdamW and Adam's weight decay are not
+ported.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 from torch import nn
 
 __all__ = ["build_lr_schedule", "build_optimizer", "frozen_param_names",
-           "SGD"]
+           "SGD", "Adam"]
 
 
 def build_lr_schedule(base_lr: float, lr_config: Optional[dict],
@@ -94,7 +97,50 @@ def frozen_param_names(model: nn.Module, frozen_stages: int) -> List[str]:
             if any(n.startswith(p) for p in prefixes)]
 
 
-class SGD:
+class _ClippedOptimizer:
+    """What SGD and Adam share: the parameters by name, the frozen ones,
+    the schedule, the update count, and optax's global-norm clipping."""
+
+    def __init__(self, params: Sequence[Tuple[str, nn.Parameter]],
+                 schedule: Callable[[torch.Tensor], torch.Tensor],
+                 max_norm: Optional[float], frozen: Sequence[str]):
+        self.names = [n for n, _ in params]
+        self.params = [p for _, p in params]
+        frozen = set(frozen)
+        unknown = frozen - set(self.names)
+        if unknown:
+            raise KeyError(f"frozen names not among the parameters: "
+                           f"{sorted(unknown)[:4]}")
+        self.is_frozen = [n in frozen for n, _ in params]
+        self.trainable = [p for n, p in params if n not in frozen]
+        self.schedule = schedule
+        self.max_norm = max_norm
+        dev = self.params[0].device
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+
+    @staticmethod
+    def _grads(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in params]
+
+    def _clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """optax.clip_by_global_norm over every parameter's gradient,
+        frozen ones included: g, or (g / norm) * max_norm above max_norm."""
+        if self.max_norm is None:
+            return grads
+        norms = torch._foreach_norm(self._grads(self.params))
+        norm = torch.stack(norms).square().sum().sqrt()
+        under = norm < self.max_norm
+        grads = torch._foreach_div(grads, torch.where(under, 1.0, norm))
+        return torch._foreach_mul(grads, torch.where(
+            under, 1.0, torch.full_like(norm, self.max_norm)))
+
+    def lr(self) -> torch.Tensor:
+        """The learning rate of the next update."""
+        return self.schedule(self.count)
+
+
+class SGD(_ClippedOptimizer):
     """SGD with momentum and weight decay in optax's order (see the module
     note). `params` are (name, parameter) pairs; the gradients are read from
     each parameter's `.grad` (None counts as zero) and left untouched."""
@@ -104,26 +150,10 @@ class SGD:
                  momentum: float = 0.0, weight_decay: float = 0.0,
                  max_norm: Optional[float] = None,
                  frozen: Sequence[str] = ()):
-        self.names = [n for n, _ in params]
-        self.params = [p for _, p in params]
-        frozen = set(frozen)
-        unknown = frozen - set(self.names)
-        if unknown:
-            raise KeyError(f"frozen names not among the parameters: "
-                           f"{sorted(unknown)[:4]}")
-        self.trainable = [p for n, p in params if n not in frozen]
-        self.schedule = schedule
+        super().__init__(params, schedule, max_norm, frozen)
         self.momentum = momentum
         self.weight_decay = weight_decay
-        self.max_norm = max_norm
-        dev = self.params[0].device
-        self.count = torch.zeros((), dtype=torch.int64, device=dev)
         self.trace = [torch.zeros_like(p) for p in self.trainable]
-
-    @staticmethod
-    def _grads(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        return [p.grad if p.grad is not None else torch.zeros_like(p)
-                for p in params]
 
     @torch.no_grad()
     def step(self, ok: torch.Tensor) -> None:
@@ -132,12 +162,9 @@ class SGD:
         params = self.trainable
         grads = self._grads(params)
         if self.max_norm is not None:
-            norms = torch._foreach_norm(self._grads(self.params))
-            norm = torch.stack(norms).square().sum().sqrt()
-            under = norm < self.max_norm
-            grads = torch._foreach_div(grads, torch.where(under, 1.0, norm))
-            grads = torch._foreach_mul(grads, torch.where(
-                under, 1.0, torch.full_like(norm, self.max_norm)))
+            # the trainable parameters' gradients, scaled by the norm of all
+            clipped = self._clip(self._grads(self.params))
+            grads = [g for g, f in zip(clipped, self.is_frozen) if not f]
         if self.weight_decay:
             grads = torch._foreach_add(grads, torch._foreach_mul(
                 params, self.weight_decay))
@@ -149,10 +176,6 @@ class SGD:
             torch.where(ok, q, p, out=p)     # in place, one kernel each
             torch.where(ok, u, t, out=t)
         self.count += ok.to(torch.int64)
-
-    def lr(self) -> torch.Tensor:
-        """The learning rate of the next update."""
-        return self.schedule(self.count)
 
     def state_dict(self) -> Dict[str, object]:
         return {"count": self.count.clone(),
@@ -167,26 +190,96 @@ class SGD:
             t.copy_(s)
 
 
+class Adam(_ClippedOptimizer):
+    """optax.adam(schedule) in the JAX package's chain (see the module
+    note): after the clipping, mu = (1 - b1) g + b1 mu and
+    nu = (1 - b2) g g + b2 nu for every parameter, frozen ones included
+    (optax.masked zeroes their updates after the chain, so their moments
+    still accumulate); with t = count + 1, the update
+    (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) times -lr(count);
+    frozen parameters are not updated. Where `ok` is False, parameters,
+    moments and the count keep their values."""
+
+    def __init__(self, params: Sequence[Tuple[str, nn.Parameter]],
+                 schedule: Callable[[torch.Tensor], torch.Tensor],
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 max_norm: Optional[float] = None,
+                 frozen: Sequence[str] = ()):
+        super().__init__(params, schedule, max_norm, frozen)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, ok: torch.Tensor) -> None:
+        grads = self._clip(self._grads(self.params))
+        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - self.b1),
+                                torch._foreach_mul(self.mu, self.b1))
+        sq = torch._foreach_mul(grads, grads)
+        nu = torch._foreach_add(torch._foreach_mul(sq, 1 - self.b2),
+                                torch._foreach_mul(self.nu, self.b2))
+        t = (self.count + 1).to(torch.float32)
+        one = torch.ones((), dtype=torch.float32, device=t.device)
+        c1 = 1 - torch.pow(one * self.b1, t)
+        c2 = 1 - torch.pow(one * self.b2, t)
+        mu_hat = torch._foreach_div(mu, c1)
+        nu_hat = torch._foreach_div(nu, c2)
+        denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps)
+        upd = torch._foreach_mul(torch._foreach_div(mu_hat, denom),
+                                 -self.schedule(self.count))
+        for p, q, f in zip(self.params, upd, self.is_frozen):
+            if not f:
+                torch.where(ok, p + q, p, out=p)
+        for old, new in zip(self.mu + self.nu, mu + nu):
+            torch.where(ok, new, old, out=old)
+        self.count += ok.to(torch.int64)
+
+    def state_dict(self) -> Dict[str, object]:
+        return {"count": self.count.clone(),
+                "mu": [m.clone() for m in self.mu],
+                "nu": [v.clone() for v in self.nu]}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        if len(state["mu"]) != len(self.mu):
+            raise ValueError(f"{len(state['mu'])} moments for "
+                             f"{len(self.mu)} parameters")
+        self.count.copy_(state["count"])
+        for t, s in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+            t.copy_(s)
+
+
 def build_optimizer(model: nn.Module, optimizer_cfg: dict,
                     optimizer_config: Optional[dict] = None,
                     lr_config: Optional[dict] = None,
                     iters_per_epoch: int = 1, max_epochs: int = 12,
-                    frozen_stages: int = -1, by_epoch: bool = True) -> SGD:
+                    frozen_stages: int = -1, by_epoch: bool = True
+                    ) -> Union[SGD, Adam]:
     """The optimizer of a config (`optimizer`, `optimizer_config.grad_clip`,
     `lr_config`) over the model's parameters, the first `frozen_stages`
     stages frozen."""
     cfg = dict(optimizer_cfg)
     kind = cfg.pop("type", "SGD")
-    if kind != "SGD":
-        raise NotImplementedError(f"optimizer {kind} is not ported (SGD is)")
     if cfg.get("paramwise_cfg") or cfg.get("nesterov"):
         raise NotImplementedError("paramwise_cfg and nesterov are not ported")
     base_lr = float(cfg.pop("lr"))
     grad_clip = (optimizer_config or {}).get("grad_clip")
-    return SGD(list(model.named_parameters()),
-               build_lr_schedule(base_lr, lr_config, iters_per_epoch,
-                                 max_epochs, by_epoch),
-               momentum=float(cfg.get("momentum", 0.0)),
-               weight_decay=float(cfg.get("weight_decay", 0.0)),
-               max_norm=float(grad_clip["max_norm"]) if grad_clip else None,
-               frozen=frozen_param_names(model, frozen_stages))
+    schedule = build_lr_schedule(base_lr, lr_config, iters_per_epoch,
+                                 max_epochs, by_epoch)
+    max_norm = float(grad_clip["max_norm"]) if grad_clip else None
+    frozen = frozen_param_names(model, frozen_stages)
+    if kind == "SGD":
+        return SGD(list(model.named_parameters()), schedule,
+                   momentum=float(cfg.get("momentum", 0.0)),
+                   weight_decay=float(cfg.get("weight_decay", 0.0)),
+                   max_norm=max_norm, frozen=frozen)
+    if kind == "Adam":
+        # the JAX package builds optax.adam(schedule) with its defaults and
+        # AdamW when there is weight decay
+        unported = sorted(set(cfg) - {"weight_decay"})
+        if float(cfg.get("weight_decay", 0.0)) or unported:
+            raise NotImplementedError(
+                f"Adam with {unported or 'weight_decay'} is not ported")
+        return Adam(list(model.named_parameters()), schedule,
+                    max_norm=max_norm, frozen=frozen)
+    raise NotImplementedError(f"optimizer {kind} is not ported "
+                              f"(SGD and Adam are)")

@@ -1,7 +1,7 @@
 """Inference engines: the plain test loop and tiled protocol inference.
 
 Counterpart of pointtinybenchmark_tpu/engine/test.py (`run_test`,
-`DeviceTiledInference`, `run_device_tiled_test`).
+`DeviceTiledInference`, `run_device_tiled_test`, `run_refine_test`).
 
 - `run_test`: collated batches of preprocessed images through
   `simple_test`, boxes rescaled to each original image; a Mask R-CNN's
@@ -15,6 +15,9 @@ Counterpart of pointtinybenchmark_tpu/engine/test.py (`run_test`,
   kernels takes the frames). Mask probabilities, where the model makes
   them, are dropped there, as the JAX engine drops them: there is no tiled
   mask merge.
+- `run_refine_test`: CPR's inference, the refinement of each image's
+  annotated points; one row per valid gt, joinable back to the
+  annotations by the JAX package's tools/result2ann.py.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from ..data.device_pipeline import DevicePreprocessor
 from ..evaluation.mask_utils import paste_masks, rle_encode
 from ..ops.nms import batched_nms
 
-__all__ = ["run_test", "DeviceTiledInference", "run_device_tiled_test"]
+__all__ = ["run_test", "DeviceTiledInference", "run_device_tiled_test",
+           "run_refine_test"]
 
 logger = logging.getLogger("ptb_torch")
 
@@ -90,6 +94,50 @@ def run_test(model, dataset, collator, batch_size: int = 1,
                 ori))
         if (start // batch_size) % 50 == 0:
             logger.info("test %d/%d", start + len(flat), n)
+    return results
+
+
+@torch.no_grad()
+def run_refine_test(model, dataset, collator, batch_size: int = 1,
+                    pseudo_wh=(16, 16), rescale: bool = True) -> List[dict]:
+    """CPR annotation refinement over `dataset` (samples with img,
+    gt_bboxes, gt_labels and optionally gt_anns_id and img_metas, or whose
+    `views[0]` is one), batched by `collator` onto the model's device
+    through `refine_test`. Per image and valid gt: bboxes (n, 5), the
+    pseudo box and score; labels (n,); points (n, 3), the refined point and
+    score; with `rescale` in the original image's frame; and anns_id (n,)
+    where the samples carry gt_anns_id."""
+    device = next(model.parameters()).device
+    results: List[dict] = []
+    n = len(dataset)
+    for start in range(0, n, batch_size):
+        samples = []
+        for i in range(start, min(start + batch_size, n)):
+            s = dataset[i]
+            samples.append(s["views"][0] if "views" in s else s)
+        batch = collator(samples)
+        t = {k: torch.from_numpy(batch[k]).to(device)
+             for k in ("img", "gt_bboxes", "gt_labels", "gt_valid",
+                       "img_shape")}
+        pts, scores, boxes, _ = (x.cpu().numpy() for x in model.refine_test(
+            t["img"], t, pseudo_wh))
+        valid, labels = batch["gt_valid"], batch["gt_labels"]
+        for bi in range(len(samples)):
+            keep = valid[bi]
+            sf = batch["scale_factor"][bi]
+            bb, pp = boxes[bi][keep], pts[bi][keep]
+            if rescale:
+                bb = bb / sf
+                pp = pp / sf[:2]
+            sc = scores[bi][keep][:, None]
+            res = dict(bboxes=np.concatenate([bb, sc], 1),
+                       labels=labels[bi][keep],
+                       points=np.concatenate([pp, sc], 1))
+            if "gt_anns_id" in batch:
+                res["anns_id"] = batch["gt_anns_id"][bi][keep]
+            results.append(res)
+        if (start // batch_size) % 50 == 0:
+            logger.info("refine test %d/%d", start + len(samples), n)
     return results
 
 

@@ -37,7 +37,7 @@ from ..data.loader import DataLoader, DetCollator
 from ..utils.jax_weights import load_jax_variables
 from .checkpoint import (is_jax_checkpoint, load_checkpoint,
                          load_jax_checkpoint, save_checkpoint)
-from .optimizer import SGD, build_optimizer
+from .optimizer import SGD, Adam, build_optimizer
 
 __all__ = ["make_train_step", "init_train_state", "train_detector",
            "batch_to_device", "BATCH_KEYS"]
@@ -45,7 +45,8 @@ __all__ = ["make_train_step", "init_train_state", "train_detector",
 logger = logging.getLogger("ptb_torch")
 
 BATCH_KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape",
-              "gt_bboxes_ignore", "gt_ignore_valid", "gt_masks")
+              "gt_bboxes_ignore", "gt_ignore_valid", "gt_true_bboxes",
+              "gt_anns_id", "gt_masks")
 
 
 def init_train_state(device: Union[str, torch.device]
@@ -71,7 +72,8 @@ def batch_to_device(batch: Dict[str, Any],
     return out
 
 
-def make_train_step(model: nn.Module, optimizer: SGD) -> Callable:
+def make_train_step(model: nn.Module,
+                    optimizer: Union[SGD, Adam]) -> Callable:
     """The step: (state, batch, generator) -> metrics. `batch` holds the
     tensors of BATCH_KEYS on the model's device, `generator` (on that
     device) draws the samplers' priorities, `state` is `init_train_state`'s

@@ -1,1 +1,1 @@
-"""Host-side result encoding (mask paste and COCO RLE)."""
+"""Host-side result encoding (mask paste and COCO RLE) and point AP."""

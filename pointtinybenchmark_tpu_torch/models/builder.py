@@ -5,7 +5,9 @@ types only. A dict maps each `type` to its class. A config key that a
 class does not take raises `NotImplementedError`: the JAX builder drops
 such keys silently, and a dropped structural key (`dcn`, `stage_with_dcn`)
 would build another network than JAX's. The training keys
-(`frozen_stages`, the heads' losses, `train_cfg`) are taken.
+(`frozen_stages`, the heads' losses, `train_cfg`) are taken. The one
+exception is the FPN's `norm_cfg`, which the point configs set: the port's
+FPN takes it and, as the JAX package, builds no norm (see necks/fpn.py).
 """
 from __future__ import annotations
 
@@ -17,9 +19,11 @@ from torch import nn
 
 from .backbones.resnet import ResNet
 from .dense_heads.anchor_head import AnchorHead
+from .dense_heads.cpr_head import CascadeCPRHead, CPRHead
+from .dense_heads.p2p_head import P2PHead
 from .dense_heads.retina_head import RetinaHead
 from .dense_heads.rpn_head import RPNHead
-from .detectors.single_stage import SingleStageDetector
+from .detectors.single_stage import BasicLocator, SingleStageDetector
 from .detectors.two_stage import MaskRCNN, TwoStageDetector
 from .necks.fpn import FPN
 from .roi_heads.bbox_head import Shared2FCBBoxHead
@@ -37,8 +41,13 @@ MODULES = {
     "StandardRoIHead": StandardRoIHead,
     "Shared2FCBBoxHead": Shared2FCBBoxHead,
     "FCNMaskHead": FCNMaskHead,
+    "P2PHead": P2PHead,
+    "CPRHead": CPRHead,
+    "CascadeCPRHead": CascadeCPRHead,
 }
-SINGLE_STAGE = ("SingleStageDetector", "RetinaNet")
+SINGLE_STAGE = {"SingleStageDetector": SingleStageDetector,
+                "RetinaNet": SingleStageDetector,
+                "BasicLocator": BasicLocator}
 TWO_STAGE = {"TwoStageDetector": TwoStageDetector,
              "FasterRCNN": TwoStageDetector, "MaskRCNN": MaskRCNN}
 
@@ -83,8 +92,8 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
         head_cfg = dict(cfg["bbox_head"])
         head_cfg.setdefault("train_cfg", train_cfg)
         head_cfg.setdefault("test_cfg", test_cfg)
-        model = SingleStageDetector(backbone=backbone, neck=neck,
-                                    bbox_head=build_module(head_cfg))
+        model = SINGLE_STAGE[kind](backbone=backbone, neck=neck,
+                                   bbox_head=build_module(head_cfg))
     elif kind in TWO_STAGE:
         rpn_cfg = dict(cfg["rpn_head"])
         rpn_cfg.setdefault("train_cfg", (train_cfg or {}).get("rpn"))

@@ -2,7 +2,8 @@
 
 Counterpart of pointtinybenchmark_tpu/models/losses/utils.py::
 weight_reduce_loss: an elementwise weight, then the mean, sum or nothing;
-with `avg_factor` the mean is the sum over max(avg_factor, 1e-12).
+with `avg_factor` the mean is the sum over max(avg_factor, 1e-12); and
+`accuracy`, top-1 in percent over the rows a mask keeps.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["reduce_loss", "weight_reduce_loss"]
+__all__ = ["reduce_loss", "weight_reduce_loss", "accuracy"]
 
 
 def reduce_loss(loss: torch.Tensor, reduction: str) -> torch.Tensor:
@@ -38,3 +39,14 @@ def weight_reduce_loss(loss: torch.Tensor,
     if reduction == "none":
         return loss
     raise ValueError("avg_factor can not be used with reduction='sum'")
+
+
+def accuracy(pred: torch.Tensor, target: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Top-1 accuracy in percent: pred (N, C) scores, target (N,) labels;
+    with `mask` (N,) over the rows it keeps (0 when it keeps none)."""
+    correct = (pred.argmax(-1) == target).to(torch.float32)
+    if mask is not None:
+        m = mask.to(torch.float32)
+        return (correct * m).sum() / m.sum().clamp(min=1.0) * 100.0
+    return correct.mean() * 100.0

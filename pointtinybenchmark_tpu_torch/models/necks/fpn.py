@@ -8,10 +8,15 @@ extra level is the last output subsampled by 2 (a 1x1 max-pool of stride
 2, the RPN configs' form); with "on_input" (or True) it is a stride-2 conv
 on the last input (the RetinaNet configs' form). Module names follow mmdet:
 the extra convs sit in `fpn_convs` after the per-lateral output convs.
+
+`norm_cfg` is taken and builds no norm layer: the JAX FPN has no such
+field and its builder drops the key, so the point configs' FPN
+(`norm_cfg=GN`) runs without a norm in the JAX package, and so here, to
+stay the same network (mmdet's FPN would put GN after each conv).
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -28,8 +33,10 @@ class FPN(nn.Module):
                  out_channels: int = 256, num_outs: int = 5,
                  start_level: int = 0, end_level: int = -1,
                  add_extra_convs: Union[bool, str] = False,
-                 relu_before_extra_convs: bool = False):
+                 relu_before_extra_convs: bool = False,
+                 norm_cfg: Optional[dict] = None):
         super().__init__()
+        del norm_cfg        # no norm, as the JAX FPN (see the module note)
         self.in_channels = list(in_channels)
         self.num_outs = num_outs
         self.start_level = start_level

@@ -37,20 +37,30 @@ def xavier_init(m: nn.Conv2d, generator: torch.Generator) -> None:
 
 
 class ConvModule(nn.Module):
-    """conv -> (relu), NCHW; mmcv ConvModule names (`.conv`). Counterpart of
-    pointtinybenchmark_tpu/models/utils.py::ConvModule without a norm layer,
-    the only form the ported models use."""
+    """conv -> (GroupNorm) -> (relu), NCHW; mmcv ConvModule names (`.conv`,
+    `.gn`). Counterpart of pointtinybenchmark_tpu/models/utils.py::
+    ConvModule without a norm or with GN: GroupNorm of `num_groups` groups,
+    eps 1e-5, with an affine scale and bias; the conv has a bias only
+    without a norm, as in the JAX module. BN, which no ported head uses,
+    is not ported."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
-                 norm: Optional[str] = None, act: bool = True):
+                 norm: Optional[str] = None, num_groups: int = 32,
+                 act: bool = True):
         super().__init__()
-        if norm is not None:
-            raise NotImplementedError(f"ConvModule norm={norm!r} is not ported")
+        if norm not in (None, "GN"):
+            raise NotImplementedError(
+                f"ConvModule norm={norm!r} is not ported")
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              stride=stride, padding=padding, bias=True)
+                              stride=stride, padding=padding,
+                              bias=norm is None)
+        self.gn = (nn.GroupNorm(num_groups, out_channels, eps=1e-5)
+                   if norm == "GN" else None)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
+        if self.gn is not None:
+            x = self.gn(x)
         return torch.relu(x) if self.act else x

@@ -6,7 +6,10 @@ mmdet's (`backbone_m/layer1_block0/Conv_0` -> `backbone.layer1.0.conv1`,
 the downsample in the block's last Conv_/BatchNorm_ slot (3 in a
 bottleneck, 2 in a basic block) -> `downsample.0/1`;
 `neck_m/extra_conv{k}` -> `neck.fpn_convs.{n_lateral+k}`;
-`bbox_head_m/cls_conv{i}/Conv_0` -> `bbox_head.cls_convs.{i}.conv`;
+`bbox_head_m/cls_conv{i}/Conv_0` -> `bbox_head.cls_convs.{i}.conv` and its
+`GroupNorm_0` (scale, bias) -> `bbox_head.cls_convs.{i}.gn` (weight, bias),
+likewise `reg_conv{i}`; the point heads' `cls_out`, `reg_out` (P2P's
+convolutions) and `ins_out` (CPR's dense layers) keep their names;
 `rpn_head_m/rpn_conv` -> `rpn_head.rpn_conv`; `roi_head_m/bbox_head_m/
 shared_fc{i}` -> `roi_head.bbox_head.shared_fcs.{i}`; `roi_head_m/
 mask_head_m/conv{i}` -> `roi_head.mask_head.convs.{i}.conv`, `upsample` and
@@ -82,8 +85,19 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int,
         if leaf == "kernel":
             return f"backbone.{mod}.weight"
         return f"backbone.{mod}.{_BN[leaf]}" if leaf in _BN else None
-    name = {"kernel": "weight", "bias": "bias"}.get(leaf)
+    name = {"kernel": "weight", "bias": "bias", "scale": "weight"}.get(leaf)
     if name is None:
+        return None
+    if top == "bbox_head_m" and len(scope) == 2 and \
+            scope[1] in ("Conv_0", "GroupNorm_0"):
+        m = re.fullmatch(r"(cls|reg)_conv(\d+)", scope[0])
+        leaves = ("kernel", "bias") if scope[1] == "Conv_0" else ("scale",
+                                                                   "bias")
+        if m is None or leaf not in leaves:
+            return None
+        mod = "conv" if scope[1] == "Conv_0" else "gn"
+        return f"bbox_head.{m[1]}_convs.{m[2]}.{mod}.{name}"
+    if leaf == "scale":
         return None
     if top == "neck_m" and len(scope) == 1:
         m = re.fullmatch(r"(lateral|fpn|extra)_conv(\d+)", scope[0])
@@ -107,14 +121,10 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int,
             return None
         mod = f"shared_fcs.{m[1]}" if m[1] is not None else scope[1]
         return f"roi_head.bbox_head.{mod}.{name}"
-    if top == "bbox_head_m":
-        if len(scope) == 2 and scope[1] == "Conv_0":
-            m = re.fullmatch(r"(cls|reg)_conv(\d+)", scope[0])
-            return None if m is None else \
-                f"bbox_head.{m[1]}_convs.{m[2]}.conv.{name}"
-        if len(scope) == 1 and scope[0] in ("retina_cls", "retina_reg",
-                                            "conv_cls", "conv_reg"):
-            return f"bbox_head.{scope[0]}.{name}"
+    if top == "bbox_head_m" and len(scope) == 1 and scope[0] in (
+            "retina_cls", "retina_reg", "conv_cls", "conv_reg", "cls_out",
+            "reg_out", "ins_out"):
+        return f"bbox_head.{scope[0]}.{name}"
     return None
 
 

@@ -19,8 +19,9 @@ from chip_smoke import (CONFIG, GRAD_TOL, LOSS_TOL, MASK_CONFIG,
                         compare_roi_align, compare_roi_align_backward,
                         double_step, edge_rois, grad_error, one_step,
                         plain_nms,
-                        recorded, sorted_nms_inputs, synthetic_boxes,
-                        synthetic_rois, threshold_tie_boxes, train_model,
+                        recorded, sorted_nms_inputs, square_tie_boxes,
+                        synthetic_boxes, synthetic_rois, threshold_tie_boxes,
+                        train_model,
                         train_samples)
 from pointtinybenchmark_tpu_torch.data.loader import DetCollator
 from pointtinybenchmark_tpu_torch.engine.train import batch_to_device
@@ -122,8 +123,17 @@ def test_threshold_ties_at_an_80_class_offset_kernel_matches_plain(cuda, thr):
     _check_threshold_ties(cuda, thr, 79 * 641)
 
 
-def _check_threshold_ties(cuda, thr, x_offset):
-    boxes, iou = threshold_tie_boxes(thr, x_offset=x_offset)
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_offset", [0, 79 * 641])
+def test_square_threshold_ties_at_p2p_threshold_kernel_matches_plain(
+        cuda, x_offset):
+    """P2P's per-tile NMS threshold 0.01 on 16x16 pseudo boxes whose IoU is
+    0.01 or a float neighbour, with and without a class offset."""
+    _check_threshold_ties(cuda, 0.01, x_offset, square_tie_boxes)
+
+
+def _check_threshold_ties(cuda, thr, x_offset, make=threshold_tie_boxes):
+    boxes, iou = make(thr, x_offset=x_offset)
     tie = torch.from_numpy(boxes)[None].to(cuda)
     every = torch.tensor([tie.shape[1]], dtype=torch.int32, device=cuda)
     got = nms_cuda.defined_words(nms_cuda.iou_bitmask(tie, thr, every), every)
@@ -513,3 +523,43 @@ def test_retinanet_c_train_step_matches_cpu(no_tf32):
     _, got_g = double_step(cfg, collated, 0, no_tf32)
     _, want_g = double_step(cfg, collated, 0, "cpu")
     assert grad_error(got_g, want_g) <= GRAD_TOL
+
+
+# ------------------------------------------------------- the point stack
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5])
+def test_auction_on_the_card_equals_the_cpu(cuda, k):
+    """The top-k auction (P2P's matcher) on the card gives the CPU's
+    assignment on the same cost matrix, padded gts included."""
+    from pointtinybenchmark_tpu_torch.core.assigners import topk_auction_match
+    rng = np.random.RandomState(k)
+    cost = (rng.rand(2, 4000, 60) * 30).astype(np.float32)
+    valid = np.arange(60)[None] < np.asarray([60, 17])[:, None]
+    got = topk_auction_match(torch.from_numpy(cost).to(cuda),
+                             torch.from_numpy(valid).to(cuda), k)
+    want = topk_auction_match(torch.from_numpy(cost), torch.from_numpy(valid),
+                              k)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_point_sample_pixel_on_the_card_matches_the_cpu(cuda):
+    """CPR's bilinear point sampling: values, and the gradients with
+    respect to the map (index_add_ atomics on the card) and the points,
+    within 1e-6 of each one's max."""
+    from pointtinybenchmark_tpu_torch.ops.grid_sample import \
+        point_sample_pixel
+    rng = np.random.RandomState(0)
+    feat = rng.randn(2, 40, 40, 32).astype(np.float32)
+    pts = rng.uniform(-3, 43, (2, 3000, 2)).astype(np.float32)
+    wts = rng.randn(2, 3000, 32).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda):
+        f = torch.from_numpy(feat).to(dev).requires_grad_()
+        p = torch.from_numpy(pts).to(dev).requires_grad_()
+        v = point_sample_pixel(f, p)
+        (v * torch.from_numpy(wts).to(dev)).sum().backward()
+        out.append([t.detach().cpu() for t in (v, f.grad, p.grad)])
+    for want, got in zip(*out):
+        assert float((got - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())

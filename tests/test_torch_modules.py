@@ -433,9 +433,12 @@ def test_roi_head_simple_test_matches_jax(frcnn_pair):
 
 
 # ------------------------------------------------------------ the builder
+P2P_CFG = "configs/tinyperson/p2p_r50_fpns4_1x_tinyperson640.py"
+CPR_CFG = ("configs/tinypersonv2/cpr/"
+           "coarse_point_refine_r50_fpns4_1x_tinypersonv2_640.py")
 PORT_CONFIGS = (RETINA_CFG,
                 "configs/tinyperson/faster_rcnn_r50_fpn_1x_tinyperson640.py",
-                "configs/coco/mask_rcnn_r50_fpn_1x_coco.py")
+                "configs/coco/mask_rcnn_r50_fpn_1x_coco.py", P2P_CFG, CPR_CFG)
 DCN_CFG = "configs/coco/faster_rcnn_r50_fpn_dconv_c3_c5_1x_coco.py"
 
 
@@ -462,3 +465,29 @@ def test_build_module_refuses_structural_keys(key):
                 if k in ("type", "depth", key)}
     with pytest.raises(NotImplementedError, match=f"ResNet.*'{key}'"):
         build_module(backbone)
+
+
+@pytest.mark.parametrize("path,head", [(P2P_CFG, "P2PHead"),
+                                       (CPR_CFG, "CPRHead")])
+def test_point_configs_init_detector(path, head):
+    """The point configs through init_detector: a BasicLocator whose FPN
+    took `norm_cfg` (GN) and, as the JAX package's, has no norm; the
+    head's GN convs have no conv bias."""
+    from pointtinybenchmark_tpu_torch.apis.inference import init_detector
+    model = init_detector(path, device="cpu").model
+    assert type(model).__name__ == "BasicLocator"
+    assert type(model.bbox_head).__name__ == head
+    assert Config.fromfile(path).model["neck"]["norm_cfg"]["type"] == "GN"
+    assert not any(isinstance(m, torch.nn.GroupNorm)
+                   for m in model.neck.modules())
+    assert model.bbox_head.cls_convs[0].gn.num_groups == 32
+    assert model.bbox_head.cls_convs[0].conv.bias is None
+
+
+def test_fpn_refuses_other_unknown_keys():
+    """norm_cfg is the FPN's one taken-and-dropped key: any other key the
+    port's FPN does not take still raises."""
+    cfg = dict(Config.fromfile(P2P_CFG).model["neck"])
+    build_module(dict(cfg))
+    with pytest.raises(NotImplementedError, match=r"FPN.*'upsample_cfg'"):
+        build_module(dict(cfg, upsample_cfg=dict(mode="nearest")))

@@ -118,7 +118,17 @@ def test_port_imports_no_jax():
             "pointtinybenchmark_tpu_torch.core.samplers, "
             "pointtinybenchmark_tpu_torch.ops.iou, "
             "pointtinybenchmark_tpu_torch.models.losses, "
-            "pointtinybenchmark_tpu_torch.data.loader; "
+            "pointtinybenchmark_tpu_torch.data.loader, "
+            "pointtinybenchmark_tpu_torch.core.match_costs, "
+            "pointtinybenchmark_tpu_torch.core.anchors, "
+            "pointtinybenchmark_tpu_torch.models.dense_heads.p2p_head, "
+            "pointtinybenchmark_tpu_torch.models.dense_heads.cpr_head, "
+            "pointtinybenchmark_tpu_torch.models.detectors.single_stage, "
+            "pointtinybenchmark_tpu_torch.models.losses.mil_loss, "
+            "pointtinybenchmark_tpu_torch.ops.grid_sample, "
+            "pointtinybenchmark_tpu_torch.engine.test, "
+            "pointtinybenchmark_tpu_torch.evaluation.location_eval, "
+            "pointtinybenchmark_tpu_torch.utils.safe_eval; "
             "assert not {'jax', 'flax', 'optax', 'msgpack'} & "
             "set(sys.modules); "
             "assert not [m for m in sys.modules "
