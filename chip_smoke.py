@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the kernels of ops/csrc with nvcc (one nvcc per source, started
-together), then runs ten main paths, the tiled protocol of Adap
+together), then runs fourteen main paths, the tiled protocol of Adap
 RetinaNet-c, Adap Faster R-CNN, COCO Mask R-CNN and Adap P2P, each on two
 1920x1080 uint8 frames, the training of Adap Faster R-CNN, Adap
-RetinaNet-c, COCO Mask R-CNN, P2P and CPR, and CPR's point refinement:
+RetinaNet-c, COCO Mask R-CNN, P2P, CPR, P2BNet and SSD-Det, and the
+refinement of CPR, P2BNet and SSD-Det:
 
 1. kernel vs plain, NMS: the IoU-bitmask and greedy-reduce kernels against
    their plain PyTorch version on the card, on synthetic TinyPerson-like
@@ -145,7 +146,28 @@ RetinaNet-c, COCO Mask R-CNN, P2P and CPR, and CPR's point refinement:
    random_remove_rate 0.4 (the bag-point drop drawn from the step's
    generator) for 10 iterations of 2 images with 20-200 gts: finite
    losses; one step at rate 0 on the card against the CPU; train-step ms,
-   img/s, peak memory; profiles of both paths.
+   img/s, peak memory; profiles of both paths;
+11. P2BNet and SSD-Det on COCO (configs/p2b/, configs/ssd_det/ at full
+   width: ResNet-50, FPN-256 from stride 4, two MIL stages of 2 FCs of
+   1,024 on S=7 sr=2 RoIAlign, 80 classes) with seeded weights: (a) the
+   roi-coordinate kernel (RoIAlign's gradient in x1, y1, x2, y2), K2
+   forward and backward against their plain versions (the roi-coordinate
+   one within ROIS_BWD_TOL of each column's max; the backward against the
+   plain version in float64, within BWD_TOL of a level's max or twice the
+   plain float32 version's own error) on channels-last FPN maps of two
+   800x1344 images at P2BNet's stage-0 bags (points and the padding's
+   origin), its
+   negatives and `edge_rois` with `bound_tie_rois` (samples exactly on the
+   clamp bounds), with times and bounds; (b)-(d) `phase_p2b`: P2BNet's
+   `train_detector` (launches {K2 3, backward 3, roi-coordinate 2} a
+   step), the three kernels on the step's own launches, a step against
+   the plain RoIAlign and against the CPU, step ms, `run_refine_test`
+   against the all-plain run, refine img/s; SSD-Det's step and
+   refinement; (e) `phase_learn`: tests/test_models_p2b.py's two
+   learnability scenarios on the card from that test's initial weights,
+   several runs in parallel processes, held on their means: P2BNet's to
+   the test's floors, SSD-Det's to JAX's own perturbed runs' mean (within
+   LEARN_SE standard errors) and above the noisy boxes' IoU.
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
@@ -155,7 +177,9 @@ the main paths, its error against the plain version, its time, the plain
 version's time and its bound (`by_shape`: K1 at every launch shape, the
 Mask R-CNN train step's RPN NMS and P2P's two protocol launches; for
 RoIAlign the phase-2 shapes, the slices' rois and the train steps' rois;
-for its backward the phase-6 shapes and the train steps' rois; `ms` is whole wrapper calls
+for its backward the phase-6 shapes and the train steps' rois; for the
+roi-coordinate kernel phase 11 (a)'s shapes and the P2BNet step's two
+launches; `ms` is whole wrapper calls
 between CUDA events, as for every kernel, and the backward adds
 `device_ms`, its kernel's and zero fill's device time from a profile).
 """
@@ -207,15 +231,15 @@ ROI_LEVELS = ((128, 160), (64, 80), (32, 40), (16, 20))   # 512x640 tiles
 ROI_STRIDES = (4, 8, 16, 32)
 ROI_CHANNELS = 256
 RETINA_LAUNCHES = {"iou_bitmask": 2, "greedy_reduce": 2, "roi_align": 0,
-                   "roi_align_backward": 0}
+                   "roi_align_backward": 0, "roi_align_rois_backward": 0}
 FRCNN_LAUNCHES = {"iou_bitmask": 3, "greedy_reduce": 3, "roi_align": 1,
-                  "roi_align_backward": 0}
+                  "roi_align_backward": 0, "roi_align_rois_backward": 0}
 MASK_LAUNCHES = {"iou_bitmask": 3, "greedy_reduce": 3, "roi_align": 2,
-                 "roi_align_backward": 0}
+                 "roi_align_backward": 0, "roi_align_rois_backward": 0}
 # phase 6: a train step of Faster R-CNN launches each kernel once (the RPN's
 # proposal NMS, RoIAlign of the sampled rois and its backward)
 TRAIN_LAUNCHES = {"iou_bitmask": 1, "greedy_reduce": 1, "roi_align": 1,
-                  "roi_align_backward": 1}
+                  "roi_align_backward": 1, "roi_align_rois_backward": 0}
 TRAIN_HW = (512, 640)            # the config's loader pad_shape
 TRAIN_IMAGES = 4
 TRAIN_EPOCHS = 5                 # 20 iterations at samples_per_gpu=1
@@ -223,12 +247,13 @@ TRAIN_TIMED_STEPS = 10
 TRAIN_PROFILE_STEPS = 5
 # phase 7: RetinaNet-c training runs no TPU kernel (no NMS, no RoIAlign)
 RETINA_TRAIN_LAUNCHES = {"iou_bitmask": 0, "greedy_reduce": 0,
-                         "roi_align": 0, "roi_align_backward": 0}
+                         "roi_align": 0, "roi_align_backward": 0,
+                         "roi_align_rois_backward": 0}
 # phase 8: a Mask R-CNN train step launches K1 once (the RPN's proposal
 # NMS), K2 forward and backward twice (the bbox rois, S=7 sr=2, and the
 # mask rois, S=14 sr=2)
 MASK_TRAIN_LAUNCHES = {"iou_bitmask": 1, "greedy_reduce": 1, "roi_align": 2,
-                       "roi_align_backward": 2}
+                       "roi_align_backward": 2, "roi_align_rois_backward": 0}
 MASK_TRAIN_IMAGES = 4
 MASK_TRAIN_EPOCHS = 5            # 10 iterations at samples_per_gpu=2
 # phase 9: Adap P2P on TinyPerson. Its protocol launches K1 twice, the
@@ -236,9 +261,9 @@ MASK_TRAIN_EPOCHS = 5            # 10 iterations at samples_per_gpu=2
 # and CPR's (phase 10) launch no kernel of the port
 P2P_CONFIG = REPO / "configs/tinyperson/p2p_r50_fpns4_1x_tinyperson640.py"
 P2P_LAUNCHES = {"iou_bitmask": 2, "greedy_reduce": 2, "roi_align": 0,
-                "roi_align_backward": 0}
+                "roi_align_backward": 0, "roi_align_rois_backward": 0}
 NO_LAUNCHES = {"iou_bitmask": 0, "greedy_reduce": 0, "roi_align": 0,
-               "roi_align_backward": 0}
+               "roi_align_backward": 0, "roi_align_rois_backward": 0}
 P2P_THR = 0.01                   # the config's pseudo-box NMS threshold
 P2P_GTS = (20, 201)              # gts an image, TinyPerson-like
 P2P_TRAIN_IMAGES = 4
@@ -259,6 +284,50 @@ CPR_IMAGES = 8
 CPR_POINTS = 50
 CPR_TRAIN_IMAGES = 4
 CPR_TRAIN_EPOCHS = 5             # 10 iterations at samples_per_gpu=2
+# phase 11: P2BNet and SSD-Det on COCO at full width. A train step runs
+# three bag passes through RoIAlign (S=7 sr=2): stage 0's bag, stage 1's
+# bag and the negatives; K2 forward and backward for each, and the
+# roi-coordinate kernel for the two whose rois come from a merge (stage
+# 1's bag and the negatives). Refinement runs the two bag passes only.
+P2B_CONFIG = REPO / "configs/p2b/p2bnet_r50_fpn_1x_coco.py"
+SSD_CONFIG = REPO / "configs/ssd_det/ssd_det_r50_fpn_1x_coco.py"
+P2B_TRAIN_LAUNCHES = {"iou_bitmask": 0, "greedy_reduce": 0, "roi_align": 3,
+                      "roi_align_backward": 3, "roi_align_rois_backward": 2}
+P2B_REFINE_LAUNCHES = {"iou_bitmask": 0, "greedy_reduce": 0, "roi_align": 2,
+                       "roi_align_backward": 0, "roi_align_rois_backward": 0}
+P2B_TRAIN_IMAGES = 4
+P2B_TRAIN_EPOCHS = 1             # 2 iterations at samples_per_gpu=2
+P2B_REFINE_IMAGES = 8
+P2B_LEVELS = ((200, 336), (100, 168), (50, 84), (25, 42))   # 800x1344
+# the card against the CPU: one image of this size, at most this many gts
+P2B_CPU_HW = (400, 667)
+P2B_CPU_GTS = 12
+# plain RoIAlign versions on the card run on at most this many rois a call
+PLAIN_CHUNK = 2048
+# timed calls of the plain K2 backward at phase 11's bags, after a warm
+# one (1-8 s a call: torch's index_add on the padding's origin cells)
+P2B_PLAIN_BWD_ITERS = 1
+# the roi-coordinate kernel against its plain version: each coordinate
+# column within this share of its max |gradient| (the kernel sums a roi's
+# samples and channels in another order than autograd)
+ROIS_BWD_TOL = 1e-4
+# (e) tests/test_models_p2b.py's learnability scenarios
+# (learnability_p2b.py): the test's floors are met by JAX's one float
+# trajectory from its initial draw, not robustly (its runs from the draw
+# perturbed by 1e-7 to 3e-6 of each parameter spread widely), so the port
+# runs several trajectories from the draw (the card's float atomics make
+# each differ) and is held on their means: LEARN_PROCS processes a
+# scenario, in parallel, of LEARN_RUNS runs each
+LEARN_PROCS = {"P2BNet": 4, "SSDDet": 4}
+LEARN_RUNS = 2
+# JAX's runs from the draw perturbed by 1e-7 to 3e-6 (learnability_p2b.py
+# --jax --perturb, on the CPU): their number, the mean and the sample
+# standard deviation of the pseudo boxes' mean IoU, and how many met the
+# floors. SSD-Det's port mean is held to no more than LEARN_SE standard
+# errors of the difference of the two means below JAX's
+LEARN_JAX = {"P2BNet": (7, 0.5056, 0.0347, 6),
+             "SSDDet": (11, 0.5430, 0.1946, 8)}
+LEARN_SE = 2.0
 # objects an image and their sides in px (log-uniform, COCO's small to
 # large), 80 classes
 COCO_OBJECTS = (5, 30)
@@ -309,6 +378,10 @@ KERNELS = {
     "roi_align_backward": (
         "pointtinybenchmark_tpu_torch/ops/csrc/roi_align_kernel.cu",
         "pointtinybenchmark_tpu/ops/roi_align_pallas.py:376"),
+    # no Pallas counterpart: XLA's autodiff of the JAX RoIAlign in the rois
+    "roi_align_rois_backward": (
+        "pointtinybenchmark_tpu_torch/ops/csrc/roi_align_kernel.cu",
+        "pointtinybenchmark_tpu/ops/roi_align.py:111"),
 }
 # published H100 SXM peaks: HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
@@ -327,6 +400,7 @@ PROFILE_CALLS = 5
 KERNEL_FAMILIES = (
     ("iou_bitmask", "NMS kernel A iou_bitmask"),
     ("greedy_reduce", "NMS kernel B greedy_reduce"),
+    ("roi_align_rois_backward", "RoIAlign roi-coordinate kernel"),
     ("roi_align_backward", "RoIAlign backward kernel"),
     ("roi_align", "RoIAlign kernel"),
     ("cf32", "convolution by FFT"), ("complex", "convolution by FFT"),
@@ -584,17 +658,21 @@ def plain_nms():
 def plain_roi_align():
     """Inside this block ops/roi_align.py runs the plain RoIAlign on CUDA
     tensors too, in place of the kernels: the plain forward, and autograd
-    through it in place of the backward kernel."""
+    through it in place of the two backward kernels."""
     from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
 
-    saved = roi_align_cuda.roi_align_forward, roi_align_cuda.roi_align_backward
+    saved = (roi_align_cuda.roi_align_forward,
+             roi_align_cuda.roi_align_backward,
+             roi_align_cuda.roi_align_rois_backward)
     roi_align_cuda.roi_align_forward = roi_align.roi_align_multilevel_plain
     roi_align_cuda.roi_align_backward = roi_align.roi_align_backward_plain
+    roi_align_cuda.roi_align_rois_backward = \
+        roi_align.roi_align_rois_backward_plain
     try:
         yield
     finally:
-        (roi_align_cuda.roi_align_forward,
-         roi_align_cuda.roi_align_backward) = saved
+        (roi_align_cuda.roi_align_forward, roi_align_cuda.roi_align_backward,
+         roi_align_cuda.roi_align_rois_backward) = saved
 
 
 @contextlib.contextmanager
@@ -1962,7 +2040,7 @@ def phase_train(card):
     from pointtinybenchmark_tpu_torch.data.loader import DetCollator
     from pointtinybenchmark_tpu_torch.engine.optimizer import build_optimizer
     from pointtinybenchmark_tpu_torch.engine.train import (
-        batch_to_device, init_train_state, make_train_step)
+        batch_to_device, init_train_state)
     from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
     from pointtinybenchmark_tpu_torch.utils.config import Config
 
@@ -2061,17 +2139,18 @@ def phase_train(card):
     opt = build_optimizer(model, cfg.optimizer, cfg.get("optimizer_config"),
                           cfg.get("lr_config"), TRAIN_IMAGES, 12,
                           model.backbone.frozen_stages)
-    step = make_train_step(model, opt)
     state = init_train_state(DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     fwd, bwd = [], []
     with recorded(roi_align_cuda, "roi_align_forward", fwd), \
             recorded(roi_align_cuda, "roi_align_backward", bwd):
-        step(state, batch, gen)
+        run, restore, check, saved = replayed_steps(model, opt, state, batch,
+                                                    gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_ms = time_ms(lambda: step(state, batch, gen), TRAIN_TIMED_STEPS)
-    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    step_ms = time_replayed(run, restore, TRAIN_TIMED_STEPS)
+    peak = (torch.cuda.max_memory_allocated() - held - saved) / 2 ** 30
+    check("phase 6 timed steps")
     (feats, rois, lvls, *rest), _, _ = fwd[0]
     (g, *_), _, _ = bwd[0]
     feats = [f.detach() for f in feats]
@@ -2087,8 +2166,9 @@ def phase_train(card):
     b_bms, b_by = roi_align_backward_bound(rois.shape[0], g.shape[1], out, sr,
                                            shapes)
     print(f"phase 6 train step (Adap Faster R-CNN, {spg} image of "
-          f"{TRAIN_HW}, f32, TF32 off, warm, CUDA events over "
-          f"{TRAIN_TIMED_STEPS} steps, no host sync between them): "
+          f"{TRAIN_HW}, f32, TF32 off, warm, CUDA events round each of "
+          f"{TRAIN_TIMED_STEPS} steps from the seeded weights, restored "
+          f"between them untimed, no host sync between them): "
           f"{step_ms:.4f} ms, {spg * 1e3 / step_ms:.4f} img/s; peak memory "
           f"{peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB the earlier "
           f"phases hold [{card}]")
@@ -2115,15 +2195,19 @@ def phase_train(card):
 
     def profile():
         """(f) a profile of warm steps."""
+        def call():
+            restore()
+            run()
         wall_ms, busy_ms, fam = device_profile(
-            card, lambda: step(state, batch, gen), "faster_rcnn_train",
-            TRAIN_PROFILE_STEPS, f"warm train steps of {spg} image")
+            card, call, "faster_rcnn_train", TRAIN_PROFILE_STEPS,
+            f"warm train steps of {spg} image, each after its restore")
+        check("phase 6 profiled steps")
         k2 = (fam.get("RoIAlign kernel", 0.0)
               + fam.get("RoIAlign backward kernel", 0.0))
         print(f"phase 6 profile: K2 forward + backward {k2:.4f} ms of "
               f"{busy_ms:.4f} ms busy ({k2 / busy_ms:.4f}) [{card}]")
-        after_ms = time_ms(lambda: step(state, batch, gen),
-                           TRAIN_TIMED_STEPS)
+        after_ms = time_replayed(run, restore, TRAIN_TIMED_STEPS)
+        check("phase 6 steps after the profiles")
         print(f"phase 6 train step again, after every profile of the run: "
               f"{after_ms:.4f} ms (before them {step_ms:.4f} ms) [{card}]")
         add_device_ms(card, slice_bwd, *bwd_args)
@@ -2157,44 +2241,111 @@ def grad_error(got, want):
                / max(float(w.abs().max()), 1e-30) for n, w in want.items())
 
 
+def replayed_steps(model, opt, state, batch, gen):
+    """One warm train step of `model` on `batch` from its current weights,
+    then steps that each start from those same weights and the optimizer
+    state the warm step left, restored before each: every timed or
+    profiled step is one sound step from the seeded weights, however far
+    repeated steps would drive them (P2BNet's seeded weights under its
+    config's SGD turn non-finite within a few steps, and a NaN roi takes
+    RoIAlign's invalid-roi exit). Returns (run: one step, restore, check:
+    every step's losses finite, `nan_seen` false and the last step's
+    gradients finite, else it raises; the bytes of the saved start)."""
+    from pointtinybenchmark_tpu_torch.engine.train import make_train_step
+
+    step = make_train_step(model, opt)
+    live = list(model.state_dict().values())
+    start = [t.clone() for t in live]
+    seen = [step(state, batch, gen)]
+    saved = opt.state_dict()
+
+    def restore():
+        torch._foreach_copy_(live, start)
+        opt.load_state_dict(saved)
+
+    def run():
+        seen.append(step(state, batch, gen))
+
+    def check(what):
+        bad = sorted({k for m in seen for k, v in m.items()
+                      if not bool(torch.isfinite(v).all())})
+        nan_seen = any(bool(m["nan_seen"]) for m in seen)
+        finite = all(bool(torch.isfinite(p.grad).all())
+                     for p in model.parameters() if p.grad is not None)
+        print(f"{what}: {len(seen)} steps from the seeded weights, losses "
+              f"finite {not bad}, nan_seen {nan_seen}, the last step's "
+              f"gradients finite {finite}")
+        seen.clear()
+        if bad or nan_seen or not finite:
+            raise AssertionError(f"{what}: non-finite {bad}, nan_seen "
+                                 f"{nan_seen}, gradients finite {finite}")
+    return run, restore, check, sum(t.nbytes for t in start)
+
+
+def time_replayed(run, restore, iters):
+    """Mean ms of `iters` calls of `run` after one warm call, each after
+    `restore`: CUDA events round each call, the restores between them
+    untimed, no host sync between calls."""
+    restore()
+    run()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        restore()
+        start.record()
+        run()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
 def time_step(card, phase, label, cfg, model, batch, held, images):
-    """Warm train steps of `model` on `batch` by CUDA events (no host sync
-    between them), and the peak memory above `held`. Returns the numbers
-    and a function that profiles warm steps and prints them as JSON, to be
-    run after every timing of the run."""
+    """Warm train steps of `model` on `batch` from its weights
+    (`replayed_steps`) by CUDA events, and the peak memory above `held`
+    (the saved start not counted). Returns the numbers and a function that
+    profiles warm steps (each after its restore) and prints them as JSON,
+    to be run after every timing of the run."""
     from pointtinybenchmark_tpu_torch.engine.optimizer import build_optimizer
-    from pointtinybenchmark_tpu_torch.engine.train import (init_train_state,
-                                                           make_train_step)
+    from pointtinybenchmark_tpu_torch.engine.train import init_train_state
 
     opt = build_optimizer(model, cfg.optimizer, cfg.get("optimizer_config"),
                           cfg.get("lr_config"), 4, 12,
                           model.backbone.frozen_stages)
-    step = make_train_step(model, opt)
     state = init_train_state(DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(5)
-    step(state, batch, gen)
+    run, restore, check, saved = replayed_steps(model, opt, state, batch,
+                                                gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_ms = time_ms(lambda: step(state, batch, gen), TRAIN_TIMED_STEPS)
-    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    step_ms = time_replayed(run, restore, TRAIN_TIMED_STEPS)
+    peak = (torch.cuda.max_memory_allocated() - held - saved) / 2 ** 30
+    check(f"phase {phase} {label} timed steps")
+    restore_ms = time_ms(restore, TRAIN_TIMED_STEPS)
     hw = tuple(batch["img"].shape[1:3])
     print(f"phase {phase} train step ({label}, {images} image(s) of {hw}, "
-          f"f32, TF32 off, warm, CUDA events over {TRAIN_TIMED_STEPS} steps, "
-          f"no host sync between them): {step_ms:.4f} ms, "
+          f"f32, TF32 off, warm, CUDA events round each of "
+          f"{TRAIN_TIMED_STEPS} steps from the seeded weights, restored "
+          f"between them untimed ({restore_ms:.4f} ms a restore), no host "
+          f"sync between them): {step_ms:.4f} ms, "
           f"{images * 1e3 / step_ms:.4f} img/s; peak memory {peak:.3f} GiB "
-          f"above the {held / 2 ** 30:.3f} GiB the earlier phases hold "
-          f"[{card}]")
+          f"above the {held / 2 ** 30:.3f} GiB the earlier phases hold and "
+          f"the {saved / 2 ** 30:.3f} GiB of the saved start [{card}]")
     numbers = dict(step_ms=step_ms, img_s=images * 1e3 / step_ms,
-                   peak_gib=peak)
+                   peak_gib=peak, restore_ms=restore_ms)
 
     def profile():
+        def call():
+            restore()
+            run()
         wall_ms, busy_ms, fam = device_profile(
-            card, lambda: step(state, batch, gen), label,
-            TRAIN_PROFILE_STEPS, f"warm train steps of {images} image(s)")
+            card, call, label, TRAIN_PROFILE_STEPS,
+            f"warm train steps of {images} image(s), each after its "
+            f"restore ({restore_ms:.4f} ms)")
+        check(f"phase {phase} {label} profiled steps")
         numbers.update(profile_wall_ms=wall_ms, profile_busy_ms=busy_ms,
                        idle_share=1 - busy_ms / wall_ms,
-                       unprofiled_idle_share=1 - busy_ms / step_ms,
-                       families=fam)
+                       unprofiled_idle_share=1 - (busy_ms - restore_ms)
+                       / step_ms, families=fam)
         print(json.dumps({label: numbers}))
     return numbers, profile
 
@@ -2273,6 +2424,20 @@ def phase_retina_train(card):
 
 
 # ------------------------------------------ phase 8: Mask R-CNN training
+def coco_objects(rng, hw):
+    """One image's 5-30 objects (COCO_OBJECTS) with log-uniform sides of
+    10-400 px (COCO_SIDES: small to large) and aspect ratios around 1, as
+    (k, 4) xyxy float32 boxes in an (h, w) image."""
+    h, w = hw
+    k = rng.randint(COCO_OBJECTS[0], COCO_OBJECTS[1] + 1)
+    side = np.exp(rng.uniform(*np.log(COCO_SIDES), k))
+    aspect = np.exp(rng.normal(0.0, 0.4, k))
+    bw = np.minimum(side * np.sqrt(aspect), w - 1)
+    bh = np.minimum(side / np.sqrt(aspect), h - 1)
+    x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+    return np.stack([x1, y1, x1 + bw, y1 + bh], 1).astype(np.float32)
+
+
 def coco_train_samples(rng, n, hw=None):
     """n training samples as a COCO dataset hands them to the collator: a
     normalised (H, W, 3) float32 image and 5-30 objects (COCO_OBJECTS) with
@@ -2282,13 +2447,8 @@ def coco_train_samples(rng, n, hw=None):
     h, w = hw or COCO_HW
     out = []
     for _ in range(n):
-        k = rng.randint(COCO_OBJECTS[0], COCO_OBJECTS[1] + 1)
-        side = np.exp(rng.uniform(*np.log(COCO_SIDES), k))
-        aspect = np.exp(rng.normal(0.0, 0.4, k))
-        bw = np.minimum(side * np.sqrt(aspect), w - 1)
-        bh = np.minimum(side / np.sqrt(aspect), h - 1)
-        x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
-        boxes = np.stack([x1, y1, x1 + bw, y1 + bh], 1).astype(np.float32)
+        boxes = coco_objects(rng, (h, w))
+        k = len(boxes)
         masks = np.zeros((k, h, w), np.uint8)
         for i, (a, b, c, d) in enumerate(boxes.astype(np.float64)):
             ya, yb = int(b), min(int(np.ceil(d)), h)
@@ -2893,6 +3053,695 @@ def phase_cpr(card):
     return refine_launches, train_launches, profiles
 
 
+# ---------------------------------------- phase 11: P2BNet and SSD-Det
+def p2b_samples(rng, n, noise_kwargs, kind="point", hw=None, gts=None):
+    """n samples as the P2BNet (`kind` "point") or SSD-Det ("box") dataset
+    hands them to the collator: a normalised float32 image, `coco_objects`
+    (at most `gts`), and as gt_bboxes either the pseudo boxes round points
+    that data/noise.py draws in each object with the config's
+    `noise_kwargs` (P2BNet: 16x16 round a point within 25% of the centre),
+    or each object's box shifted by up to 40% of its size (noisy boxes, as
+    tests/test_models_p2b.py's SSD-Det scenario); the true boxes and
+    annotation ids beside them."""
+    from pointtinybenchmark_tpu_torch.data import noise
+
+    h, w = hw or COCO_HW
+    out = []
+    for i in range(n):
+        boxes = coco_objects(rng, (h, w))[:gts]
+        labels = rng.randint(0, 80, len(boxes)).astype(np.int64)
+        if kind == "point":
+            ds = dict(annotations=[
+                dict(id=j, bbox=[float(b[0]), float(b[1]),
+                                 float(b[2] - b[0]), float(b[3] - b[1])])
+                for j, b in enumerate(boxes)])
+            anns = noise.generate_pseudo_bbox_for_point(
+                ds, noise_kwargs["pseudo_wh"], noise_kwargs.get("noise_rg"),
+                seed=i)["annotations"]
+            xywh = np.asarray([a["bbox"] for a in anns], np.float32)
+            gt = np.concatenate([xywh[:, :2], xywh[:, :2] + xywh[:, 2:]], 1)
+        else:
+            wh = boxes[:, 2:] - boxes[:, :2]
+            gt = boxes + np.tile(rng.uniform(-0.4, 0.4, wh.shape) * wh, 2)
+        out.append(dict(img=rng.randn(h, w, 3).astype(np.float32),
+                        gt_bboxes=gt.astype(np.float32), gt_labels=labels,
+                        gt_true_bboxes=boxes,
+                        gt_anns_id=np.arange(len(gt)) + 1000 * i))
+    return out
+
+
+def bound_tie_rois(b, hw, rng, n=64):
+    """Rois whose level-0 sample coordinates at sr=2 lie exactly on the
+    clamp bounds 0 and W - 1 (and the in-map bounds -1 and W): two built
+    so in each image, and n on a 1-px grid round the map's edges (their
+    samples are multiples of 1/4 cell)."""
+    h, w = hw
+    rows = [(i, -3, -3, 25, 25) for i in range(b)]
+    rows += [(i, w - 19, h - 19, w + 9, h + 9) for i in range(b)]
+    xy = rng.randint(-12, 13, (n, 2)) + rng.randint(0, 2, (n, 2)) * [w, h]
+    wh = rng.randint(4, 120, (n, 2))
+    rows += [(rng.randint(0, b), x, y, x + dx, y + dy)
+             for (x, y), (dx, dy) in zip(xy, wh)]
+    return np.asarray(rows, np.float32)
+
+
+def p2b_bag_rois(rng, cfg, kind):
+    """Phase 11 (a)'s rois on two 800x1344 images of 100 gt slots, as
+    P2BNet's step builds them (`p2b_head` functions, the config's grids):
+    5-30 COCO objects an image, the rest padding, whose points and boxes
+    the collator leaves at the origin. "cbp": stage 0's bags of 25 round
+    the points (R = 5,000); "neg": the negatives' grid of 50 round boxes
+    (the objects', and 32x32 at the origin for the padding: R = 10,000);
+    "edge": `edge_rois` scaled to the image and `bound_tie_rois`."""
+    from pointtinybenchmark_tpu_torch.models.dense_heads import p2b_head
+
+    head = cfg.model["bbox_head"]
+    b, g = 2, int(cfg.loader["max_gt"])
+    if kind == "edge":
+        hw = tuple(cfg.loader["pad_shape"])
+        return np.concatenate([edge_rois(b, hw), bound_tie_rois(b, hw, rng)])
+    boxes = np.zeros((b, g, 4), np.float32)
+    boxes[..., :2], boxes[..., 2:] = -16, 16
+    for i in range(b):
+        obj = coco_objects(rng, COCO_HW)[:g]
+        boxes[i, :len(obj)] = obj
+    t = torch.from_numpy(boxes)
+    if kind == "cbp":
+        bags = p2b_head.cbp_proposals((t[..., :2] + t[..., 2:]) / 2,
+                                      head["cbp_scales"], head["cbp_ratios"])
+    else:
+        bags = p2b_head.pbr_proposals(t, (1.0, 3.0),
+                                      (-1.2, -0.6, 0.0, 0.6, 1.2))
+    bidx = torch.arange(b, dtype=torch.float32)[:, None, None, None]
+    return torch.cat([bidx.expand(*bags.shape[:3], 1), bags],
+                     -1).reshape(-1, 5).numpy()
+
+
+def chunks(r):
+    return [slice(i, min(i + PLAIN_CHUNK, r)) for i in range(0, r, PLAIN_CHUNK)]
+
+
+def forward_plain(feats, rois, lvls, out, sr):
+    """The plain forward, PLAIN_CHUNK rois a call (each roi's output is its
+    own, so the result is the same)."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align
+
+    return torch.cat([roi_align.roi_align_multilevel_plain(
+        feats, rois[c], lvls[c], ROI_STRIDES, out, sr)
+        for c in chunks(rois.shape[0])])
+
+
+def backward_plain(g, rois, lvls, shapes, out, sr):
+    """The plain backward for the maps, PLAIN_CHUNK rois a call, the
+    chunks' level gradients summed (the op is linear), in g's type."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align
+
+    total = None
+    for c in chunks(rois.shape[0]):
+        part = roi_align.roi_align_backward_plain(
+            g[c], rois[c], lvls[c], shapes, [True] * len(shapes),
+            ROI_STRIDES, out, sr)
+        total = part if total is None else [a + p for a, p in
+                                            zip(total, part)]
+    return total
+
+
+def rois_backward_plain(g, feats, rois, lvls, out, sr):
+    """The plain roi-coordinate gradient, PLAIN_CHUNK rois a call."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align
+
+    return torch.cat([roi_align.roi_align_rois_backward_plain(
+        g[c], feats, rois[c], lvls[c], ROI_STRIDES, out, sr)
+        for c in chunks(rois.shape[0])])
+
+
+def compare_rois_backward(g, feats, rois, lvls, out, sr):
+    """The roi-coordinate kernel against its plain version: (max abs err,
+    worst err over its column's max |gradient|). Fails above ROIS_BWD_TOL,
+    or if the gradient is zero everywhere."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+
+    got = roi_align_cuda.roi_align_rois_backward(g, feats, rois, lvls,
+                                                 ROI_STRIDES, out, sr)
+    want = rois_backward_plain(g, feats, rois, lvls, out, sr)
+    torch.cuda.synchronize()
+    err = (got - want).abs().amax(0)
+    top = want.abs().amax(0)
+    share = float((err / top.clamp(min=1e-30)).max())
+    if share > ROIS_BWD_TOL or not bool((top > 0).all()):
+        raise AssertionError(f"roi-coordinate kernel vs plain: max abs err "
+                             f"{err.tolist()} of column max {top.tolist()}, "
+                             f"{share:.3e} (bar {ROIS_BWD_TOL})")
+    return float(err.max()), share
+
+
+def compare_backward_chunked(g, rois, lvls, shapes, out, sr):
+    """The K2 backward against the plain backward in float64 (PLAIN_CHUNK
+    rois a call): P2B's padding piles thousands of rois onto a few cells
+    near the origin, whose float32 sums (the kernel's atomics in no fixed
+    order, the plain version's sequential scatter-add) carry most of the
+    rounding. Each level's error over its max |gradient|, for the kernel
+    and for the plain float32 version; fails where the kernel's is above
+    BWD_TOL and above twice the plain float32 version's own (two float32
+    sums in different orders). Returns (the
+    kernel's max abs err, its worst share, the plain version's worst
+    share)."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+
+    got = roi_align_cuda.roi_align_backward(g, rois, lvls, shapes,
+                                            [True] * len(shapes), ROI_STRIDES,
+                                            out, sr)
+    plain = backward_plain(g, rois, lvls, shapes, out, sr)
+    exact = backward_plain(g.double(), rois, lvls, shapes, out, sr)
+    torch.cuda.synchronize()
+    err, share, plain_share, failed = 0.0, 0.0, 0.0, []
+    for lv, (a, p, b) in enumerate(zip(got, plain, exact)):
+        m = float(b.abs().max())
+        e = float((a - b).abs().max())
+        s_k = e / m if m else (0.0 if e == 0 else float("inf"))
+        s_p = float((p - b).abs().max()) / m if m else 0.0
+        err, share, plain_share = max(err, e), max(share, s_k), max(
+            plain_share, s_p)
+        if s_k > max(BWD_TOL, 2 * s_p):
+            failed.append((lv, s_k, s_p))
+    if failed:
+        raise AssertionError(f"RoIAlign backward kernel vs plain float64: "
+                             f"(level, kernel, plain float32) {failed} of a "
+                             f"level's max (bar {BWD_TOL} or twice the "
+                             f"plain float32 version's)")
+    return err, share, plain_share
+
+
+def rois_backward_bound(feats, rois, lvls, out, sr):
+    """(ms, bounded by) of the roi-coordinate gradient: the upstream
+    gradient read once, every map cell an in-map sample's taps read, read
+    once (C channels), rois and levels read and (R, 4) written once; 14
+    float32 operations per in-map sample and channel (4 tap differences, 4
+    weight products, 2 sums, 2 upstream products, 2 accumulations) and one
+    scale per upstream value."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align
+
+    scale, hf, wf, base, width = roi_align.level_tables(feats, rois, lvls,
+                                                        ROI_STRIDES)
+    y0, y1, x0, x1, *_, inb = roi_align.sample_taps(rois, scale, hf, wf, out,
+                                                    sr, True)
+    base, width = base[:, None, None], width[:, None, None]
+    cells = torch.cat([(base + yy * width + xx)[inb]
+                       for yy, xx in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))])
+    r, c = rois.shape[0], feats[0].shape[1]
+    nbytes = 4 * (r * c * out * out + torch.unique(cells).numel() * c
+                  + r * 5 + r + r * 4)
+    samples = int(inb.sum())
+    return bound(nbytes, 14 * samples * c + r * c * out * out), samples
+
+
+def kernel_rows(card, label, feats, rois, lvls, g, out, sr, rois_grad=True):
+    """K2 forward (torch.equal), K2 backward (BWD_TOL) and, with
+    `rois_grad`, the roi-coordinate kernel (ROIS_BWD_TOL) on one set of
+    inputs against their plain versions (PLAIN_CHUNK rois a call), with
+    the rois on each forward path, times and bounds. Returns the three
+    records (the third None without `rois_grad`)."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+
+    r = rois.shape[0]
+    shapes = [tuple(f.shape) for f in feats]
+    per_level = torch.bincount(lvls, minlength=len(feats)).tolist()
+    got = roi_align_cuda.roi_align_forward(feats, rois, lvls, ROI_STRIDES,
+                                           out, sr)
+    want = forward_plain(feats, rois, lvls, out, sr)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: RoIAlign kernel != plain")
+    del got, want
+    paths = roi_paths(feats, rois, lvls, out, sr)
+    f_ms = time_ms(lambda: roi_align_cuda.roi_align_forward(
+        feats, rois, lvls, ROI_STRIDES, out, sr), ITERS)
+    f_plain = time_ms(lambda: forward_plain(feats, rois, lvls, out, sr),
+                      PLAIN_ITERS)
+    f_bms, f_by = roi_align_bound(feats, rois, lvls, out, sr)
+    fwd = dict(shape=label, R=r, S=out, sr=sr, max_abs_err=0.0, ms=f_ms,
+               plain_ms=f_plain, bound_ms=f_bms, bound_by=f_by,
+               per_level=per_level, paths=paths)
+    b_err, b_share, b_plain_share = compare_backward_chunked(
+        g, rois, lvls, shapes, out, sr)
+    b_ms = time_ms(lambda: roi_align_cuda.roi_align_backward(
+        g, rois, lvls, shapes, [True] * len(shapes), ROI_STRIDES, out, sr),
+        ITERS)
+    b_plain = time_ms(lambda: backward_plain(g, rois, lvls, shapes, out, sr),
+                      P2B_PLAIN_BWD_ITERS)
+    b_bms, b_by = roi_align_backward_bound(r, g.shape[1], out, sr, shapes)
+    bwd = dict(shape=label, R=r, S=out, sr=sr, max_abs_err=b_err,
+               err_share=b_share, plain_err_share=b_plain_share, ms=b_ms,
+               plain_ms=b_plain, bound_ms=b_bms, bound_by=b_by,
+               per_level=per_level)
+    print(f"phase 11 {label} (R={r}, S={out}, sr={sr}, per level "
+          f"{per_level}): forward kernel == plain, paths {shares(paths)}, "
+          f"{f_ms:.4f} ms (plain {f_plain:.4f}, bound {f_bms:.4f} {f_by}); "
+          f"backward vs plain float64 {b_err:.3e} ({b_share:.3e} of a "
+          f"level's max, the plain float32 version's {b_plain_share:.3e}; "
+          f"bar {BWD_TOL} or twice that), {b_ms:.4f} ms (plain "
+          f"{b_plain:.4f}, bound {b_bms:.4f} {b_by}) [{card}]")
+    if not rois_grad:
+        return fwd, bwd, None
+    err, share = compare_rois_backward(g, feats, rois, lvls, out, sr)
+    ms = time_ms(lambda: roi_align_cuda.roi_align_rois_backward(
+        g, feats, rois, lvls, ROI_STRIDES, out, sr), ITERS)
+    plain_ms = time_ms(lambda: rois_backward_plain(g, feats, rois, lvls, out,
+                                                   sr), PLAIN_ITERS)
+    (bms, by), samples = rois_backward_bound(feats, rois, lvls, out, sr)
+    print(f"phase 11 {label}: roi-coordinate kernel vs plain max abs err "
+          f"{err:.3e} ({share:.3e} of its column's max, bar {ROIS_BWD_TOL}); "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} in chunks of {PLAIN_CHUNK}, "
+          f"bound {bms:.4f} {by}, {samples} in-map samples of "
+          f"{r * (out * sr) ** 2}) [{card}]")
+    return fwd, bwd, dict(shape=label, R=r, S=out, sr=sr, max_abs_err=err,
+                          err_share=share, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, per_level=per_level,
+                          in_map_samples=samples)
+
+
+def phase_rois_backward(card):
+    """Phase 11 (a): the roi-coordinate kernel (and K2 forward and
+    backward) against their plain versions on channels-last 256-channel
+    FPN maps of two 800x1344 images at S=7 sr=2, on `p2b_bag_rois`:
+    stage 0's bags, the negatives and the edge and bound-tie rois. Returns
+    the roi-coordinate kernel's records."""
+    from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
+        map_roi_levels
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(str(P2B_CONFIG))
+    rng = np.random.RandomState(15)
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    feats = [torch.randn((2, h, w, ROI_CHANNELS), generator=gen,
+                         device=DEVICE).permute(0, 3, 1, 2)
+             for h, w in P2B_LEVELS]
+    rows = []
+    for kind in ("cbp", "neg", "edge"):
+        rois = torch.from_numpy(p2b_bag_rois(rng, cfg, kind)).to(DEVICE)
+        lvls = map_roi_levels(rois, len(P2B_LEVELS))
+        g = torch.randn((rois.shape[0], ROI_CHANNELS, 7, 7), generator=gen,
+                        device=DEVICE)
+        rows.append(kernel_rows(card, f"p2b {kind} rois", feats, rois, lvls,
+                                g, 7, 2)[2])
+    del feats
+    return rows
+
+
+def held_to_float64(kernel, plain, exact):
+    """Each parameter's gradient error over its max |gradient| against a
+    float64 step (`exact`) for the kernel step and the plain float32 step:
+    float32 rounding alone moves P2BNet's full-width gradients by ~5e-4 of
+    a parameter's max (the plain step's own error), so the kernel step
+    passes where its error is within GRAD_TOL or within twice the plain
+    step's. Returns (the kernel step's worst error, the plain step's
+    worst, the parameters that fail). The instance biases as in
+    `p2b_grad_error`."""
+    p2b_grad_error(kernel, exact)
+    p2b_grad_error(plain, exact)
+    worst_k, worst_p, failed = 0.0, 0.0, []
+    for n, w in exact.items():
+        if n.endswith("ins.bias"):
+            continue
+        top = max(float(w.abs().max()), 1e-30)
+        e_k = float((kernel[n].double() - w).abs().max()) / top
+        e_p = float((plain[n].double() - w).abs().max()) / top
+        worst_k, worst_p = max(worst_k, e_k), max(worst_p, e_p)
+        if e_k > max(GRAD_TOL, 2 * e_p):
+            failed.append((n, e_k, e_p))
+    return worst_k, worst_p, failed
+
+
+def p2b_grad_error(got, want):
+    """`grad_error` over every parameter but the instance branches' biases,
+    whose exact gradient is 0 (the bag softmax does not change when a
+    constant is added to a class's logits): those must stay under 1e-6 of
+    the largest gradient on both sides. Returns the worst share."""
+    largest = max(float(w.abs().max()) for w in want.values())
+    zero = [n for n in want if n.endswith("ins.bias")]
+    noise = max(max(float(got[n].abs().max()), float(want[n].abs().max()))
+                for n in zero)
+    if noise > 1e-6 * largest:
+        raise AssertionError(f"an ins.bias gradient of {noise} (exactly 0 "
+                             f"in exact arithmetic)")
+    return grad_error(got, {n: w for n, w in want.items() if n not in zero})
+
+
+def step_launches(model, cfg, batch):
+    """One train step's RoIAlign launches, recorded (forward, backward,
+    roi-coordinate); the model's weights are put back after the step."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+
+    calls = ([], [], [])
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    with recorded(roi_align_cuda, "roi_align_forward", calls[0]), \
+            recorded(roi_align_cuda, "roi_align_backward", calls[1]), \
+            recorded(roi_align_cuda, "roi_align_rois_backward", calls[2]):
+        one_step(model, cfg, batch, seed=3)
+    model.load_state_dict(init)
+    return calls
+
+
+def p2b_step_rows(card, label, fwd, bwd, rbw, slots):
+    """The three kernels on one train step's recorded launches
+    (`kernel_rows`), each bag pass by its rois: `slots` gt slots times the
+    bag's size. Returns the forward, backward and roi-coordinate records."""
+    rows = ([], [], [])
+    for (feats, rois, lvls, _, out, sr, _), _, _ in fwd:
+        r = rois.shape[0]
+        g = next(args[0] for args, _, _ in bwd if args[0].shape[0] == r)
+        grad_rois = any(args[2].shape[0] == r for args, _, _ in rbw)
+        recs = kernel_rows(card, f"{label} step's bags of {r // slots}",
+                           [f.detach() for f in feats], rois.detach(), lvls,
+                           g, out, sr, rois_grad=grad_rois)
+        for rec, acc in zip(recs, rows):
+            if rec is not None:
+                acc.append(rec)
+    return rows
+
+
+def refine_run(card, label, model, samples, collator, spg, expected,
+               against_plain=False):
+    """`run_refine_test` on `samples`, batches of `spg`, launches counted:
+    `expected` a batch, one row per image with its annotation ids and
+    finite boxes, points (the boxes' centres) and scores; with
+    `against_plain` the rows equal those of the all-plain run; img/s from
+    warm runs (host clock, the rows back as numpy). Returns the launches,
+    img/s and a function that refines the first batch, for the profile."""
+    from pointtinybenchmark_tpu_torch.engine.test import run_refine_test
+    from pointtinybenchmark_tpu_torch.engine.train import batch_to_device
+
+    n_batches = -(-len(samples) // spg)
+    model.eval()
+    torch.backends.cudnn.deterministic = True
+    reset_launches()
+    rows = run_refine_test(model, samples, collator, batch_size=spg)
+    launches = read_launches()
+    same = None
+    if against_plain:
+        with plain_roi_align():
+            plain = run_refine_test(model, samples, collator, batch_size=spg)
+        same = all(np.array_equal(a[k], b[k]) for a, b in zip(rows, plain)
+                   for k in a)
+    torch.backends.cudnn.deterministic = False
+    for s, r in zip(samples, rows):
+        ctr = (r["bboxes"][:, :2] + r["bboxes"][:, 2:4]) / 2
+        if not (np.array_equal(r["anns_id"], s["gt_anns_id"])
+                and np.isfinite(r["bboxes"]).all()
+                and np.allclose(r["points"][:, :2], ctr, atol=1e-3)):
+            raise AssertionError(f"{label} refined rows: ids or values")
+    t0 = time.perf_counter()
+    run_refine_test(model, samples, collator, batch_size=spg)
+    img_s = len(samples) / (time.perf_counter() - t0)
+    per_batch = {k: v / n_batches for k, v in launches.items()}
+    print(f"phase 11 {label} run_refine_test: {len(samples)} images in "
+          f"batches of {spg}, launches {launches}, per batch {per_batch}; "
+          f"rows {[len(r['bboxes']) for r in rows]}, mean score "
+          f"{np.mean([r['bboxes'][:, 4].mean() for r in rows]):.5f}"
+          + ("" if same is None else f"; equal to the all-plain run's: "
+             f"{same}") + f"; {img_s:.4f} img/s (warm, host clock, "
+          f"collation and host rows included) [{card}]")
+    if per_batch != expected or same is False:
+        raise AssertionError(f"{label} refinement: launches {per_batch}, "
+                             f"equal to plain {same}")
+    first = batch_to_device(collator(samples[:spg]), DEVICE)
+
+    def refine():
+        with torch.no_grad():
+            return model.refine_test(first["img"], first)
+    return launches, img_s, refine
+
+
+def phase_p2b(card):
+    """Phase 11 (b)-(d): P2BNet and SSD-Det on COCO at full width
+    (configs/p2b/p2bnet_r50_fpn_1x_coco.py, configs/ssd_det/
+    ssd_det_r50_fpn_1x_coco.py: ResNet-50 with frozen_stages=1, FPN-256
+    from stride 4, two MIL stages of 2 FCs of 1,024 on 7x7 sr=2 RoIAlign,
+    80 classes; SGD 0.02 with linear warmup, no grad_clip; padded to
+    800x1344 and 100 gts) with seeded weights, on synthetic 800x1333
+    images of 5-30 COCO-sized objects (`p2b_samples`). P2BNet: (b)
+    `train_detector` on 4 images, two a step (launches {K2 3, backward
+    3, roi-coordinate 2} a step, finite losses, frozen stem and layer1
+    bit-identical); one step with the
+    kernels against one with the plain RoIAlign at the main path's 100
+    slots (equal losses; gradients held to a float64 step,
+    `held_to_float64`; the plain version holds four (R, 14, 14, 256)
+    gathers a pass for autograd: 16 GB for the step's 20,400 rois in
+    float32, twice that in float64);
+    the card against the CPU on one P2B_CPU_HW image of at most
+    P2B_CPU_GTS gts in float64 (losses within LOSS_TOL, gradients within
+    GRAD_TOL; the card's float64 step on the plain RoIAlign, as the
+    kernels take float32; float32 printed beside the CPU's own float32
+    against float64, which reaches 1e-4 of loss_cbp and 1e-3 of a
+    gradient's max); step ms, img/s, peak memory; the three kernels on a
+    step's own recorded launches against their plain versions, with times
+    and bounds; (c) `run_refine_test` on 8 images (2 launches a batch,
+    rows equal to the all-plain run's, img/s). (d) SSD-Det on noisy
+    boxes: the same `train_detector` run, the three kernels on its step's
+    own launches, step time and refinement. Returns the launches by path,
+    the step records (P2BNet's, then SSD-Det's) and the profiles, to be
+    run after every timing."""
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.train import batch_to_device
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(str(P2B_CONFIG))
+    spg = int(cfg.data["samples_per_gpu"])
+    max_gt = int(cfg.loader["max_gt"])
+    pad = tuple(cfg.loader["pad_shape"])
+    nk = dict(cfg.data["train"]["noise_kwargs"])
+    samples = p2b_samples(np.random.RandomState(17), P2B_TRAIN_IMAGES, nk,
+                          gts=max_gt)
+    print(f"phase 11 training config: {P2B_CONFIG.name}, samples_per_gpu "
+          f"{spg}, loader {dict(cfg.loader)}, optimizer {dict(cfg.optimizer)},"
+          f" grad_clip {cfg.optimizer_config.get('grad_clip')}, lr_config "
+          f"{dict(cfg.lr_config)}, points {nk}; {P2B_TRAIN_IMAGES} synthetic "
+          f"{COCO_HW} images, objects per image "
+          f"{[len(s['gt_bboxes']) for s in samples]}")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    model, init, train_launches = train_run(
+        card, "11", cfg, samples, P2B_TRAIN_EPOCHS, P2B_TRAIN_LAUNCHES, {},
+        require_change=False)
+    collator = DetCollator(pad, max_gt=max_gt)
+    batch = batch_to_device(collator(samples[:spg]), DEVICE)
+
+    # one step with the kernels against one with the plain RoIAlign, both
+    # held to a float64 step (plain RoIAlign) from the same weights, on the
+    # main path's batch (100 gt slots)
+    collated = collator(samples[:spg])
+    torch.backends.cudnn.deterministic = True
+    reset_launches()
+    got, got_grads = one_step(model, cfg, batch, seed=3)
+    k_launches = read_launches()
+    model.load_state_dict(init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with plain_roi_align():
+        want, want_grads = one_step(model, cfg, batch, seed=3)
+        p_launches = read_launches()
+        torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        _, exact = double_step(cfg, collated, 3, DEVICE)
+        torch.cuda.synchronize()
+        exact_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.load_state_dict(init)
+    torch.backends.cudnn.deterministic = False
+    loss_keys = [k for k in want if k.startswith(("loss", "bag_acc"))]
+    direct = p2b_grad_error(got_grads, want_grads)
+    worst_k, worst_p, failed = held_to_float64(got_grads, want_grads, exact)
+    s0 = "bbox_head.stages.0.shared_fcs.0.weight"
+    print(f"phase 11 one step at {max_gt} gt slots, kernels vs plain "
+          f"RoIAlign: launches {k_launches} vs {p_launches}; peak memory "
+          f"of the plain float32 step {plain_peak:.3f} GiB, of the float64 "
+          f"one {exact_peak:.3f} GiB (all the process holds); " +
+          ", ".join(f"{k} {got[k]:.6f}" for k in loss_keys) + f"; losses "
+          f"equal: {all(got[k] == want[k] for k in loss_keys)}; gradients "
+          f"against a float64 step, worst error of a parameter's max "
+          f"|grad|: kernels {worst_k:.3e}, plain {worst_p:.3e} (bar: "
+          f"{GRAD_TOL} or twice the plain step's; failing {failed}); "
+          f"kernels vs plain directly {direct:.3e}; stage 0's first FC max "
+          f"|grad| {float(got_grads[s0].abs().max()):.4e}")
+    if k_launches != P2B_TRAIN_LAUNCHES or any(
+            p_launches[k] for k in roi_align_cuda.launches):
+        raise AssertionError(f"launches {k_launches}, plain {p_launches}")
+    if any(got[k] != want[k] for k in loss_keys) or failed:
+        raise AssertionError(f"kernels vs plain: {got} vs {want}, gradients "
+                             f"{failed}")
+    del got_grads, want_grads, exact
+
+    # the card against the CPU on one smaller image
+    one = p2b_samples(np.random.RandomState(18), 1, nk, hw=P2B_CPU_HW,
+                      gts=P2B_CPU_GTS)
+    collated = DetCollator(None, int(cfg.loader.get("size_divisor", 32)),
+                           max_gt=P2B_CPU_GTS)(one)
+    card_m, _ = one_step(model, cfg, batch_to_device(collated, DEVICE),
+                         seed=4)
+    model.load_state_dict(init)
+    cpu_m, cpu_g = one_step(train_model(cfg, device="cpu"), cfg,
+                            batch_to_device(collated, "cpu"), seed=4,
+                            device="cpu")
+    with plain_roi_align():
+        card_m64, card_g64 = double_step(cfg, collated, 4, DEVICE)
+    cpu_m64, cpu_g64 = double_step(cfg, collated, 4, "cpu")
+
+    def rel(a, b):
+        return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for k in loss_keys}
+    errs, errs64 = rel(card_m, cpu_m), rel(card_m64, cpu_m64)
+    own = rel(cpu_m, cpu_m64)
+    worst64 = p2b_grad_error(card_g64, cpu_g64)
+    rounding = p2b_grad_error(cpu_g, cpu_g64)
+    print(f"phase 11 one step, card vs CPU (one {collated['img'].shape[1:3]} "
+          f"image, {len(one[0]['gt_bboxes'])} gts; the card's float64 step "
+          f"on the plain RoIAlign: the kernels take float32), float64 rel "
+          f"err: " + ", ".join(f"{k} {v:.3e}" for k, v in errs64.items())
+          + f" (bar {LOSS_TOL}), worst gradient error of its parameter's "
+          f"max |grad| {worst64:.3e} (bar {GRAD_TOL}); float32 (not held) "
+          f"rel err: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; the CPU's float32 against its float64: losses " + ", ".join(
+              f"{k} {v:.3e}" for k, v in own.items()) + f", gradients "
+          f"{rounding:.3e}")
+    if max(errs64.values()) > LOSS_TOL or worst64 > GRAD_TOL:
+        raise AssertionError(f"card vs CPU in float64: {card_m64} vs "
+                             f"{cpu_m64}, gradient {worst64}")
+    del cpu_g, card_g64, cpu_g64
+
+    _, step_profile = time_step(card, "11", "p2bnet_train", cfg, model,
+                                batch, held, spg)
+    # the launches of a step from the seeded weights (after the timing, so
+    # that the peak above is the step's own)
+    model.load_state_dict(init)
+    step_rows = p2b_step_rows(card, "p2bnet train", *step_launches(
+        model, cfg, batch), spg * max_gt)
+    del model, init
+
+    # (c) refinement
+    refine_model = train_model(cfg)
+    refine_samples = p2b_samples(np.random.RandomState(19), P2B_REFINE_IMAGES,
+                                 nk, gts=max_gt)
+    refine_launches, _, refine = refine_run(
+        card, "p2bnet", refine_model, refine_samples, collator, spg,
+        P2B_REFINE_LAUNCHES, against_plain=True)
+
+    # (d) SSD-Det
+    scfg = Config.fromfile(str(SSD_CONFIG))
+    ssd = p2b_samples(np.random.RandomState(20), P2B_TRAIN_IMAGES, None,
+                      kind="box", gts=max_gt)
+    print(f"phase 11 (d) {SSD_CONFIG.name}: bbox_head "
+          f"{ {k: v for k, v in scfg.model['bbox_head'].items()} }, dataset "
+          f"noise_kwargs {dict(scfg.data['train']['noise_kwargs'])} (P2BNet's "
+          f"pseudo_wh merged in: the JAX Config gives the same); fed noisy "
+          f"boxes (shifted by up to 40% of their size) as the JAX test does")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    smodel, sinit, ssd_launches = train_run(
+        card, "11 (d)", scfg, ssd, P2B_TRAIN_EPOCHS, P2B_TRAIN_LAUNCHES, {},
+        require_change=False)
+    sbatch = batch_to_device(collator(ssd[:spg]), DEVICE)
+    _, ssd_profile = time_step(card, "11 (d)", "ssd_det_train", scfg, smodel,
+                               sbatch, held, spg)
+    smodel.load_state_dict(sinit)
+    ssd_rows = p2b_step_rows(card, "ssd_det train", *step_launches(
+        smodel, scfg, sbatch), spg * max_gt)
+    step_rows = tuple(a + b for a, b in zip(step_rows, ssd_rows))
+    del smodel, sinit, sbatch
+    ssd_refine = p2b_samples(np.random.RandomState(21), P2B_REFINE_IMAGES,
+                             None, kind="box", gts=max_gt)
+    ssd_refine_launches, _, ssd_refine_fn = refine_run(
+        card, "ssd_det", train_model(scfg), ssd_refine, collator, spg,
+        P2B_REFINE_LAUNCHES)
+
+    def profiles():
+        step_profile()
+        device_profile(card, refine, "p2bnet_refine", PROFILE_CALLS,
+                       f"warm refine_test calls of {spg} images")
+        ssd_profile()
+        device_profile(card, ssd_refine_fn, "ssd_det_refine", PROFILE_CALLS,
+                       f"warm refine_test calls of {spg} images")
+    by_path = {"p2bnet_train": train_launches,
+               "p2bnet_refine": refine_launches,
+               "ssd_det_train": ssd_launches,
+               "ssd_det_refine": ssd_refine_launches}
+    return by_path, step_rows, profiles
+
+
+# ------------------------------------------- (e) learnability on the card
+def phase_learn(card):
+    """Phase 11 (e): tests/test_models_p2b.py's two learnability scenarios
+    on the card from the JAX test's initial weights, LEARN_PROCS processes
+    of LEARN_RUNS runs each, all at once (`learnability_p2b.py`). Held:
+    every loss finite; P2BNet: the test's floors met by the means of its
+    runs; SSD-Det, whose floor JAX's own perturbed runs meet in 8 of 11
+    and not on their mean: its runs' mean IoU at most LEARN_SE standard
+    errors of the difference below JAX's perturbed runs' mean (LEARN_JAX),
+    and above the noisy boxes' IoU. Printed beside them: each run's floors,
+    the spread and JAX's numbers. Returns the runs by scenario."""
+    import learnability_p2b as lp
+
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "learnability_p2b.py"), "--reps",
+         str(LEARN_RUNS), "--kinds", kind], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for kind, n in LEARN_PROCS.items() for _ in range(n)]
+    outs = [p.communicate()[0] for p in procs]
+    if any(p.returncode for p in procs):
+        raise AssertionError("a learnability process failed:\n" + "\n".join(
+            o[-2000:] for p, o in zip(procs, outs) if p.returncode))
+    runs = collections.defaultdict(list)
+    for o in outs:
+        for line in o.splitlines():
+            if line.startswith("{"):
+                r = json.loads(line)
+                runs[r["kind"]].append(r)
+    failed = []
+    for kind, n in LEARN_PROCS.items():
+        rs = runs[kind]
+        if len(rs) != n * LEARN_RUNS:
+            failed.append(f"{kind}: {len(rs)} runs")
+            continue
+        iou = np.array([r["mean_iou"] for r in rs])
+        mean = {k: (np.mean([r[k] for r in rs], 0).tolist()
+                    if k == "scale_mass"
+                    else float(np.mean([r[k] for r in rs])))
+                for k in ("mean_iou", "above_half", "scale_mass", "noisy_iou")
+                if k in rs[0]}
+        met = [lp.learn_floors(kind, r) for r in rs]
+        n_j, mean_j, sd_j, met_j = LEARN_JAX[kind]
+        se = float(np.sqrt(iou.var(ddof=1) / len(rs) + sd_j ** 2 / n_j))
+        if kind == "P2BNet":
+            ok = lp.learn_floors(kind, mean)
+            held = f"the floors on the means (held): {ok}"
+        else:
+            ok = (mean["mean_iou"] >= mean_j - LEARN_SE * se
+                  and mean["mean_iou"] > mean["noisy_iou"])
+            held = (f"held: the mean at least JAX's {mean_j:.4f} less "
+                    f"{LEARN_SE} x {se:.4f} (the difference's standard "
+                    f"error) = {mean_j - LEARN_SE * se:.4f}, and above the "
+                    f"noisy IoU {mean['noisy_iou']:.4f}: {ok}; the floors on "
+                    f"the means (not held): {lp.learn_floors(kind, mean)}")
+        print(f"phase 11 (e) {kind} learnability, {len(rs)} runs of "
+              f"{lp.LEARN_STEPS} Adam steps of {lp.LEARN_BATCH} "
+              f"{lp.LEARN_SIZE}x{lp.LEARN_SIZE} images from the JAX test's "
+              f"initial weights: mean IoU {iou.mean():.4f} (sd "
+              f"{iou.std(ddof=1):.4f}, min {iou.min():.4f}, max "
+              f"{iou.max():.4f}; means {json.dumps(mean)}); {held}; the "
+              f"floors met by {sum(met)} of {len(rs)} runs; JAX's {n_j} "
+              f"perturbed runs {mean_j:.4f} (sd {sd_j:.4f}, the floors met "
+              f"by {met_j}), JAX's own trajectory "
+              f"{'0.5585' if kind == 'P2BNet' else '0.6973'} [{card}]")
+        if not all(np.isfinite(r["final_loss"]) for r in rs):
+            failed.append(f"{kind}: a loss is not finite")
+        if not ok:
+            failed.append(f"{kind}: the means miss their bar")
+    if failed:
+        raise AssertionError(f"learnability: {failed}")
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2936,6 +3785,18 @@ def main():
     p2p_launches, p2p, p2p_k1 = phase_p2p(card, frames)
     p2p_train_launches, p2p_train_profile = phase_p2p_train(card)
     cpr_launches, cpr_train_launches, cpr_profiles = phase_cpr(card)
+    laps = [t_start]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        print(f"{what}: {laps[-1] - laps[-2]:.1f} s (host clock)")
+    lap("kernel build and phases 1-10")
+    rois_rows = phase_rois_backward(card)
+    lap("phase 11 (a)")
+    p2b_by_path, p2b_rows, p2b_profiles = phase_p2b(card)
+    lap("phase 11 (b)-(d)")
+    phase_learn(card)
+    lap("phase 11 (e)")
     # the profiles last: once torch.profiler has traced the card, later
     # launches of the process can cost more host time (phase 6 times the
     # train step before and after them)
@@ -2949,14 +3810,20 @@ def main():
     phase_profile(card, p2p, frames, "p2p")
     p2p_train_profile()
     cpr_profiles()
+    p2b_profiles()
+    lap("the profiles")
     for k in ("iou_bitmask", "greedy_reduce"):
         records[k]["by_shape"].append(mask_train_k1[k])
         records[k]["by_shape"] += [row[k] for row in p2p_k1]
     records["roi_align"] = dict(
         slice_record, by_shape=roi_shapes + [slice_record] + mask_records
-        + [train_fwd] + mask_train_fwd)
+        + [train_fwd] + mask_train_fwd + p2b_rows[0])
     records["roi_align_backward"] = dict(
-        train_bwd, by_shape=bwd_shapes + [train_bwd] + mask_train_bwd)
+        train_bwd, by_shape=bwd_shapes + [train_bwd] + mask_train_bwd
+        + p2b_rows[1])
+    # the P2BNet step's negatives, its largest launch
+    records["roi_align_rois_backward"] = dict(
+        p2b_rows[2][1], by_shape=rois_rows + p2b_rows[2])
 
     by_path = {"adap_retinanet_c": retina_launches,
                "faster_rcnn": frcnn_launches, "mask_rcnn": mask_launches,
@@ -2964,7 +3831,8 @@ def main():
                "adap_retinanet_c_train": retina_train_launches,
                "mask_rcnn_train": mask_train_launches,
                "p2p": p2p_launches, "p2p_train": p2p_train_launches,
-               "cpr_refine": cpr_launches, "cpr_train": cpr_train_launches}
+               "cpr_refine": cpr_launches, "cpr_train": cpr_train_launches,
+               **p2b_by_path}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],

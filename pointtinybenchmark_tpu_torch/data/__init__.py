@@ -1,2 +1,3 @@
-"""On-device preprocessing, the protocol tile grid, and batching (loader:
-collation, samplers, the training DataLoader)."""
+"""On-device preprocessing, the protocol tile grid, batching (loader:
+collation, samplers, the training DataLoader) and the point workflow's
+pseudo boxes (noise)."""

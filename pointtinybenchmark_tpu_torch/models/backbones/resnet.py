@@ -2,9 +2,11 @@
 
 Counterpart of pointtinybenchmark_tpu/models/backbones/resnet.py (`ResNet`,
 `BasicBlock`, `Bottleneck`): basic blocks for depths 18/34, bottlenecks for
-50/101/152. The stride sits on the (first) 3x3 conv; BN always uses its
-running statistics (`norm_eval`, the TinyPerson configs freeze backbone
-BN). Padding matches the flax model: the 1x1 stride-2
+50/101/152. The stride sits on the (first) 3x3 conv; with `norm_eval`
+(every config of the repo) BN always uses its running statistics; without
+it, BN in training mode normalises by the batch's statistics and updates
+the running ones as flax's BatchNorm does (`FlaxBatchNorm2d`). Padding
+matches the flax model: the 1x1 stride-2
 downsample pads nothing (flax SAME is 0 there), and the stem max-pool pads
 with -inf, as MaxPool2d(3, 2, 1) does. `frozen_stages` is kept for the
 optimizer, which leaves the stem and stages 1..frozen_stages unchanged
@@ -19,7 +21,28 @@ from torch import nn
 
 from ..utils import kaiming_init
 
-__all__ = ["ResNet", "BasicBlock", "Bottleneck"]
+__all__ = ["ResNet", "BasicBlock", "Bottleneck", "FlaxBatchNorm2d"]
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose training mode is flax's: normalise by the batch's
+    mean and biased variance, and move the running statistics by momentum
+    0.99 towards them, the running variance towards the biased variance
+    (torch's keeps the unbiased one). Evaluation uses the running
+    statistics, as torch's does."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return nn.functional.batch_norm(x, None, None, self.weight, self.bias,
+                                        True, 0.0, self.eps)
 
 
 class BasicBlock(nn.Module):
@@ -30,12 +53,12 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = FlaxBatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = FlaxBatchNorm2d(planes)
         self.downsample = (nn.Sequential(
             nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
-            nn.BatchNorm2d(planes)) if downsample else None)
+            FlaxBatchNorm2d(planes)) if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -52,15 +75,15 @@ class Bottleneck(nn.Module):
         super().__init__()
         out = planes * self.expansion
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = FlaxBatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = FlaxBatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out)
+        self.bn3 = FlaxBatchNorm2d(out)
         self.downsample = (nn.Sequential(
             nn.Conv2d(inplanes, out, 1, stride=stride, bias=False),
-            nn.BatchNorm2d(out)) if downsample else None)
+            FlaxBatchNorm2d(out)) if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -86,14 +109,13 @@ class ResNet(nn.Module):
                  norm_eval: bool = True):
         super().__init__()
         self.frozen_stages = frozen_stages
+        self.norm_eval = norm_eval
         if depth not in ARCH_SETTINGS:
             raise NotImplementedError(f"ResNet depth {depth} is not ported")
-        if not norm_eval:
-            raise NotImplementedError("only norm_eval=True is ported")
         self.out_indices = tuple(out_indices)
         self.conv1 = nn.Conv2d(3, base_channels, 7, stride=2, padding=3,
                                bias=False)
-        self.bn1 = nn.BatchNorm2d(base_channels)
+        self.bn1 = FlaxBatchNorm2d(base_channels)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         block, stage_blocks = ARCH_SETTINGS[depth]
         inplanes, planes = base_channels, base_channels
@@ -119,9 +141,10 @@ class ResNet(nn.Module):
     def train(self, mode: bool = True) -> "ResNet":
         # norm_eval: BN keeps using its running statistics
         super().train(mode)
-        for m in self.modules():
-            if isinstance(m, nn.BatchNorm2d):
-                m.eval()
+        if self.norm_eval:
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.eval()
         return self
 
     def forward(self, x: torch.Tensor):

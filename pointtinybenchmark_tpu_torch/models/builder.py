@@ -20,10 +20,12 @@ from torch import nn
 from .backbones.resnet import ResNet
 from .dense_heads.anchor_head import AnchorHead
 from .dense_heads.cpr_head import CascadeCPRHead, CPRHead
+from .dense_heads.p2b_head import P2BNetHead, SSDDetHead
 from .dense_heads.p2p_head import P2PHead
 from .dense_heads.retina_head import RetinaHead
 from .dense_heads.rpn_head import RPNHead
-from .detectors.single_stage import BasicLocator, SingleStageDetector
+from .detectors.single_stage import (BasicLocator, P2BNet, SSDDet,
+                                     SingleStageDetector)
 from .detectors.two_stage import MaskRCNN, TwoStageDetector
 from .necks.fpn import FPN
 from .roi_heads.bbox_head import Shared2FCBBoxHead
@@ -44,10 +46,13 @@ MODULES = {
     "P2PHead": P2PHead,
     "CPRHead": CPRHead,
     "CascadeCPRHead": CascadeCPRHead,
+    "P2BNetHead": P2BNetHead,
+    "SSDDetHead": SSDDetHead,
 }
 SINGLE_STAGE = {"SingleStageDetector": SingleStageDetector,
                 "RetinaNet": SingleStageDetector,
-                "BasicLocator": BasicLocator}
+                "BasicLocator": BasicLocator, "P2BNet": P2BNet,
+                "SSDDet": SSDDet}
 TWO_STAGE = {"TwoStageDetector": TwoStageDetector,
              "FasterRCNN": TwoStageDetector, "MaskRCNN": MaskRCNN}
 

@@ -46,7 +46,7 @@ from torch import nn
 
 from ...ops.grid_sample import point_sample_pixel
 from ..losses import MILLoss
-from ..utils import ConvModule, bias_init_with_prob, normal_init
+from ..utils import ConvModule, bias_init_with_prob, normal_init, one_hot
 
 __all__ = ["CPRHead", "CascadeCPRHead", "circle_offsets", "grid_offsets",
            "bag_keep_mask"]
@@ -82,12 +82,6 @@ def bag_keep_mask(shape, rate: float, generator: torch.Generator,
                   device) -> torch.Tensor:
     """The bag points kept by random_remove: a uniform draw >= rate."""
     return torch.rand(shape, generator=generator, device=device) >= rate
-
-
-def _one_hot(labels: torch.Tensor, c: int) -> torch.Tensor:
-    """jax.nn.one_hot: a label outside [0, c) gives a zero row."""
-    return (labels.long()[..., None]
-            == torch.arange(c, device=labels.device)).to(torch.float32)
 
 
 class CPRHead(nn.Module):
@@ -329,7 +323,7 @@ class CPRHead(nn.Module):
                 w = (bag_valid[:, :, 0, -1].reshape(-1).to(torch.float32)
                      * gt_weights.reshape(-1))
             num_pos_gt = (w > 0).sum().to(torch.float32).clamp(min=1.0)
-            gt_loss = loss_mil.gfocal_loss(p, _one_hot(lbl, c), w[:, None])
+            gt_loss = loss_mil.gfocal_loss(p, one_hot(lbl, c), w[:, None])
             losses["loss_gt"] = (cfg["gt_loss_weight"] * gt_loss.sum()
                                  / num_pos_gt)
 

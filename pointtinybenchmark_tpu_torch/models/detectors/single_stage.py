@@ -14,6 +14,11 @@ other, and its `simple_test` returns the pseudo-box detections and the
 inside the network (CPR: `needs_gt_in_forward`) gets the batch in its
 forward, with the gt boxes' centres as `gt_points` (B, G, 1, 2);
 `refine_test` refines the annotated points (CPR's inference).
+
+P2BNet and SSDDet are locators whose head needs the gts: their
+`refine_test` returns the pseudo boxes' centres, scores, the pseudo boxes
+(real extents, so `pseudo_wh` is unused) and the invalid gts as
+not_refine, the contract `engine/test.py::run_refine_test` reads.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from torch import nn
 
 from ...core.post_processing import DetResult
 
-__all__ = ["SingleStageDetector", "BasicLocator"]
+__all__ = ["SingleStageDetector", "BasicLocator", "P2BNet", "SSDDet"]
 
 
 class SingleStageDetector(nn.Module):
@@ -122,3 +127,22 @@ class BasicLocator(SingleStageDetector):
                 outputs, self._head_batch(img, batch))
         return (refine_pts, scores,
                 head.center_to_pseudo_bbox(refine_pts, pseudo_wh), not_refine)
+
+
+class P2BNet(BasicLocator):
+    """Point-to-box MIL (P2BNetHead); the pseudo boxes it refines train a
+    Faster R-CNN."""
+
+    def refine_test(self, img: torch.Tensor, batch: Dict[str, torch.Tensor],
+                    pseudo_wh=(16, 16)) -> Tuple[torch.Tensor, ...]:
+        """Pseudo-box refinement: centres (B, G, 2), scores (B, G), boxes
+        (B, G, 4) and not_refine (B, G), the gts that are not valid."""
+        del pseudo_wh
+        outputs = self(img, batch, mode="refine")
+        boxes = outputs["pseudo_boxes"]
+        centers = (boxes[..., :2] + boxes[..., 2:]) / 2
+        return centers, outputs["pseudo_scores"], boxes, ~batch["gt_valid"]
+
+
+class SSDDet(P2BNet):
+    """Noisy-box self-distillation (SSDDetHead), P2BNet's workflow."""

@@ -8,12 +8,19 @@ import torch
 from torch import nn
 
 __all__ = ["ConvModule", "bias_init_with_prob", "normal_init",
-           "kaiming_init", "xavier_init"]
+           "kaiming_init", "xavier_init", "one_hot"]
 
 
 def bias_init_with_prob(prior_prob: float) -> float:
     """Bias so sigmoid(bias) == prior_prob (RetinaNet focal init)."""
     return float(-math.log((1 - prior_prob) / prior_prob))
+
+
+def one_hot(labels: torch.Tensor, c: int) -> torch.Tensor:
+    """jax.nn.one_hot as float32: a label outside [0, c) gives a zero
+    row."""
+    return (labels.long()[..., None]
+            == torch.arange(c, device=labels.device)).to(torch.float32)
 
 
 def normal_init(m: nn.Conv2d, std: float, generator: torch.Generator,

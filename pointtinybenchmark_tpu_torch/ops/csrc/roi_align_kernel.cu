@@ -987,6 +987,249 @@ int launch_backward(const Levels& lv, const LevelGrads& lg, int channels,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the gradient with respect to the roi coordinates
+
+// One sample coordinate along one axis, for the roi-coordinate gradient:
+// its taps as the forward's (`axis_tap`: i0 with kOutside, i1, w0, w1),
+// and what carries a gradient of the sample's value with respect to the
+// clamped coordinate to the roi's two edges on this axis, in level units:
+// d1 = clip' * (1 - f) for x1 (or y1) and d2 = clip' * f for x2 (or y2),
+// with f = frac / S * max'(x2 - x1) the coordinate's share of the width.
+// clip' is jnp.clip's gradient (maximum with 0, then minimum with
+// dim - 1, each 1 strictly inside, 0.5 on the bound, 0 beyond), max' that
+// of the unaligned width's maximum with 1 (1 when aligned).
+struct RoiTap {
+  int i0, i1;
+  float w0, w1;
+  float d1, d2;
+};
+
+__device__ __forceinline__ float tie_grad(bool above, bool at) {
+  return above ? 1.0f : at ? 0.5f : 0.0f;
+}
+
+// The roi's RoiTap table, ty[i] and tx[i] for 0 <= i < S * sr, filled by
+// the block's threads (the caller synchronises): `sample_table`'s taps,
+// computed by the same functions, and the chain factors.
+__device__ __forceinline__ void roi_tap_table(const Levels& lv,
+                                              const float* roi, int l,
+                                              int out_size, int sr,
+                                              int aligned, RoiTap* ty,
+                                              RoiTap* tx) {
+  const int s = out_size * sr;
+  const float hf = static_cast<float>(lv.h[l]);
+  const float wf = static_cast<float>(lv.w[l]);
+  const float scale = __fdiv_rn(1.0f, lv.stride[l]);
+  const float offset = aligned ? 0.5f : 0.0f;
+  const float x1 = __fsub_rn(__fmul_rn(roi[1], scale), offset);
+  const float y1 = __fsub_rn(__fmul_rn(roi[2], scale), offset);
+  const float x2 = __fsub_rn(__fmul_rn(roi[3], scale), offset);
+  const float y2 = __fsub_rn(__fmul_rn(roi[4], scale), offset);
+  float roi_w = __fsub_rn(x2, x1);
+  float roi_h = __fsub_rn(y2, y1);
+  float dw = 1.0f;
+  float dh = 1.0f;
+  if (!aligned) {
+    dw = tie_grad(roi_w > 1.0f, roi_w == 1.0f);
+    dh = tie_grad(roi_h > 1.0f, roi_h == 1.0f);
+    roi_w = fmaxf(roi_w, 1.0f);
+    roi_h = fmaxf(roi_h, 1.0f);
+  }
+  const float inv_out = __fdiv_rn(1.0f, static_cast<float>(out_size));
+  const float inv_sr = __fdiv_rn(1.0f, static_cast<float>(sr));
+  const float bin_w = __fmul_rn(roi_w, inv_out);
+  const float bin_h = __fmul_rn(roi_h, inv_out);
+  for (int t = threadIdx.x; t < 2 * s; t += kThreads) {
+    const bool is_y = t < s;
+    const int k = is_y ? t : t - s;
+    const float bin = is_y ? bin_h : bin_w;
+    const float start = is_y ? y1 : x1;
+    const float dimf = is_y ? hf : wf;
+    const float dm1 = __fsub_rn(dimf, 1.0f);
+    const Tap a = axis_tap(k, sr, inv_sr, bin, start, dimf, dm1);
+    const float frac = sample_frac(k, sr, inv_sr);
+    const float g = fused_madd(frac, bin, start);
+    const float lo = fmaxf(g, 0.0f);
+    const float clip = __fmul_rn(tie_grad(g > 0.0f, g == 0.0f),
+                                 tie_grad(lo < dm1, lo == dm1));
+    const float f = __fmul_rn(__fmul_rn(frac, inv_out), is_y ? dh : dw);
+    (is_y ? ty : tx)[k] = RoiTap{a.i0, a.i1, a.w0, a.w1,
+                                 __fmul_rn(clip, __fsub_rn(1.0f, f)),
+                                 __fmul_rn(clip, f)};
+  }
+}
+
+// 4 channels of a map cell (n of them exist; with kVec a 16-byte load)
+template <bool kVec>
+__device__ __forceinline__ float4 load_cell(const float* p, int n) {
+  if constexpr (kVec) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  } else {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = j < n ? __ldg(p + j) : 0.0f;
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a.x, b.x),
+                                       __fmul_rn(a.y, b.y)),
+                             __fmul_rn(a.z, b.z)),
+                   __fmul_rn(a.w, b.w));
+}
+
+// wa * (hi_a - lo_a) + wb * (hi_b - lo_b), channel by channel: the
+// derivative of a bilinear sample along one axis
+__device__ __forceinline__ float4 axis_diff(float wa, float4 lo_a,
+                                            float4 hi_a, float wb,
+                                            float4 lo_b, float4 hi_b) {
+  return f4_add(f4_scale(make_float4(__fsub_rn(hi_a.x, lo_a.x),
+                                     __fsub_rn(hi_a.y, lo_a.y),
+                                     __fsub_rn(hi_a.z, lo_a.z),
+                                     __fsub_rn(hi_a.w, lo_a.w)), wa),
+                f4_scale(make_float4(__fsub_rn(hi_b.x, lo_b.x),
+                                     __fsub_rn(hi_b.y, lo_b.y),
+                                     __fsub_rn(hi_b.z, lo_b.z),
+                                     __fsub_rn(hi_b.w, lo_b.w)), wb));
+}
+
+// shared memory of the roi-coordinate kernel: the staged chunk of cw
+// channels of every bin (rows of cw + 4 floats) and the two tap tables
+__host__ __device__ __forceinline__ size_t rois_bwd_smem(int out_size,
+                                                         int sr, int cw) {
+  return static_cast<size_t>(out_size) * out_size * (cw + 4) * sizeof(float)
+         + 2 * static_cast<size_t>(out_size) * sr * sizeof(RoiTap);
+}
+
+// Block r: the gradient of roi r's RoIAlign output with respect to its
+// coordinates, grad_rois[r] = (x1, y1, x2, y2). For every in-map sample
+// (iy, ix) and channel c, with g the upstream gradient of the sample's bin
+// times 1 / sr^2 and v00..v11 its four taps:
+//   d/dx = g (wy0 (v01 - v00) + wy1 (v11 - v10)),
+//   d/dy = g (wx0 (v10 - v00) + wx1 (v11 - v01)),
+// carried to the edges by the samples' RoiTap factors and, at the end, by
+// 1 / stride. A thread owns (sample, 4 channels) units of a chunk of cw
+// channels, the chunk's upstream gradient staged in shared memory as
+// (bin, channel); it keeps four partial sums, and one block reduction in a
+// fixed order gives the four values: no atomics. A roi whose batch index
+// or level is out of range gets zeros.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+roi_align_rois_backward_kernel(const Levels lv, int channels,
+                               const float* __restrict__ rois,
+                               const int* __restrict__ lvls, int out_size,
+                               int sr, int aligned, int cw,
+                               const float* __restrict__ grad_out,
+                               float* __restrict__ grad_rois) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float partial[4][kThreads / 32];
+  const int s = out_size * sr;
+  const int bins = out_size * out_size;
+  const int ld = cw + 4;
+  float* gs = smem;                                    // bins rows of ld
+  RoiTap* ty = reinterpret_cast<RoiTap*>(gs + bins * ld);
+  RoiTap* tx = ty + s;
+
+  const size_t r = blockIdx.x;
+  const float* roi = rois + r * 5;
+  const int l = lvls[r];
+  if (!valid_roi(lv, roi, l)) {
+    if (threadIdx.x < 4) grad_rois[r * 4 + threadIdx.x] = 0.0f;
+    return;
+  }
+  roi_tap_table(lv, roi, l, out_size, sr, aligned, ty, tx);
+  const int hl = lv.h[l];
+  const int wl = lv.w[l];
+  const size_t cs = static_cast<size_t>(channels);
+  const float* feat = lv.feat[l] + static_cast<size_t>(roi[0]) * hl * wl * cs;
+  const float* src = grad_out + r * cs * bins;          // the roi's (C, S, S)
+  const float inv_count = bin_scale(sr);
+  const int groups = cw / 4;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};             // x1, y1, x2, y2
+
+  for (int c0 = 0; c0 < channels; c0 += cw) {
+    const int width = min(cw, channels - c0);
+    __syncthreads();       // the tables are built, the last chunk is done
+    for (int i = threadIdx.x; i < cw * bins; i += kThreads) {
+      const int c = i / bins;
+      const int bin = i - c * bins;
+      gs[bin * ld + c] =
+          c < width ? __fmul_rn(__ldg(src + (c0 + c) * bins + bin), inv_count)
+                    : 0.0f;
+    }
+    __syncthreads();
+    for (int u = threadIdx.x; u < s * s * groups; u += kThreads) {
+      const int g4 = u % groups;
+      const int k = u / groups;
+      const int c = 4 * g4;
+      if (c >= width) continue;
+      const int iy = k / s;
+      const int ix = k - iy * s;
+      const RoiTap ay = ty[iy];
+      const RoiTap ax = tx[ix];
+      if ((ay.i0 | ax.i0) & kOutside) continue;        // outside: no gradient
+      const float4 g = *reinterpret_cast<const float4*>(
+          gs + ((iy / sr) * out_size + ix / sr) * ld + c);
+      const float* base = feat + c0 + c;
+      const int n = width - c;
+      const float4 v00 = load_cell<kVec>(base + (static_cast<size_t>(ay.i0) *
+                                                 wl + ax.i0) * cs, n);
+      const float4 v01 = load_cell<kVec>(base + (static_cast<size_t>(ay.i0) *
+                                                 wl + ax.i1) * cs, n);
+      const float4 v10 = load_cell<kVec>(base + (static_cast<size_t>(ay.i1) *
+                                                 wl + ax.i0) * cs, n);
+      const float4 v11 = load_cell<kVec>(base + (static_cast<size_t>(ay.i1) *
+                                                 wl + ax.i1) * cs, n);
+      const float dx = dot4(g, axis_diff(ay.w0, v00, v01, ay.w1, v10, v11));
+      const float dy = dot4(g, axis_diff(ax.w0, v00, v10, ax.w1, v01, v11));
+      acc[0] = __fadd_rn(acc[0], __fmul_rn(dx, ax.d1));
+      acc[1] = __fadd_rn(acc[1], __fmul_rn(dy, ay.d1));
+      acc[2] = __fadd_rn(acc[2], __fmul_rn(dx, ax.d2));
+      acc[3] = __fadd_rn(acc[3], __fmul_rn(dy, ay.d2));
+    }
+  }
+  // the block's sum, in a fixed order: each warp by shuffles, then warp 0
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float v = acc[j];
+    for (int off = 16; off > 0; off >>= 1) {
+      v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+    }
+    if (lane == 0) partial[j][warp] = v;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const float scale = __fdiv_rn(1.0f, lv.stride[l]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float v = lane < kThreads / 32 ? partial[j][lane] : 0.0f;
+      for (int off = 16; off > 0; off >>= 1) {
+        v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+      }
+      if (lane == 0) grad_rois[r * 4 + j] = __fmul_rn(v, scale);
+    }
+  }
+}
+
+// the chunk width: the widest of 256, 128, ..., 4 channels (no wider than
+// C rounded up to 4) whose staged gradient and tables fit the 48 KB of
+// static shared memory (with the reduction's 128 bytes), 0 if none does
+// (S > 38)
+int rois_bwd_chunk(int channels, int out_size, int sr) {
+  const int c4 = (channels + 3) / 4 * 4;
+  for (int cw = 256; cw >= 4; cw /= 2) {
+    if (cw > c4 && cw > 4) continue;
+    if (rois_bwd_smem(out_size, sr, cw) + 4 * (kThreads / 32) * 4 <=
+        48 * 1024) {
+      return cw;
+    }
+  }
+  return 0;
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Launches on `stream`, does not
@@ -1070,4 +1313,53 @@ extern "C" int ptb_roi_align_backward(const void* grad_out,
              : launch_backward<false>(lv, lg, channels, r, lv_idx, n_rois,
                                       out_size, sampling_ratio, aligned, g,
                                       counts, st);
+}
+
+// Plain C interface of the roi-coordinate gradient, loaded with ctypes:
+// grad_out (R, C, S, S) f32 contiguous and the level maps (B, H_l, W_l, C)
+// f32 contiguous, as the forward took them, into grad_rois (R, 4) f32, the
+// gradients of x1, y1, x2, y2 (every row written). Launches on `stream`,
+// does not synchronise, and returns cudaGetLastError() after the launch
+// (or the error of a refused argument).
+extern "C" int ptb_roi_align_rois_backward(
+    const void* grad_out, const void* const* feats, const int* heights,
+    const int* widths, const float* strides, int n_levels, int batch,
+    int channels, const void* rois, const void* lvls, int n_rois,
+    int out_size, int sampling_ratio, int aligned, void* grad_rois,
+    void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || out_size < 1 ||
+      sampling_ratio < 1 || channels < 1 || n_rois < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int cw = rois_bwd_chunk(channels, out_size, sampling_ratio);
+  if (cw == 0) return static_cast<int>(cudaErrorInvalidValue);
+  Levels lv;
+  lv.n = n_levels;
+  lv.batch = batch;
+  bool vec = channels % 4 == 0;
+  for (int l = 0; l < n_levels; ++l) {
+    lv.feat[l] = static_cast<const float*>(feats[l]);
+    lv.h[l] = heights[l];
+    lv.w[l] = widths[l];
+    lv.stride[l] = strides[l];
+    vec = vec && reinterpret_cast<size_t>(feats[l]) % 16 == 0;
+  }
+  const auto* g = static_cast<const float*>(grad_out);
+  const auto* r = static_cast<const float*>(rois);
+  const auto* lv_idx = static_cast<const int*>(lvls);
+  auto* out = static_cast<float*>(grad_rois);
+  auto st = static_cast<cudaStream_t>(stream);
+  const size_t smem = rois_bwd_smem(out_size, sampling_ratio, cw);
+  if (vec) {
+    roi_align_rois_backward_kernel<true>
+        <<<static_cast<unsigned>(n_rois), kThreads, smem, st>>>(
+            lv, channels, r, lv_idx, out_size, sampling_ratio, aligned, cw, g,
+            out);
+  } else {
+    roi_align_rois_backward_kernel<false>
+        <<<static_cast<unsigned>(n_rois), kThreads, smem, st>>>(
+            lv, channels, r, lv_idx, out_size, sampling_ratio, aligned, cw, g,
+            out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

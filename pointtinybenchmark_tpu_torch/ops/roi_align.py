@@ -12,11 +12,18 @@ JAX functions take NHWC and return (R, S, S, C), with the same values.
 backward; rois on a CUDA card go to the hand-written kernels through
 `MultilevelRoIAlign`, an autograd function whose forward launches
 `roi_align_cuda.roi_align_forward` and whose backward launches
-`roi_align_cuda.roi_align_backward`; any other device raises. On both
-routes the gradient reaches the level maps only: the rois are detached and
-the levels are integers, as in the JAX custom_vjp
-(roi_align_pallas.py::_vjp_bwd). `roi_align_backward_plain` is the plain
-version of the backward kernel: autograd through the plain forward.
+`roi_align_cuda.roi_align_backward` for the level maps and, when the rois
+need a gradient, `roi_align_cuda.roi_align_rois_backward` for them; any
+other device raises. On both routes the gradient reaches the level maps
+and the roi coordinates (x1, y1, x2, y2), as JAX's autodiff of the XLA
+function does (P2BNet's refinement bags are differentiated through their
+boxes); the batch-index column and the integer levels get none. Callers
+that must not differentiate through their rois detach them (the two-stage
+heads' proposals, as JAX's `lax.stop_gradient`). The Pallas custom_vjp
+(roi_align_pallas.py::_vjp_bwd) gives the rois zeros, but no path that
+differentiates its rois runs it. `roi_align_backward_plain` and
+`roi_align_rois_backward_plain` are the plain versions of the two backward
+kernels: autograd through the plain forward.
 
 The plain versions follow the JAX code operation for operation: sample
 points at `x1 + ((k // sr) + ((k % sr) + 0.5) / sr) * bin_w`, the in-bounds
@@ -28,6 +35,9 @@ code to, since one ulp of a sample coordinate moves a tap weight by ~4e-6
 at 50 cells: the divisions by constants (`roi_w / S`, `/ sr`, the mean's
 `/ sr**2`) are multiplications by the float32 reciprocal, and the sample
 coordinate `x1 + frac * bin_w` is a fused multiply-add (`_fused_madd`).
+The clamps differentiate as `jnp.clip` and `jnp.maximum` do (`jax_clip`):
+the gradient is 0.5 at a coordinate exactly on a bound, where torch's own
+clamp gives 1, and sample coordinates of grid-aligned boxes often are.
 """
 from __future__ import annotations
 
@@ -38,8 +48,8 @@ import torch
 from . import roi_align_cuda
 
 __all__ = ["roi_align", "roi_align_multilevel", "roi_align_multilevel_plain",
-           "roi_align_backward_plain", "MultilevelRoIAlign", "sample_taps",
-           "level_tables"]
+           "roi_align_backward_plain", "roi_align_rois_backward_plain",
+           "MultilevelRoIAlign", "sample_taps", "level_tables", "jax_clip"]
 
 
 def _fused_madd(a: torch.Tensor, b: torch.Tensor,
@@ -48,6 +58,44 @@ def _fused_madd(a: torch.Tensor, b: torch.Tensor,
     float64 product of two float32 values is exact, and the float64 sum
     rounds to float32 as the FMA does (barring a double-rounding tie)."""
     return (a.double() * b.double() + c.double()).float()
+
+
+def _tie_grad(above: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """1 where `above`, 0.5 where `at`, else 0: the gradient of
+    jnp.maximum / jnp.minimum with respect to the clamped operand."""
+    return torch.where(above, 1.0, torch.where(at, 0.5, 0.0))
+
+
+class _JaxClip(torch.autograd.Function):
+    """fmin(fmax(x, lo), hi), either bound optional, differentiated as
+    jnp.clip(x, lo, hi) = minimum(hi, maximum(lo, x)) is by JAX: each of
+    the two steps passes the gradient on with 1 where its operand is
+    strictly inside, 0.5 where it equals the bound, 0 outside (0.25 where
+    x == lo == hi). The bounds get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        y = x if lo is None else torch.fmax(x, lo)
+        ctx.save_for_backward(x, y, lo, hi)
+        return y if hi is None else torch.fmin(y, hi)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x, y, lo, hi = ctx.saved_tensors
+        if lo is not None:
+            grad = grad * _tie_grad(x > lo, x == lo)
+        if hi is not None:
+            grad = grad * _tie_grad(y < hi, y == hi)
+        return grad, None, None
+
+
+def jax_clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """`jnp.clip(x, lo, hi)` with JAX's gradient (see `_JaxClip`); a NaN x
+    clamps to lo (fmax), as the kernels' fmaxf does. lo, hi: tensors
+    broadcastable to x, or floats, or None."""
+    as_t = lambda v: v if v is None or torch.is_tensor(v) else x.new_tensor(v)
+    return _JaxClip.apply(x, as_t(lo), as_t(hi))
 
 
 def sample_taps(rois: torch.Tensor, scale: torch.Tensor, hf: torch.Tensor,
@@ -70,8 +118,8 @@ def sample_taps(rois: torch.Tensor, scale: torch.Tensor, hf: torch.Tensor,
     roi_w = x2 - x1
     roi_h = y2 - y1
     if not aligned:
-        roi_w = roi_w.clamp(min=1.0)
-        roi_h = roi_h.clamp(min=1.0)
+        roi_w = jax_clip(roi_w, 1.0)
+        roi_h = jax_clip(roi_h, 1.0)
     bin_w = roi_w * (1.0 / out)
     bin_h = roi_h * (1.0 / out)
 
@@ -87,13 +135,12 @@ def sample_taps(rois: torch.Tensor, scale: torch.Tensor, hf: torch.Tensor,
     wf = wf[:, None, None]
     hf = hf[:, None, None]
     inb = (xg >= -1.0) & (xg <= wf) & (yg >= -1.0) & (yg <= hf)
-    zero = xg.new_zeros(())
     # fmax / fmin, as the kernel's fmaxf / fminf: a NaN coordinate (of a
     # NaN roi) clamps to cell 0 and, outside, contributes nothing
-    xc = torch.fmin(torch.fmax(xg, zero), wf - 1.0)
-    yc = torch.fmin(torch.fmax(yg, zero), hf - 1.0)
-    x0 = torch.floor(xc)
-    y0 = torch.floor(yc)
+    xc = jax_clip(xg, 0.0, wf - 1.0)
+    yc = jax_clip(yg, 0.0, hf - 1.0)
+    x0 = torch.floor(xc).detach()
+    y0 = torch.floor(yc).detach()
     x1i = torch.minimum(x0 + 1, wf - 1).long()
     y1i = torch.minimum(y0 + 1, hf - 1).long()
     wx1 = xc - x0
@@ -193,10 +240,10 @@ def roi_align_backward_plain(grad_out: torch.Tensor, rois: torch.Tensor,
     level maps, by autograd, on the tensors' device: the plain version of
     `roi_align_cuda.roi_align_backward`, with its arguments. The op is
     linear in the maps, so the gradient is taken at zero maps of `shapes`
-    (channels-last where `channels_last` says so), and each gradient comes
-    in its map's layout. The sums run in the order of PyTorch's
-    scatter-add, which on the CPU may change from run to run."""
-    feats = [torch.zeros(s, dtype=torch.float32, device=rois.device).to(
+    in grad_out's type (channels-last where `channels_last` says so), and
+    each gradient comes in its map's layout. The sums run in the order of
+    PyTorch's scatter-add, which on the CPU may change from run to run."""
+    feats = [torch.zeros(s, dtype=grad_out.dtype, device=rois.device).to(
         memory_format=torch.channels_last if cl
         else torch.contiguous_format).requires_grad_()
         for s, cl in zip(shapes, channels_last)]
@@ -209,15 +256,41 @@ def roi_align_backward_plain(grad_out: torch.Tensor, rois: torch.Tensor,
                  for g, cl in zip(grads, channels_last))
 
 
+def roi_align_rois_backward_plain(grad_out: torch.Tensor,
+                                  feats: Sequence[torch.Tensor],
+                                  rois: torch.Tensor, lvls: torch.Tensor,
+                                  strides: Sequence[int],
+                                  output_size: int = 7,
+                                  sampling_ratio: int = 2,
+                                  aligned: bool = True) -> torch.Tensor:
+    """The gradient of `roi_align_multilevel_plain` with respect to the roi
+    coordinates, by autograd, on the tensors' device: the plain version of
+    `roi_align_cuda.roi_align_rois_backward`, with its arguments. Returns
+    (R, 4), the gradients of x1, y1, x2, y2 (the batch index gets none).
+    It holds the four tap gathers of every sample, (R, S sr, S sr, C)
+    each, for autograd: gigabytes at a training step's thousands of
+    rois."""
+    with torch.enable_grad():
+        r = rois.detach().requires_grad_()
+        out = roi_align_multilevel_plain([f.detach() for f in feats], r, lvls,
+                                         strides, output_size,
+                                         sampling_ratio, aligned)
+        (grad,) = torch.autograd.grad(out, r, grad_out)
+    return grad[:, 1:]
+
+
 class MultilevelRoIAlign(torch.autograd.Function):
-    """`roi_align_multilevel` on CUDA tensors: the forward kernel, and the
-    backward kernel for the level maps. Saves the rois and levels and the
-    maps' shapes and layouts, not the maps: the op is linear in them."""
+    """`roi_align_multilevel` on CUDA tensors: the forward kernel, the
+    backward kernel for the level maps, and, where the rois need a
+    gradient, the roi-coordinate kernel. Saves the rois, levels and the
+    maps' shapes and layouts, and the maps themselves only when the rois
+    need a gradient: the op is linear in the maps, not in the rois."""
 
     @staticmethod
     def forward(ctx, rois, lvls, strides, output_size, sampling_ratio,
                 aligned, *feats):
-        ctx.save_for_backward(rois, lvls)
+        ctx.save_for_backward(rois, lvls,
+                              *(feats if ctx.needs_input_grad[0] else ()))
         ctx.args = (tuple(tuple(f.shape) for f in feats),
                     tuple(f.is_contiguous(memory_format=torch.channels_last)
                           for f in feats),
@@ -229,10 +302,18 @@ class MultilevelRoIAlign(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        rois, lvls = ctx.saved_tensors
-        grads = roi_align_cuda.roi_align_backward(grad_out, rois, lvls,
-                                                  *ctx.args)
-        return (None,) * 6 + tuple(grads)
+        rois, lvls, *feats = ctx.saved_tensors
+        shapes, _, strides, out, sr, aligned = ctx.args
+        grads = (None,) * len(shapes)
+        if any(ctx.needs_input_grad[6:]):
+            grads = roi_align_cuda.roi_align_backward(grad_out, rois, lvls,
+                                                      *ctx.args)
+        grad_rois = None
+        if ctx.needs_input_grad[0]:
+            g = roi_align_cuda.roi_align_rois_backward(
+                grad_out, feats, rois, lvls, strides, out, sr, aligned)
+            grad_rois = torch.cat([g.new_zeros((g.shape[0], 1)), g], 1)
+        return (grad_rois,) + (None,) * 5 + tuple(grads)
 
 
 def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -241,8 +322,7 @@ def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                          aligned: bool = True) -> torch.Tensor:
     """Multilevel RoIAlign: the kernels for CUDA tensors, the plain version
     for CPU tensors. Same arguments as `roi_align_multilevel_plain`; the
-    result's gradient reaches the level maps only."""
-    rois = rois.detach()
+    result's gradient reaches the level maps and the roi coordinates."""
     if rois.device.type == "cpu":
         return roi_align_multilevel_plain(feats, rois, lvls, strides,
                                           output_size, sampling_ratio,

@@ -1,17 +1,19 @@
-"""The multilevel RoIAlign kernels (csrc/roi_align_kernel.cu), forward and
-backward, and their launches.
+"""The multilevel RoIAlign kernels (csrc/roi_align_kernel.cu): the forward,
+the backward for the level maps, the backward for the roi coordinates, and
+their launches.
 
-`roi_align_forward` and `roi_align_backward` take CUDA tensors only and
-launch the kernels; the public `ops/roi_align.py::roi_align_multilevel`
-sends CPU tensors to the plain PyTorch version instead, and wraps the two
-launches in an autograd function for CUDA tensors. The library is compiled
+`roi_align_forward`, `roi_align_backward` and `roi_align_rois_backward`
+take CUDA tensors only and launch the kernels; the public
+`ops/roi_align.py::roi_align_multilevel` sends CPU tensors to the plain
+PyTorch version instead, and wraps the launches in an autograd function
+for CUDA tensors. The library is compiled
 with nvcc at first use (`cuda_build`) and loaded with ctypes; a failed
 build or launch raises.
 
 `launches` counts kernel launches by name, so a run can show that it went
 through the kernels. To hold a kernel against its plain version on the
-card, call `ops/roi_align.py::roi_align_multilevel_plain` or
-`roi_align_backward_plain` directly. `PATHS` names the kernels' paths for
+card, call `ops/roi_align.py::roi_align_multilevel_plain`,
+`roi_align_backward_plain` or `roi_align_rois_backward_plain` directly. `PATHS` names the kernels' paths for
 a roi; pass `path_counts` to either launch to count them. The forward's:
 taps staged whole or in bands of rows, read from global memory, or an
 out-of-range roi. The backward's: the upstream gradient staged ("whole"),
@@ -30,14 +32,16 @@ import torch
 
 from . import cuda_build
 
-__all__ = ["roi_align_forward", "roi_align_backward", "launches",
+__all__ = ["roi_align_forward", "roi_align_backward",
+           "roi_align_rois_backward", "launches",
            "build_library", "SOURCE", "MAX_LEVELS", "PATHS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "roi_align_kernel.cu"
 MAX_LEVELS = 8                    # kMaxLevels in the source
 PATHS = ("whole", "bands", "global", "invalid")   # enum Path in the source
 
-launches = {"roi_align": 0, "roi_align_backward": 0}
+launches = {"roi_align": 0, "roi_align_backward": 0,
+            "roi_align_rois_backward": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -61,6 +65,11 @@ def build_library() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_float), ci, ci, ci, vp, vp, ci, ci, ci, ci,
             vp, vp]
         lib.ptb_roi_align_backward.restype = ci
+        lib.ptb_roi_align_rois_backward.argtypes = [
+            vp, ctypes.POINTER(vp), ctypes.POINTER(ci), ctypes.POINTER(ci),
+            ctypes.POINTER(ctypes.c_float), ci, ci, ci, vp, vp, ci, ci, ci, ci,
+            vp, vp]
+        lib.ptb_roi_align_rois_backward.restype = ci
         _lib = lib
         return lib
 
@@ -93,6 +102,16 @@ def _check_counts(dev: torch.device,
         raise ValueError(f"path_counts must be ({len(PATHS)},) int32 on {dev}")
 
 
+def _check_maps(feats: Sequence[torch.Tensor], dev: torch.device) -> None:
+    b, c = feats[0].shape[:2]
+    for f in feats:
+        if f.dim() != 4 or tuple(f.shape[:2]) != (b, c) \
+                or f.dtype != torch.float32 or f.device != dev:
+            raise ValueError(f"level maps must be (B={b}, C={c}, H, W) "
+                             f"float32 on {dev}, got {tuple(f.shape)} "
+                             f"{f.dtype} on {f.device}")
+
+
 def roi_align_forward(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                       lvls: torch.Tensor, strides: Sequence[int],
                       output_size: int = 7, sampling_ratio: int = 2,
@@ -108,13 +127,8 @@ def roi_align_forward(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     dev = rois.device
     _check_args(dev, len(feats), strides, rois, lvls, output_size,
                 sampling_ratio)
+    _check_maps(feats, dev)
     b, c = feats[0].shape[:2]
-    for f in feats:
-        if f.dim() != 4 or tuple(f.shape[:2]) != (b, c) \
-                or f.dtype != torch.float32 or f.device != dev:
-            raise ValueError(f"level maps must be (B={b}, C={c}, H, W) "
-                             f"float32 on {dev}, got {tuple(f.shape)} "
-                             f"{f.dtype} on {f.device}")
     r = rois.shape[0]
     _check_counts(dev, path_counts)
     out = torch.empty((r, c, output_size, output_size), dtype=torch.float32,
@@ -204,3 +218,53 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
     return tuple(g.permute(0, 3, 1, 2) if cl
                  else g.permute(0, 3, 1, 2).contiguous()
                  for g, cl in zip(grads, channels_last))
+
+
+def roi_align_rois_backward(grad_out: torch.Tensor,
+                            feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                            lvls: torch.Tensor, strides: Sequence[int],
+                            output_size: int = 7, sampling_ratio: int = 2,
+                            aligned: bool = True) -> torch.Tensor:
+    """Launch the roi-coordinate kernel: the gradient of
+    `roi_align_forward` with respect to the rois' x1, y1, x2, y2, as JAX's
+    autodiff of its XLA RoIAlign gives it (the clamps' 0.5 at a bound, no
+    gradient from samples outside the map). grad_out (R, C, S, S) f32
+    (made contiguous); feats, rois and lvls as the forward took them.
+    Returns (R, 4) f32; a roi whose batch index or level is out of range
+    gets zeros. Each row is summed in one block in a fixed order (no
+    atomics), so a launch repeats bit for bit."""
+    dev = rois.device
+    _check_args(dev, len(feats), strides, rois, lvls, output_size,
+                sampling_ratio)
+    _check_maps(feats, dev)
+    b, c = feats[0].shape[:2]
+    r = rois.shape[0]
+    if tuple(grad_out.shape) != (r, c, output_size, output_size) \
+            or grad_out.dtype != torch.float32 or grad_out.device != dev:
+        raise ValueError(f"expected ({r}, {c}, {output_size}, {output_size}) "
+                         f"float32 grad_out on {dev}, got "
+                         f"{tuple(grad_out.shape)} {grad_out.dtype} on "
+                         f"{grad_out.device}")
+    out = torch.empty((r, 4), dtype=torch.float32, device=dev)
+    if r == 0:
+        return out
+    maps = [f.permute(0, 2, 3, 1).contiguous() for f in feats]
+    grad_out = grad_out.contiguous()
+    rois = rois.detach().contiguous()
+    lvls = lvls.to(torch.int32).contiguous()
+    lib = build_library()
+    n = len(feats)
+    err = lib.ptb_roi_align_rois_backward(
+        grad_out.data_ptr(),
+        (ctypes.c_void_p * n)(*[m.data_ptr() for m in maps]),
+        (ctypes.c_int * n)(*[f.shape[2] for f in feats]),
+        (ctypes.c_int * n)(*[f.shape[3] for f in feats]),
+        (ctypes.c_float * n)(*[float(s) for s in strides]),
+        n, b, c, rois.data_ptr(), lvls.data_ptr(), r, int(output_size),
+        int(sampling_ratio), int(bool(aligned)), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"roi_align_rois_backward launch failed: "
+                           f"cudaError {err}")
+    launches["roi_align_rois_backward"] += 1
+    return out

@@ -10,6 +10,8 @@ bottleneck, 2 in a basic block) -> `downsample.0/1`;
 `GroupNorm_0` (scale, bias) -> `bbox_head.cls_convs.{i}.gn` (weight, bias),
 likewise `reg_conv{i}`; the point heads' `cls_out`, `reg_out` (P2P's
 convolutions) and `ins_out` (CPR's dense layers) keep their names;
+P2BNet's `bbox_head_m/stage{s}_shared_fc{i}`, `stage{s}_cls` and
+`stage{s}_ins` -> `bbox_head.stages.{s}.shared_fcs.{i}`, `.cls`, `.ins`;
 `rpn_head_m/rpn_conv` -> `rpn_head.rpn_conv`; `roi_head_m/bbox_head_m/
 shared_fc{i}` -> `roi_head.bbox_head.shared_fcs.{i}`; `roi_head_m/
 mask_head_m/conv{i}` -> `roi_head.mask_head.convs.{i}.conv`, `upsample` and
@@ -20,9 +22,10 @@ transposed convolution is the exception among the 4-d kernels: flax's
 `ConvTranspose` kernel is (kh, kw, in, out) with its taps indexed in the
 opposite order to `nn.ConvTranspose2d`'s (in, out, kh, kw), so it is
 flipped in both spatial axes as well.
-The first shared FC also has its input rows permuted: the JAX head
-flattens (S, S, C) RoI features as (h, w, c), the port's (C, S, S) ones as
-(c, h, w) (the inverse of tools/model_converters/torch2jax.py). Every leaf
+The first shared FC (of the RoI head, and of each P2BNet stage) also has
+its input rows permuted: the JAX heads flatten (S, S, C) RoI features as
+(h, w, c), the port's (C, S, S) ones as (c, h, w) (the inverse of
+tools/model_converters/torch2jax.py). Every leaf
 of the trees must be used and every entry of the model's state_dict
 filled; BN's `num_batches_tracked` has no JAX counterpart and is left as
 it is.
@@ -121,6 +124,12 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int,
             return None
         mod = f"shared_fcs.{m[1]}" if m[1] is not None else scope[1]
         return f"roi_head.bbox_head.{mod}.{name}"
+    if top == "bbox_head_m" and len(scope) == 1:
+        m = re.fullmatch(r"stage(\d+)_(?:shared_fc(\d+)|(cls|ins))",
+                         scope[0])
+        if m is not None:
+            mod = f"shared_fcs.{m[2]}" if m[2] is not None else m[3]
+            return f"bbox_head.stages.{m[1]}.{mod}.{name}"
     if top == "bbox_head_m" and len(scope) == 1 and scope[0] in (
             "retina_cls", "retina_reg", "conv_cls", "conv_reg", "cls_out",
             "reg_out", "ins_out"):
@@ -132,7 +141,8 @@ def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
                       roi_feat_size: int = 7,
                       basic_blocks: bool = False) -> Dict[str, torch.Tensor]:
     """Flax trees -> {mmdet name: tensor}. `roi_feat_size` is the RoI
-    head's S (the first shared FC's input is S * S * C); `basic_blocks`
+    head's S, or P2BNet's `roi_size` (the first shared FC's input is
+    S * S * C); `basic_blocks`
     says that the backbone is a ResNet-18/34. Raises on any leaf it cannot
     place."""
     n_lateral = sum(1 for k in params.get("neck_m", {})
@@ -151,7 +161,8 @@ def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
                 arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
             elif path[-1] == "kernel" and arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
-            elif path[-1] == "kernel" and path[-2] == "shared_fc0":
+            elif path[-1] == "kernel" and re.fullmatch(
+                    r"(stage\d+_)?shared_fc0", path[-2]):
                 s = roi_feat_size                        # rows (h, w, c)
                 arr = arr.reshape(s, s, -1, arr.shape[1]).transpose(
                     3, 2, 0, 1).reshape(arr.shape[1], -1)  # (out, c*h*w)
@@ -167,9 +178,9 @@ def load_jax_variables(model: torch.nn.Module, params: Mapping,
                        batch_stats: Optional[Mapping] = None) -> None:
     """Copy JAX variables into `model` in place."""
     roi_head = getattr(model, "roi_head", None)
-    sd = jax_to_state_dict(params, batch_stats,
-                           roi_head.bbox_head.roi_feat_size if roi_head
-                           is not None else 7,
+    roi_feat = (roi_head.bbox_head.roi_feat_size if roi_head is not None
+                else getattr(getattr(model, "bbox_head", None), "roi_size", 7))
+    sd = jax_to_state_dict(params, batch_stats, roi_feat,
                            any(isinstance(m, BasicBlock)
                                for m in model.modules()))
     own = {k: v for k, v in model.state_dict().items()

@@ -1,7 +1,7 @@
-"""The CUDA kernels (NMS pair, multilevel RoIAlign) against their plain
-PyTorch versions, on the card; and train steps on the card: the RoIAlign
-kernels on a Mask R-CNN step's own rois, a RetinaNet-c step against the
-CPU's.
+"""The CUDA kernels (NMS pair, multilevel RoIAlign, its backward for the
+maps and for the roi coordinates) against their plain PyTorch versions, on
+the card; and train steps on the card: the RoIAlign kernels on a Mask
+R-CNN step's own rois, a RetinaNet-c step against the CPU's.
 
 These tests import no JAX, so they run where only the port is installed:
 
@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from chip_smoke import (CONFIG, GRAD_TOL, LOSS_TOL, MASK_CONFIG,
-                        clustered_rois, coco_train_samples,
+                        ROIS_BWD_TOL, bound_tie_rois, clustered_rois,
+                        coco_train_samples,
                         compare_roi_align, compare_roi_align_backward,
                         double_step, edge_rois, grad_error, one_step,
                         plain_nms,
@@ -563,3 +564,66 @@ def test_point_sample_pixel_on_the_card_matches_the_cpu(cuda):
     for want, got in zip(*out):
         assert float((got - want).abs().max()) <= 1e-6 * float(
             want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,out,sr,aligned", [
+    ("synthetic", 7, 2, True),     # P2BNet's and SSD-Det's S and sr
+    ("synthetic", 7, 1, True),
+    ("edge", 7, 2, True),          # edge_rois and samples on clamp bounds
+    ("edge", 3, 3, False),         # the generic form, unaligned widths
+    ("synthetic", 14, 2, True),    # a chunk of 32 channels
+])
+def test_roi_align_rois_backward_matches_plain(cuda, case, out, sr, aligned):
+    """The roi-coordinate kernel against autograd through the plain forward
+    (roi_align_rois_backward_plain): each coordinate column within
+    ROIS_BWD_TOL of its max |gradient|; rois off the map get 0; the public
+    entry launches it once a backward when the rois need a gradient, and
+    gives the batch-index column none; a launch repeats bit for bit."""
+    feats, rois, lvls, gen = _bwd_inputs(cuda, 600)
+    if case == "edge":
+        rng = np.random.RandomState(1)
+        rois = torch.from_numpy(np.concatenate([
+            edge_rois(2), bound_tie_rois(2, (512, 640), rng)])).to(cuda)
+        lvls = map_roi_levels(rois, len(BWD_LEVELS))
+    g = torch.randn((rois.shape[0], 256, out, out), generator=gen,
+                    device=cuda)
+    got = roi_align_cuda.roi_align_rois_backward(g, feats, rois, lvls,
+                                                 (4, 8, 16, 32), out, sr,
+                                                 aligned)
+    again = roi_align_cuda.roi_align_rois_backward(g, feats, rois, lvls,
+                                                   (4, 8, 16, 32), out, sr,
+                                                   aligned)
+    want = roi_align.roi_align_rois_backward_plain(g, feats, rois, lvls,
+                                                   (4, 8, 16, 32), out, sr,
+                                                   aligned)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    top = want.abs().amax(0)
+    assert bool((top > 0).all())
+    assert bool(((got - want).abs().amax(0) <= ROIS_BWD_TOL * top).all())
+    if case == "edge":       # edge_rois' two rows wholly off each map
+        off = [13 * i + k for i in range(2) for k in (11, 12)]
+        assert bool((got[off] == 0).all())
+    r = rois.clone().requires_grad_()
+    before = dict(roi_align_cuda.launches)
+    y = roi_align.roi_align_multilevel(feats, r, lvls, (4, 8, 16, 32), out,
+                                       sr, aligned)
+    y.backward(g)
+    assert roi_align_cuda.launches["roi_align_rois_backward"] == \
+        before["roi_align_rois_backward"] + 1
+    assert torch.equal(r.grad[:, 1:], got) and bool((r.grad[:, 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_roi_align_rois_backward_only_when_the_rois_need_it(cuda):
+    """Detached rois launch no roi-coordinate kernel; the maps' gradient is
+    the same either way."""
+    feats, rois, lvls, gen = _bwd_inputs(cuda, 300)
+    g = torch.randn((300, 256, 7, 7), generator=gen, device=cuda)
+    before = roi_align_cuda.launches["roi_align_rois_backward"]
+    a = _bwd(feats, rois, lvls, g, 7, 2)
+    assert roi_align_cuda.launches["roi_align_rois_backward"] == before
+    b = _bwd(feats, rois.clone().requires_grad_(), lvls, g, 7, 2)
+    assert roi_align_cuda.launches["roi_align_rois_backward"] == before + 1
+    _assert_grads_close(a, b)

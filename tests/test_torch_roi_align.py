@@ -206,13 +206,13 @@ def test_routing_cpu_plain_other_device_raises():
 def _port_grads(feats, rois, lvls, strides, sr, aligned, g):
     """The port's gradient of the level maps, by autograd through the
     public entry (the plain version on the CPU), as NHWC numpy; and the
-    rois' gradient (None: they get none)."""
+    rois' gradient, as numpy."""
     tf = [f.detach().clone().requires_grad_() for f in _nchw(feats)]
     tr = torch.from_numpy(rois).requires_grad_()
     out = tra.roi_align_multilevel(tf, tr, torch.from_numpy(lvls), strides,
                                    7, sr, aligned)
     out.backward(torch.from_numpy(g).permute(0, 3, 1, 2))
-    return [f.grad.permute(0, 2, 3, 1).numpy() for f in tf], tr.grad
+    return [f.grad.permute(0, 2, 3, 1).numpy() for f in tf], tr.grad.numpy()
 
 
 @pytest.mark.parametrize("aligned", [True, False])
@@ -222,15 +222,24 @@ def test_multilevel_backward_matches_jax_vjp(case, sr, aligned):
     """The gradient of the level maps against jax.vjp of the XLA form and of
     the Pallas kernel's custom_vjp (whose backward, _vjp_bwd, is the XLA
     form's VJP), on the same seeded upstream gradient. atol 1e-5: the
-    scatter-adds sum in different orders. The rois get no gradient."""
+    scatter-adds sum in different orders. The rois' gradient against
+    jax.vjp of the XLA form with respect to the rois, within 1e-5 of each
+    column's max (the custom_vjp gives the rois zeros; no path that
+    differentiates its rois runs it): the batch-index column gets 0."""
     shapes, strides, rois, lvls = _case(case)
     feats = _feats(shapes)
     g = np.random.RandomState(7).randn(rois.shape[0], 7, 7, C).astype(
         np.float32)
     got, rois_grad = _port_grads(feats, rois, lvls, strides, sr, aligned, g)
-    assert rois_grad is None
     jf = tuple(jnp.asarray(f) for f in feats)
     args = (jnp.asarray(rois), jnp.asarray(lvls), strides, 7, sr, aligned)
+    want_rois = np.asarray(jax.jit(lambda r, g: jax.vjp(
+        lambda r: jra.roi_align_multilevel(jf, r, *args[1:]), r)[1](g)[0])(
+        args[0], jnp.asarray(g)))
+    assert (rois_grad[:, 0] == 0).all() and (want_rois[:, 0] == 0).all()
+    for j in range(1, 5):
+        np.testing.assert_allclose(rois_grad[:, j], want_rois[:, j], rtol=0,
+                                   atol=1e-5 * np.abs(want_rois[:, j]).max())
 
     def vjp(fn):
         return [np.asarray(x) for x in jax.jit(
@@ -277,3 +286,43 @@ def test_autograd_function_routes_both_launches(monkeypatch):
     for t, p, f in zip(tf, pf, feats):
         torch.testing.assert_close(t.grad, p.grad, atol=1e-6, rtol=0)
         assert t.grad.stride() == f.stride()
+
+
+def test_autograd_function_routes_the_roi_gradient(monkeypatch):
+    """`MultilevelRoIAlign` with rois that need a gradient, the three
+    launches swapped for their plain versions: the rois' gradient is the
+    roi-coordinate launch's (the plain autograd gradient, equal), with 0 in
+    the batch-index column, and the maps' is unchanged (atol 1e-6: the
+    CPU's scatter-add sums in no fixed order); rois that need none launch
+    no roi-coordinate kernel."""
+    calls = []
+
+    def rois_backward(*args):
+        calls.append(args[2].shape[0])
+        return tra.roi_align_rois_backward_plain(*args)
+    monkeypatch.setattr(roi_align_cuda, "roi_align_forward",
+                        tra.roi_align_multilevel_plain)
+    monkeypatch.setattr(roi_align_cuda, "roi_align_backward",
+                        tra.roi_align_backward_plain)
+    monkeypatch.setattr(roi_align_cuda, "roi_align_rois_backward",
+                        rois_backward)
+    shapes, strides, rois, lvls = _case("off_edge")
+    feats = _nchw(_feats(shapes))
+    g = torch.from_numpy(np.random.RandomState(9).randn(
+        rois.shape[0], C, 7, 7).astype(np.float32))
+    lv = torch.from_numpy(lvls)
+    grads = []
+    for needs in (True, False):
+        tr = torch.from_numpy(rois).requires_grad_(needs)
+        tf = [f.detach().clone().requires_grad_() for f in feats]
+        tra.MultilevelRoIAlign.apply(tr, lv, strides, 7, 2, True,
+                                     *tf).backward(g)
+        grads.append((tr.grad, [f.grad for f in tf]))
+    assert calls == [rois.shape[0]]
+    pr = torch.from_numpy(rois).requires_grad_()
+    tra.roi_align_multilevel_plain(feats, pr, lv, strides, 7, 2,
+                                   True).backward(g)
+    assert torch.equal(grads[0][0], pr.grad)
+    assert bool((grads[0][0][:, 0] == 0).all()) and grads[1][0] is None
+    for a, b in zip(grads[0][1], grads[1][1]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)

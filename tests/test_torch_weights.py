@@ -123,6 +123,8 @@ def test_port_imports_no_jax():
             "pointtinybenchmark_tpu_torch.core.anchors, "
             "pointtinybenchmark_tpu_torch.models.dense_heads.p2p_head, "
             "pointtinybenchmark_tpu_torch.models.dense_heads.cpr_head, "
+            "pointtinybenchmark_tpu_torch.models.dense_heads.p2b_head, "
+            "pointtinybenchmark_tpu_torch.data.noise, "
             "pointtinybenchmark_tpu_torch.models.detectors.single_stage, "
             "pointtinybenchmark_tpu_torch.models.losses.mil_loss, "
             "pointtinybenchmark_tpu_torch.ops.grid_sample, "
