@@ -51,8 +51,8 @@ refinement of CPR, P2BNet and SSD-Det:
    kernel's time on those rois, and the profile;
 5. the Mask R-CNN slice at full width (configs/coco/mask_rcnn_r50_fpn_1x_
    coco.py: Faster R-CNN's network with 80 classes, RoIAlign S=7 sr=2, and
-   the FCN mask head on S=14 sr=2 crops of every detection slot), with
-   fc_cls.bias raised on 8 classes so that random weights detect: launches
+   the FCN mask head on S=14 sr=2 crops of every detection slot; the
+   seeded draw detects as it is): launches
    {iou_bitmask: 3, greedy_reduce: 3, roi_align: 2}, candidates and
    detections in every tile, the RoIAlign kernel bit for bit against its
    plain version on the slice's bbox and mask rois, detections and mask
@@ -158,12 +158,19 @@ refinement of CPR, P2BNet and SSD-Det:
    800x1344 images at P2BNet's stage-0 bags (points and the padding's
    origin), its
    negatives and `edge_rois` with `bound_tie_rois` (samples exactly on the
-   clamp bounds), with times and bounds; (b)-(d) `phase_p2b`: P2BNet's
+   clamp bounds), and at S=7 sr=BUDGET_SR on level-0 rois up to the whole
+   image (`budget_rois`), with times and bounds; each roi-coordinate launch
+   repeated bit for bit, its rois per path (grid staged whole, in bands,
+   read from global memory, invalid: each path taken); (b)-(d)
+   `phase_p2b`: P2BNet's
    `train_detector` (launches {K2 3, backward 3, roi-coordinate 2} a
    step), the three kernels on the step's own launches, a step against
    the plain RoIAlign and against the CPU, step ms, `run_refine_test`
    against the all-plain run, refine img/s; SSD-Det's step and
-   refinement; (e) `phase_learn`: tests/test_models_p2b.py's two
+   refinement; (f) `phase_seeded`: the port's seeded weights train, 16
+   SGD steps of each config's schedule from `build_detector(seed=0)`
+   (P2BNet held: finite, and the last 4 losses' mean below the first 4's;
+   SSD-Det printed); (e) `phase_learn`: tests/test_models_p2b.py's two
    learnability scenarios on the card from that test's initial weights,
    several runs in parallel processes, held on their means: P2BNet's to
    the test's floors, SSD-Det's to JAX's own perturbed runs' mean (within
@@ -311,6 +318,13 @@ P2B_PLAIN_BWD_ITERS = 1
 # column within this share of its max |gradient| (the kernel sums a roi's
 # samples and channels in another order than autograd)
 ROIS_BWD_TOL = 1e-4
+# (f) SGD steps of the port's seeded P2BNet and SSD-Det
+P2B_SEEDED_STEPS = 16
+# phase 11 (a)'s rois on level 0 up to the whole image: their count, and
+# a sampling ratio other than P2BNet's, at which their grids exceed the
+# roi-coordinate kernel's shared memory (S = 7: 42 samples an axis)
+BUDGET_ROIS = 48
+BUDGET_SR = 6
 # (e) tests/test_models_p2b.py's learnability scenarios
 # (learnability_p2b.py): the test's floors are met by JAX's one float
 # trajectory from its initial draw, not robustly (its runs from the draw
@@ -360,10 +374,6 @@ BWD_TOL = 1e-5
 GRAD_TOL = 1e-4
 LOSS_TOL = 1e-4
 PRE_NMS_LIMIT = 20000            # multiclass_nms's default cap
-# fc_cls.bias raised on the first classes so that some softmax scores of
-# random weights clear score_thr 0.05 (81 logits near 0 give ~1/81 each;
-# +3 on 8 classes gives ~0.086 each)
-MASK_BIAS = (8, 3.0)
 # host paste + RLE: detections of bench.py's bench_mask (fixed 10-20 px
 # boxes in a 1080x1920 frame, 28x28 crops), repetitions
 PASTE_DETS = 100
@@ -1079,6 +1089,21 @@ def check_frames(results, label):
             raise AssertionError(f"frame {i}: boxes outside the frame")
 
 
+def unfixed(label, handle, frames):
+    """What the seeded draw detects on `frames` before the phase's
+    random-weight fix: printed, so that a run shows whether the fix is
+    still needed (its launches are not counted: the phase resets the
+    counts after)."""
+    from pointtinybenchmark_tpu_torch.apis.inference import \
+        inference_detector_tiled
+
+    scores = np.concatenate([r["bboxes"][:, 4] for r in
+                             inference_detector_tiled(handle, list(frames))])
+    print(f"{label}: without the fix the seeded weights keep {scores.size} "
+          f"detections on the {len(frames)} frames"
+          + (f" (top score {scores.max():.5f})" if scores.size else ""))
+
+
 def rel_err(got, ref):
     return max(float((g.cpu() - r).abs().max() / r.abs().max())
                for g, r in zip(got, ref))
@@ -1093,9 +1118,10 @@ def phase_slice(card, frames):
     handle = init_detector(str(CONFIG), device=DEVICE, seed=0)
     model = handle.model
     head = model.bbox_head
+    unfixed("phase 3", handle, frames)
     # The focal prior (retina_cls.bias = log(0.01/0.99)) keeps every score of
-    # random weights at or below ~0.02, under score_thr 0.05: NMS would get
-    # no candidate at all. A zero bias puts scores near 0.5.
+    # the seeded weights under score_thr 0.05 (`unfixed` prints it): NMS
+    # would get no candidate at all. A zero bias puts scores near 0.5.
     with torch.no_grad():
         head.retina_cls.bias.zero_()
     print("phase 3: retina_cls.bias set to 0 so that candidates pass "
@@ -1309,13 +1335,6 @@ def phase_frcnn(card, frames):
     return launches, handle, record
 
 
-def lift_scores(model):
-    """Raise fc_cls.bias on MASK_BIAS's first classes (see there)."""
-    n, value = MASK_BIAS
-    with torch.no_grad():
-        model.roi_head.bbox_head.fc_cls.bias[:n] += value
-
-
 def slice_rois(boxes):
     """(B, P, 4) boxes -> (B * P, 5) rois, image-major, as the RoI head
     builds them."""
@@ -1461,10 +1480,6 @@ def phase_mask(card, frames):
 
     handle = init_detector(str(MASK_CONFIG), device=DEVICE, seed=0)
     model = handle.model
-    lift_scores(model)
-    n_lift, lift = MASK_BIAS
-    print(f"phase 5: fc_cls.bias +{lift} on classes 0..{n_lift - 1} so that "
-          f"scores pass score_thr (random weights put all 81 near 1/81)")
     torch.backends.cudnn.deterministic = True   # the two runs must match bit for bit
     reset_launches()
     results = inference_detector_tiled(handle, list(frames))
@@ -1544,7 +1559,6 @@ def phase_mask(card, frames):
     # head on the card's proposals and the mask branch on the card's
     # detections of that tile
     cpu_model = init_detector(str(MASK_CONFIG), device="cpu", seed=0).model
-    lift_scores(cpu_model)
     with torch.no_grad():
         t0 = tiles[:1]
         c_back = cpu_model.backbone(t0.cpu().permute(0, 3, 1, 2))
@@ -2246,9 +2260,8 @@ def replayed_steps(model, opt, state, batch, gen):
     then steps that each start from those same weights and the optimizer
     state the warm step left, restored before each: every timed or
     profiled step is one sound step from the seeded weights, however far
-    repeated steps would drive them (P2BNet's seeded weights under its
-    config's SGD turn non-finite within a few steps, and a NaN roi takes
-    RoIAlign's invalid-roi exit). Returns (run: one step, restore, check:
+    repeated steps would drive them (a diverged model's NaN rois would
+    take RoIAlign's invalid-roi exit). Returns (run: one step, restore, check:
     every step's losses finite, `nan_seen` false and the last step's
     gradients finite, else it raises; the bytes of the saved start)."""
     from pointtinybenchmark_tpu_torch.engine.train import make_train_step
@@ -2708,8 +2721,10 @@ def phase_p2p(card, frames):
 
     handle = init_detector(str(P2P_CONFIG), device=DEVICE, seed=0)
     model, head = handle.model, handle.model.bbox_head
-    # cls_out.bias = logit(0.01) keeps every score of random weights at
-    # ~0.01, under score_thr 0.05; a zero bias puts them near 0.5
+    unfixed("phase 9", handle, frames)
+    # cls_out.bias = logit(0.01) keeps every score of the seeded weights
+    # under score_thr 0.05 (`unfixed` prints it); a zero bias puts them near
+    # 0.5
     with torch.no_grad():
         head.cls_out.bias.zero_()
     print("phase 9: cls_out.bias set to 0 so that candidates pass score_thr "
@@ -2936,6 +2951,21 @@ def cpr_samples(rng, n, hw, points):
     return out
 
 
+def cpr_moved(samples, rows, radius=None):
+    """Points that refinement moved, per image; with `radius`, every row
+    is also checked: ids, finite values, and no point moved beyond it."""
+    moved = []
+    for s, r in zip(samples, rows):
+        coarse = (s["gt_bboxes"][:, :2] + s["gt_bboxes"][:, 2:]) / 2
+        d = np.linalg.norm(r["points"][:, :2] - coarse, axis=1)
+        moved.append(int((d > 1e-3).sum()))
+        if radius is not None and not (
+                np.array_equal(r["anns_id"], s["gt_anns_id"])
+                and np.isfinite(r["points"]).all() and (d <= radius).all()):
+            raise AssertionError("refined rows: ids, values or distances")
+    return moved
+
+
 def phase_cpr(card):
     """Phase 10: CPR on TinyPersonV2 at full width (ResNet-50, FPN-256 at
     stride 4, CPRHead with 4 GN(32) convs, CirclePtFeatGenerator radius 5,
@@ -2953,11 +2983,15 @@ def phase_cpr(card):
 
     cfg = Config.fromfile(str(CPR_CONFIG))
     model = train_model(cfg).eval()
-    with torch.no_grad():
-        model.bbox_head.cls_out.bias.zero_()
     samples = cpr_samples(np.random.RandomState(13), CPR_IMAGES, CPR_HW,
                           CPR_POINTS)
     collator = DetCollator(CPR_HW, max_gt=int(cfg.loader["max_gt"]))
+    moved = cpr_moved(samples, run_refine_test(model, samples, collator,
+                                               batch_size=CPR_IMAGES))
+    print(f"phase 10: without the fix the seeded weights move {moved} "
+          f"points per image")
+    with torch.no_grad():
+        model.bbox_head.cls_out.bias.zero_()
     print(f"phase 10: {CPR_CONFIG.name}, cls_out.bias set to 0 so that bag "
           f"scores pass merge_th; refinement of {CPR_IMAGES} images of "
           f"{CPR_HW} with {CPR_POINTS} coarse points each")
@@ -2967,14 +3001,7 @@ def phase_cpr(card):
     rows = run_refine_test(model, samples, collator, batch_size=CPR_IMAGES)
     refine_launches = read_launches()
     radius = 5 * 4
-    moved = []
-    for s, r in zip(samples, rows):
-        coarse = (s["gt_bboxes"][:, :2] + s["gt_bboxes"][:, 2:]) / 2
-        d = np.linalg.norm(r["points"][:, :2] - coarse, axis=1)
-        moved.append(int((d > 1e-3).sum()))
-        if not (np.array_equal(r["anns_id"], s["gt_anns_id"])
-                and np.isfinite(r["points"]).all() and (d <= radius).all()):
-            raise AssertionError("refined rows: ids, values or distances")
+    moved = cpr_moved(samples, rows, radius)
     print(f"phase 10 run_refine_test: launches {refine_launches}; "
           f"{len(rows)} images, rows {[len(r['points']) for r in rows]}, "
           f"points moved per image {moved} (every refined point within the "
@@ -3304,6 +3331,17 @@ def kernel_rows(card, label, feats, rois, lvls, g, out, sr, rois_grad=True):
     if not rois_grad:
         return fwd, bwd, None
     err, share = compare_rois_backward(g, feats, rois, lvls, out, sr)
+    counts = torch.zeros(len(roi_align_cuda.PATHS), dtype=torch.int32,
+                         device=rois.device)
+    first = roi_align_cuda.roi_align_rois_backward(
+        g, feats, rois, lvls, ROI_STRIDES, out, sr, path_counts=counts)
+    repeats = torch.equal(first, roi_align_cuda.roi_align_rois_backward(
+        g, feats, rois, lvls, ROI_STRIDES, out, sr))
+    rpaths = dict(zip(roi_align_cuda.PATHS, counts.tolist()))
+    if not repeats:
+        raise AssertionError(f"{label}: two launches of the roi-coordinate "
+                             f"kernel differ")
+    del first
     ms = time_ms(lambda: roi_align_cuda.roi_align_rois_backward(
         g, feats, rois, lvls, ROI_STRIDES, out, sr), ITERS)
     plain_ms = time_ms(lambda: rois_backward_plain(g, feats, rois, lvls, out,
@@ -3311,21 +3349,38 @@ def kernel_rows(card, label, feats, rois, lvls, g, out, sr, rois_grad=True):
     (bms, by), samples = rois_backward_bound(feats, rois, lvls, out, sr)
     print(f"phase 11 {label}: roi-coordinate kernel vs plain max abs err "
           f"{err:.3e} ({share:.3e} of its column's max, bar {ROIS_BWD_TOL}); "
-          f"{ms:.4f} ms (plain {plain_ms:.4f} in chunks of {PLAIN_CHUNK}, "
+          f"rois per path {shares(rpaths)}; a second launch equal bit for "
+          f"bit: {repeats}; {ms:.4f} ms (plain {plain_ms:.4f} in chunks of "
+          f"{PLAIN_CHUNK}, "
           f"bound {bms:.4f} {by}, {samples} in-map samples of "
           f"{r * (out * sr) ** 2}) [{card}]")
     return fwd, bwd, dict(shape=label, R=r, S=out, sr=sr, max_abs_err=err,
                           err_share=share, ms=ms, plain_ms=plain_ms,
                           bound_ms=bms, bound_by=by, per_level=per_level,
-                          in_map_samples=samples)
+                          in_map_samples=samples, paths=rpaths,
+                          repeats=repeats)
 
 
-def phase_rois_backward(card):
-    """Phase 11 (a): the roi-coordinate kernel (and K2 forward and
-    backward) against their plain versions on channels-last 256-channel
-    FPN maps of two 800x1344 images at S=7 sr=2, on `p2b_bag_rois`:
-    stage 0's bags, the negatives and the edge and bound-tie rois. Returns
-    the roi-coordinate kernel's records."""
+def budget_rois(rng, b, hw, n=BUDGET_ROIS):
+    """(n, 5) rois on `b` images of `hw`, of sizes log-uniform from 16 px
+    to the image, inside it. At S = 7 sr = BUDGET_SR on level 0 their
+    grids are over the roi-coordinate kernel's shared memory (read from
+    global memory), in its generic form (sr not 2)."""
+    h, w = hw
+    size = np.minimum(np.exp(rng.uniform(np.log(16), np.log(max(h, w)),
+                                         (n, 2))), [w, h])
+    x1 = rng.uniform(0, w - size[:, 0])
+    y1 = rng.uniform(0, h - size[:, 1])
+    return np.stack([rng.randint(0, b, n), x1, y1, x1 + size[:, 0],
+                     y1 + size[:, 1]], 1).astype(np.float32)
+
+
+def rois_backward_inputs():
+    """Phase 11 (a)'s inputs, one set at a time: (label, feats, rois, lvls,
+    upstream gradient, S, sr) on channels-last 256-channel FPN maps of two
+    800x1344 images: `p2b_bag_rois`' stage 0 bags, negatives and edge and
+    bound-tie rois at S=7 sr=2 (their levels by scale), then
+    `budget_rois` at S=7 sr=BUDGET_SR, all on level 0."""
     from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
         map_roi_levels
     from pointtinybenchmark_tpu_torch.utils.config import Config
@@ -3336,15 +3391,57 @@ def phase_rois_backward(card):
     feats = [torch.randn((2, h, w, ROI_CHANNELS), generator=gen,
                          device=DEVICE).permute(0, 3, 1, 2)
              for h, w in P2B_LEVELS]
-    rows = []
     for kind in ("cbp", "neg", "edge"):
         rois = torch.from_numpy(p2b_bag_rois(rng, cfg, kind)).to(DEVICE)
         lvls = map_roi_levels(rois, len(P2B_LEVELS))
         g = torch.randn((rois.shape[0], ROI_CHANNELS, 7, 7), generator=gen,
                         device=DEVICE)
-        rows.append(kernel_rows(card, f"p2b {kind} rois", feats, rois, lvls,
-                                g, 7, 2)[2])
-    del feats
+        yield f"p2b {kind} rois", feats, rois, lvls, g, 7, 2
+    rois = torch.from_numpy(budget_rois(
+        rng, 2, tuple(cfg.loader["pad_shape"]))).to(DEVICE)
+    lvls = torch.zeros(rois.shape[0], dtype=torch.int64, device=DEVICE)
+    g = torch.randn((rois.shape[0], ROI_CHANNELS, 7, 7), generator=gen,
+                    device=DEVICE)
+    yield "rois on level 0 up to the whole image", feats, rois, lvls, g, 7, \
+        BUDGET_SR
+
+
+def phase_rois_backward(card):
+    """Phase 11 (a): the roi-coordinate kernel (and K2 forward and
+    backward) against their plain versions on `rois_backward_inputs`,
+    each launch repeated bit for bit, the rois on each of the kernel's
+    paths (every path taken somewhere). Returns the roi-coordinate
+    kernel's records."""
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+
+    rows = []
+    for label, feats, rois, lvls, g, out, sr in rois_backward_inputs():
+        rows.append(kernel_rows(card, label, feats, rois, lvls, g, out,
+                                sr)[2])
+        last = feats, rois, lvls, g
+    # rois out of range (batch index 2, -1, NaN; level 7) get zeros
+    feats, rois, lvls, g = last
+    bad, bad_lvls = rois[:4].clone(), lvls[:4].clone()
+    bad[:3, 0] = torch.tensor([2.0, -1.0, float("nan")], device=DEVICE)
+    bad_lvls[3] = 7
+    counts = torch.zeros(len(roi_align_cuda.PATHS), dtype=torch.int32,
+                         device=DEVICE)
+    zero = roi_align_cuda.roi_align_rois_backward(
+        g[:4], feats, bad, bad_lvls, ROI_STRIDES, 7, BUDGET_SR,
+        path_counts=counts)
+    invalid = dict(zip(roi_align_cuda.PATHS, counts.tolist()))
+    print(f"phase 11 (a) roi-coordinate kernel on 4 rois out of range: "
+          f"rois per path {shares(invalid)}, all zero "
+          f"{bool((zero == 0).all())}")
+    if invalid["invalid"] != 4 or not bool((zero == 0).all()):
+        raise AssertionError(f"rois out of range: {invalid}, {zero}")
+    paths = {k: sum(r["paths"][k] for r in rows) + invalid[k]
+             for k in invalid}
+    print(f"phase 11 (a) roi-coordinate kernel, rois per path over its "
+          f"{len(rows)} launch shapes: {shares(paths)}")
+    if not all(paths.values()):
+        raise AssertionError(f"a path of the roi-coordinate kernel is never "
+                             f"taken: {paths}")
     return rows
 
 
@@ -3405,8 +3502,11 @@ def step_launches(model, cfg, batch):
 def p2b_step_rows(card, label, fwd, bwd, rbw, slots):
     """The three kernels on one train step's recorded launches
     (`kernel_rows`), each bag pass by its rois: `slots` gt slots times the
-    bag's size. Returns the forward, backward and roi-coordinate records."""
+    bag's size. Returns the forward, backward and roi-coordinate records,
+    and a function that adds the backward's device times from a profile
+    (`add_device_ms`), to be run after every timing of the run."""
     rows = ([], [], [])
+    later = []
     for (feats, rois, lvls, _, out, sr, _), _, _ in fwd:
         r = rois.shape[0]
         g = next(args[0] for args, _, _ in bwd if args[0].shape[0] == r)
@@ -3417,7 +3517,13 @@ def p2b_step_rows(card, label, fwd, bwd, rbw, slots):
         for rec, acc in zip(recs, rows):
             if rec is not None:
                 acc.append(rec)
-    return rows
+        later.append((recs[1], g, rois.detach(), lvls,
+                      [tuple(f.shape) for f in feats], out, sr))
+
+    def device_times():
+        for rec, *args in later:
+            add_device_ms(card, rec, *args, phase="11")
+    return rows, device_times
 
 
 def refine_run(card, label, model, samples, collator, spg, expected,
@@ -3615,8 +3721,9 @@ def phase_p2b(card):
     # the launches of a step from the seeded weights (after the timing, so
     # that the peak above is the step's own)
     model.load_state_dict(init)
-    step_rows = p2b_step_rows(card, "p2bnet train", *step_launches(
-        model, cfg, batch), spg * max_gt)
+    step_rows, step_bwd_times = p2b_step_rows(
+        card, "p2bnet train", *step_launches(model, cfg, batch),
+        spg * max_gt)
     del model, init
 
     # (c) refinement
@@ -3645,8 +3752,9 @@ def phase_p2b(card):
     _, ssd_profile = time_step(card, "11 (d)", "ssd_det_train", scfg, smodel,
                                sbatch, held, spg)
     smodel.load_state_dict(sinit)
-    ssd_rows = p2b_step_rows(card, "ssd_det train", *step_launches(
-        smodel, scfg, sbatch), spg * max_gt)
+    ssd_rows, ssd_bwd_times = p2b_step_rows(
+        card, "ssd_det train", *step_launches(smodel, scfg, sbatch),
+        spg * max_gt)
     step_rows = tuple(a + b for a, b in zip(step_rows, ssd_rows))
     del smodel, sinit, sbatch
     ssd_refine = p2b_samples(np.random.RandomState(21), P2B_REFINE_IMAGES,
@@ -3657,6 +3765,8 @@ def phase_p2b(card):
 
     def profiles():
         step_profile()
+        step_bwd_times()
+        ssd_bwd_times()
         device_profile(card, refine, "p2bnet_refine", PROFILE_CALLS,
                        f"warm refine_test calls of {spg} images")
         ssd_profile()
@@ -3667,6 +3777,66 @@ def phase_p2b(card):
                "ssd_det_train": ssd_launches,
                "ssd_det_refine": ssd_refine_launches}
     return by_path, step_rows, profiles
+
+
+# ------------------------------------- (f) the port's seeded weights train
+def seeded_steps(card, label, cfg, batch):
+    """P2B_SEEDED_STEPS SGD steps of the config's model from
+    `build_detector(seed=0)`, at the config's schedule (as `time_step`
+    builds it: 4 iterations an epoch, 12 epochs, so step i runs at
+    iteration i's warmup lr), on `batch` repeated. Returns the total losses
+    and whether every metric stayed finite with `nan_seen` false."""
+    from pointtinybenchmark_tpu_torch.engine.optimizer import build_optimizer
+    from pointtinybenchmark_tpu_torch.engine.train import (init_train_state,
+                                                           make_train_step)
+
+    model = train_model(cfg)
+    opt = build_optimizer(model, cfg.optimizer, cfg.get("optimizer_config"),
+                          cfg.get("lr_config"), 4, 12,
+                          model.backbone.frozen_stages)
+    step = make_train_step(model, opt)
+    state = init_train_state(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    seen = [step(state, batch, gen) for _ in range(P2B_SEEDED_STEPS)]
+    losses = [float(m["loss"]) for m in seen]
+    finite = all(bool(torch.isfinite(v).all()) for m in seen
+                 for v in m.values()) and not any(
+        bool(m["nan_seen"]) for m in seen)
+    head, tail = np.mean(losses[:4]), np.mean(losses[-4:])
+    print(f"phase 11 (f) {label} from build_detector(seed=0), "
+          f"{P2B_SEEDED_STEPS} SGD steps at the config's schedule on one "
+          f"batch of 2 images: losses {[round(v, 4) for v in losses]}; "
+          f"finite {finite}; mean of the first 4 {head:.4f}, of the last 4 "
+          f"{tail:.4f} [{card}]")
+    return losses, finite
+
+
+def phase_seeded(card):
+    """Phase 11 (f): the port's seeded weights train. P2BNet (held): every
+    loss of `seeded_steps` finite and the mean of the last 4 below that of
+    the first 4. SSD-Det's run is printed, not held: the JAX package's own
+    SSD-Det diverges at this schedule too (ROADMAP.md queue 3)."""
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.train import batch_to_device
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    runs = {}
+    for label, path, kind, seed in (("P2BNet", P2B_CONFIG, "point", 17),
+                                    ("SSD-Det", SSD_CONFIG, "box", 20)):
+        cfg = Config.fromfile(str(path))
+        max_gt = int(cfg.loader["max_gt"])
+        nk = (dict(cfg.data["train"]["noise_kwargs"]) if kind == "point"
+              else None)
+        samples = p2b_samples(np.random.RandomState(seed), 2, nk, kind=kind,
+                              gts=max_gt)
+        batch = batch_to_device(DetCollator(tuple(cfg.loader["pad_shape"]),
+                                            max_gt=max_gt)(samples), DEVICE)
+        runs[label] = seeded_steps(card, label, cfg, batch)
+    losses, finite = runs["P2BNet"]
+    if not finite or not np.mean(losses[-4:]) < np.mean(losses[:4]):
+        raise AssertionError(f"the port's seeded P2BNet does not train: "
+                             f"{losses}")
+    return runs
 
 
 # ------------------------------------------- (e) learnability on the card
@@ -3795,6 +3965,8 @@ def main():
     lap("phase 11 (a)")
     p2b_by_path, p2b_rows, p2b_profiles = phase_p2b(card)
     lap("phase 11 (b)-(d)")
+    phase_seeded(card)
+    lap("phase 11 (f)")
     phase_learn(card)
     lap("phase 11 (e)")
     # the profiles last: once torch.profiler has traced the card, later

@@ -19,7 +19,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..utils import kaiming_init
+from ..utils import lecun_normal_
 
 __all__ = ["ResNet", "BasicBlock", "Bottleneck", "FlaxBatchNorm2d"]
 
@@ -134,9 +134,11 @@ class ResNet(nn.Module):
             planes *= 2
 
     def init_weights(self, generator: torch.Generator) -> None:
+        """Every conv flax's default (`lecun_normal_`), as the JAX
+        ResNet's nn.Conv; BN's scale 1, bias 0, statistics 0 and 1."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
-                kaiming_init(m, generator)
+                lecun_normal_(m, generator)
 
     def train(self, mode: bool = True) -> "ResNet":
         # norm_eval: BN keeps using its running statistics

@@ -80,7 +80,10 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
     """Build a detector with seeded random weights, in eval mode, on
     `device` (the card unless the caller asks for the CPU). Weights are
     drawn on the CPU from `torch.Generator` seeded with `seed`, so a seed
-    gives the same weights on every device. A single-stage detector's head
+    gives the same weights on every device, each parameter from the
+    distribution its JAX twin's initialiser draws (flax's lecun_normal
+    wherever the JAX module sets none); the two RNGs differ, so equal
+    seeds give different numbers. A single-stage detector's head
     gets `train_cfg` and `test_cfg` (JAX single_stage.py:38-43); a
     two-stage detector's RPN gets `train_cfg["rpn"]` and
     `test_cfg["rpn"]`, its RoI head `train_cfg["rcnn"]` and

@@ -46,7 +46,8 @@ from torch import nn
 
 from ...ops.grid_sample import point_sample_pixel
 from ..losses import MILLoss
-from ..utils import ConvModule, bias_init_with_prob, normal_init, one_hot
+from ..utils import (ConvModule, bias_init_with_prob, lecun_normal_,
+                     normal_init, one_hot)
 
 __all__ = ["CPRHead", "CascadeCPRHead", "circle_offsets", "grid_offsets",
            "bag_keep_mask"]
@@ -162,10 +163,11 @@ class CPRHead(nn.Module):
         return cfg
 
     def init_weights(self, generator: torch.Generator) -> None:
-        """Convs and linears normal(0.01), biases 0, cls_out's bias the 0.01
-        prior; GN's scale 1 and bias 0."""
+        """As the JAX head's: the stacked convs flax's default
+        (`lecun_normal_`), the linears normal(0.01), biases 0 but cls_out's,
+        the 0.01 prior; GN's scale 1 and bias 0."""
         for m in self.cls_convs:
-            normal_init(m.conv, 0.01, generator)
+            lecun_normal_(m.conv, generator)
         normal_init(self.cls_out, 0.01, generator,
                     bias=bias_init_with_prob(0.01))
         normal_init(self.ins_out, 0.01, generator)

@@ -38,7 +38,6 @@ stage's first FC.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,7 +47,7 @@ from torch import nn
 from ...ops.iou import bbox_overlaps
 from ..losses import MILLoss
 from ..roi_heads.roi_extractor import single_roi_extract
-from ..utils import one_hot
+from ..utils import lecun_normal_, one_hot
 
 __all__ = ["P2BNetHead", "SSDDetHead", "cbp_proposals", "pbr_proposals",
            "merge_boxes"]
@@ -174,15 +173,11 @@ class P2BNetHead(nn.Module):
                    num_classes) for _ in range(1 + pbr_stages))
 
     def init_weights(self, generator: torch.Generator) -> None:
-        """flax Dense's initialiser: the kernel from a normal of standard
-        deviation sqrt(1 / fan_in) / 0.8796 truncated at two of them
-        (lecun_normal), biases 0."""
+        """Every linear flax Dense's default (`lecun_normal_`), as the JAX
+        head's."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
-                std = math.sqrt(1.0 / m.in_features) / .87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                nn.init.zeros_(m.bias)
+                lecun_normal_(m, generator)
 
     # ----------------------------------------------------------- network
     def _mil_scores(self, stage: _Stage, feats: Sequence[torch.Tensor],

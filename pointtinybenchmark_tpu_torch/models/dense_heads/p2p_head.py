@@ -29,7 +29,8 @@ from ...core.anchors import PointGenerator
 from ...core.assigners import HungarianAssignerV2, topk_auction_match
 from ...core.post_processing import DetResult, multiclass_nms
 from ..losses import build_loss
-from ..utils import ConvModule, bias_init_with_prob, normal_init
+from ..utils import (ConvModule, bias_init_with_prob, lecun_normal_,
+                     normal_init)
 
 __all__ = ["P2PHead"]
 
@@ -82,11 +83,11 @@ class P2PHead(nn.Module):
         return len(self.point_anchor)
 
     def init_weights(self, generator: torch.Generator) -> None:
-        """Conv kernels normal(0.01), biases 0, cls_out's bias the 0.01
-        prior, GN's scale 1 and bias 0 (the JAX head's convs keep flax's
-        default init; the seeded draw here is the port's own)."""
+        """As the JAX head's: the stacked convs flax's default
+        (`lecun_normal_`), the output convs normal(0.01), biases 0 but
+        cls_out's, the 0.01 prior; GN's scale 1 and bias 0."""
         for m in list(self.cls_convs) + list(self.reg_convs):
-            normal_init(m.conv, 0.01, generator)
+            lecun_normal_(m.conv, generator)
         normal_init(self.cls_out, 0.01, generator,
                     bias=bias_init_with_prob(0.01))
         normal_init(self.reg_out, 0.01, generator)

@@ -13,7 +13,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..utils import ConvModule, bias_init_with_prob, normal_init
+from ..utils import (ConvModule, bias_init_with_prob, lecun_normal_,
+                     normal_init)
 from .anchor_head import AnchorHead
 
 __all__ = ["RetinaHead"]
@@ -51,8 +52,11 @@ class RetinaHead(AnchorHead):
         self.retina_reg = nn.Conv2d(chans[-1], a * 4, 3, padding=1)
 
     def init_weights(self, generator: torch.Generator) -> None:
+        """The stacked convs flax's default (`lecun_normal_`), the output
+        convs normal(0.01) with the 0.01 prior on `retina_cls`'s bias, as
+        the JAX head's."""
         for conv in list(self.cls_convs) + list(self.reg_convs):
-            normal_init(conv.conv, 0.01, generator)
+            lecun_normal_(conv.conv, generator)
         normal_init(self.retina_cls, 0.01, generator,
                     bias=bias_init_with_prob(0.01))
         normal_init(self.retina_reg, 0.01, generator)

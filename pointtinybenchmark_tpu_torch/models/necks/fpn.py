@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils import ConvModule, xavier_init
+from ..utils import ConvModule, lecun_normal_
 
 __all__ = ["FPN"]
 
@@ -58,9 +58,10 @@ class FPN(nn.Module):
         self.fpn_convs = nn.ModuleList(convs)
 
     def init_weights(self, generator: torch.Generator) -> None:
+        """Every conv flax's default (`lecun_normal_`), as the JAX FPN's."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
-                xavier_init(m, generator)
+                lecun_normal_(m, generator)
 
     def forward(self, inputs):
         if len(inputs) != len(self.in_channels):

@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils import lecun_normal_
+
 __all__ = ["Shared2FCBBoxHead"]
 
 
@@ -43,9 +45,10 @@ class Shared2FCBBoxHead(nn.Module):
                                 4 if reg_class_agnostic else 4 * num_classes)
 
     def init_weights(self, generator: torch.Generator) -> None:
+        """The shared FCs flax Dense's default (`lecun_normal_`), fc_cls
+        normal(0.01) and fc_reg normal(0.001), biases 0, as the JAX head's."""
         for fc in self.shared_fcs:
-            nn.init.xavier_uniform_(fc.weight, generator=generator)
-            nn.init.zeros_(fc.bias)
+            lecun_normal_(fc, generator)
         for fc, std in ((self.fc_cls, 0.01), (self.fc_reg, 0.001)):
             nn.init.normal_(fc.weight, 0.0, std, generator=generator)
             nn.init.zeros_(fc.bias)

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from ...ops.roi_align import roi_align
-from ..utils import ConvModule, kaiming_init, normal_init
+from ..utils import ConvModule, lecun_normal_, normal_init
 
 __all__ = ["FCNMaskHead", "mask_target"]
 
@@ -45,9 +45,11 @@ class FCNMaskHead(nn.Module):
         self.conv_logits = nn.Conv2d(conv_out_channels, num_classes, 1)
 
     def init_weights(self, generator: torch.Generator) -> None:
+        """The convs and the upsample flax's default (`lecun_normal_`),
+        conv_logits normal(0.001), biases 0, as the JAX head's."""
         for m in self.convs:
-            kaiming_init(m.conv, generator)
-        kaiming_init(self.upsample, generator)
+            lecun_normal_(m.conv, generator)
+        lecun_normal_(self.upsample, generator)
         normal_init(self.conv_logits, 0.001, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

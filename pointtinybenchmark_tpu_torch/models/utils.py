@@ -8,7 +8,7 @@ import torch
 from torch import nn
 
 __all__ = ["ConvModule", "bias_init_with_prob", "normal_init",
-           "kaiming_init", "xavier_init", "one_hot"]
+           "lecun_normal_", "one_hot"]
 
 
 def bias_init_with_prob(prior_prob: float) -> float:
@@ -30,15 +30,21 @@ def normal_init(m: nn.Conv2d, std: float, generator: torch.Generator,
         nn.init.constant_(m.bias, bias)
 
 
-def kaiming_init(m: nn.Conv2d, generator: torch.Generator) -> None:
-    nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu",
-                            generator=generator)
-    if m.bias is not None:
-        nn.init.zeros_(m.bias)
-
-
-def xavier_init(m: nn.Conv2d, generator: torch.Generator) -> None:
-    nn.init.xavier_uniform_(m.weight, generator=generator)
+def lecun_normal_(m: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initialiser, which the JAX modules use wherever they
+    set none: the kernel from a normal of standard deviation
+    sqrt(1 / fan_in) / 0.8796 truncated at two of them (lecun_normal), the
+    bias 0. fan_in is flax's, from the JAX kernel's layout: `in` for
+    nn.Dense and kh * kw * in for nn.Conv and nn.ConvTranspose. The port's
+    ConvTranspose2d weight is (in, out, kh, kw), on which torch's own fan
+    calculation would count `out`."""
+    w = m.weight
+    if isinstance(m, nn.ConvTranspose2d):
+        fan_in = w.shape[0] * w.shape[2] * w.shape[3]
+    else:
+        fan_in = w[0].numel()           # (out, in[, kh, kw])
+    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
     if m.bias is not None:
         nn.init.zeros_(m.bias)
 

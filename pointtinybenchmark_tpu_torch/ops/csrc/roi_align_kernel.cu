@@ -115,6 +115,49 @@
 // flush adds nothing measurable); at S = 7 sr = 1 the gather and the
 // flush, a third of the time (scalar atomics would double it).
 // A roi whose batch index or level is out of range writes nothing.
+//
+// The roi-coordinate kernel (roi_align_rois_backward_kernel) replaces no
+// Pallas kernel: the Pallas custom_vjp gives the rois zeros, and JAX
+// differentiates P2BNet's bags through XLA's autodiff of the gather form,
+// pointtinybenchmark_tpu/ops/roi_align.py:111 roi_align_multilevel. It
+// computes that gradient with respect to each roi's x1, y1, x2, y2: per
+// in-map sample, g . (wy0 (v01 - v00) + wy1 (v11 - v10)) along x (and the
+// transpose along y), carried to the two edges by the sample's offset, with
+// jnp.clip's 0.5 on a clamp bound, then 1 / stride. What bounds it on this
+// card: bytes, the upstream gradient read once (0.50 GB at R = 10,000, S =
+// 7, C = 256: ~0.15 ms at 3.35 TB/s), the maps' distinct cells the taps
+// touch and the (R, 4) output; its arithmetic is far below the f32 rate.
+// The first version (one block a roi, a thread per (sample, 4 channels),
+// four 16-byte loads of the map per sample from L2, the upstream gradient
+// transposed through shared memory with 8-way bank conflicts, every
+// multiply-add rounded twice) ran at 11-17% of that bound: P2BNet's padded
+// gt slots put 80-85% of a step's rois at the origin, half or more of
+// their samples off the map, and small windows repeat their taps ~10x.
+// This one (one block a roi, 4 an SM):
+//
+// 1. Walks each bin's distinct cells, not its samples' taps: per axis the
+//    bin's in-map taps are merged by map cell, their weights and chain
+//    factors summed (`BinTap`); a sample is in the map when it is along
+//    both axes, so the per-axis sums factor. A group of 16 lanes takes a
+//    bin and 64 channels, a lane 4 of them: one 16-byte load a cell, q =
+//    g . v once per cell, then q times the two axes' factors into the
+//    lane's four sums. A small window's bin reads ~4 cells, not 16 taps.
+//    A roi with no sample in the map reads nothing; bins, and bin rows
+//    of the upstream gradient, with none are skipped.
+// 2. Stages, with cp.async in two buffers each, each 64-channel chunk's
+//    upstream gradient (its active rows; read in place, lanes on
+//    consecutive channels: no transpose, no bank conflict) and, where it
+//    pays, the roi's grid of map cells (the forward's `axis_map`: per axis
+//    the window or the tap slots, whichever is shorter; in bands of
+//    output rows where it exceeds a buffer). Chunk t + 1 is in flight
+//    while chunk t computes. The grid is staged only where its bins read
+//    its cells kRoisMinReuse times or more; elsewhere (and where even one
+//    band does not fit) the cells are read from the map, through L1.
+// 3. Rounds each multiply-add once (__fmaf_rn: -fmad=false leaves the
+//    intrinsic alone); autograd's chain sums g . v per tap before it
+//    weights the taps, and so does this.
+// The threads' sums and the block reduction run in a fixed order, with no
+// atomics: a launch repeats bit for bit.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -246,10 +289,10 @@ struct AxisMap {
   int n;     // grid cells along the axis
 };
 
-__device__ __forceinline__ AxisMap axis_map(const Tap* t, int first,
-                                            int last) {
-  const Tap a = t[first];
-  const Tap b = t[last];
+template <class T>
+__device__ __forceinline__ AxisMap axis_map(const T* t, int first, int last) {
+  const T a = t[first];
+  const T b = t[last];
   const int lo = min(a.i0 & kCell, b.i0 & kCell);
   const int window = max(a.i1, b.i1) - lo + 1;
   const int slots = 2 * (last - first + 1);
@@ -258,16 +301,18 @@ __device__ __forceinline__ AxisMap axis_map(const Tap* t, int first,
 }
 
 // the rows of band `band` of bh output rows
-__device__ __forceinline__ AxisMap band_map(const Tap* ty, int band, int bh,
+template <class T>
+__device__ __forceinline__ AxisMap band_map(const T* ty, int band, int bh,
                                             int out_size, int sr) {
   return axis_map(ty, band * bh * sr, min(out_size, (band + 1) * bh) * sr - 1);
 }
 
 // the map row (or column) of grid cell j
-__device__ __forceinline__ int grid_source(const Tap* t, const AxisMap& m,
+template <class T>
+__device__ __forceinline__ int grid_source(const T* t, const AxisMap& m,
                                            int j) {
   if (m.lo >= 0) return m.lo + j;
-  const Tap a = t[m.first + (j >> 1)];
+  const T a = t[m.first + (j >> 1)];
   return (j & 1) ? a.i1 : a.i0 & kCell;
 }
 
@@ -1059,135 +1104,411 @@ __device__ __forceinline__ void roi_tap_table(const Levels& lv,
   }
 }
 
-// 4 channels of a map cell (n of them exist; with kVec a 16-byte load)
-template <bool kVec>
-__device__ __forceinline__ float4 load_cell(const float* p, int n) {
-  if constexpr (kVec) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  } else {
-    float v[4];
+// a * b + c, rounded once (-fmad=false leaves the intrinsic alone)
+__device__ __forceinline__ float rfma(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+
+// One distinct cell that the in-map samples of a bin read along one axis,
+// and the sums over the taps of those samples that read it: `a` of the
+// tap weights (w0 or w1), b1 and b2 of the chain factors d1 and d2 times
+// -1 for tap 0 and +1 for tap 1 (the derivative of the tap weights with
+// respect to the coordinate). `cell`: the grid row times the grid's row
+// length, or the grid column (staged); the map row times W, or the map
+// column (global path).
+struct __align__(16) BinTap {
+  int cell;
+  float a, b1, b2;
+};
+
+// shared memory of the roi-coordinate kernel besides its two stage
+// buffers: the RoiTap tables, and per bin row and column its BinTaps
+// (2 sr at most), their first taps' slots and their count
+__host__ __device__ __forceinline__ size_t rois_bwd_tables(int out_size,
+                                                           int sr) {
+  return 2 * static_cast<size_t>(out_size) * sr * sizeof(RoiTap)
+         + 2 * static_cast<size_t>(out_size) * 2 * sr
+               * (sizeof(BinTap) + sizeof(int))
+         + 2 * static_cast<size_t>(out_size) * sizeof(int);
+}
+
+// a roi's grid is staged only where its bins read at least this many of
+// its cells for each one staged; below that the copy costs more than the
+// reads it saves (measured: roi_align_ablation.py --part rois)
+constexpr int kRoisMinReuse = 2;
+
+// The gather of one stage (a chunk of `width` <= kc channels) for the
+// output rows [oy_begin, oy_end): a group of kc / 4 lanes takes a bin
+// (two bins a warp at kc = 64), lane i of it channels 4 i .. 4 i + 3 of
+// the chunk (one 16-byte load a cell). For each distinct cell (cy, cx) of
+// the bin (the rows `tab` lists for its bin row, times the columns it
+// lists for its bin column) a lane takes q = its channels' upstream
+// gradient . the cell's, and adds
+//   x1: q * Ay(cy) * B1x(cx)   y1: q * B1y(cy) * Ax(cx)
+//   x2: q * Ay(cy) * B2x(cx)   y2: q * B2y(cy) * Ax(cx)
+// to acc (x1, y1, x2, y2): the sum over the bin's in-map samples s and
+// their taps (a, b) of g . v_ab(s) times d(w_a(s) w_b(s)) / d(edge), which
+// is the plain version's chain regrouped by cell (a sample is in the map
+// when it is along both axes, so the per-axis sums factor). A bin's taps
+// repeat where its samples are closer than a cell: each is read once. A
+// bin with no in-map sample is skipped. `cells(cell, c)` reads channels
+// c .. c + 3 of the chunk (staged, or from the map), `grad(c, bin)` one
+// channel's upstream gradient (staged, or from the input). kSr: sr when
+// known at compile time (the loops over a bin's entries unrolled), else
+// 0.
+template <int kSr, class Cells, class Grad>
+__device__ __forceinline__ void rois_gather(
+    const Cells& cells, const Grad& grad, int kc, int width,
+    float inv_count, const BinTap* tab, const int* cnt, int out_size,
+    int kt, int oy_begin, int oy_end, float* acc) {
+  constexpr int kT = kSr > 0 ? 2 * kSr : 1;
+  const int S = out_size;
+  const int group = kc / 4;                            // lanes a bin
+  const int c = 4 * (threadIdx.x % group);             // the lane's channels
+  if (c >= width) return;
+  for (int bin = oy_begin * S + threadIdx.x / group; bin < oy_end * S;
+       bin += kThreads / group) {
+    const int oy = bin / S;
+    const int ox = bin - oy * S;
+    const BinTap* ey = tab + oy * kt;
+    const BinTap* ex = tab + (S + ox) * kt;
+    const int ny = cnt[oy];
+    const int nx = cnt[S + ox];
+    if (ny == 0 || nx == 0) continue;
+    float g[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = j < n ? __ldg(p + j) : 0.0f;
-    return make_float4(v[0], v[1], v[2], v[3]);
+    for (int q = 0; q < 4; ++q) {
+      g[q] = c + q < width ? __fmul_rn(grad(c + q, bin), inv_count) : 0.0f;
+    }
+#pragma unroll(kSr > 0 ? kT : 1)
+    for (int j = 0; j < (kSr > 0 ? kT : ny); ++j) {
+      if (kSr > 0 && j >= ny) continue;
+      const BinTap ye = ey[j];
+      float r1 = 0.0f;
+      float r2 = 0.0f;
+      float ra = 0.0f;
+      auto term = [&](const BinTap& xe) {
+        const float4 v = cells(ye.cell + xe.cell, c);
+        const float q = rfma(g[3], v.w, rfma(g[2], v.z,
+                            rfma(g[1], v.y, __fmul_rn(g[0], v.x))));
+        r1 = rfma(q, xe.b1, r1);
+        r2 = rfma(q, xe.b2, r2);
+        ra = rfma(q, xe.a, ra);
+      };
+      if constexpr (kSr > 0) {
+#pragma unroll
+        for (int i = 0; i < kT; ++i) {
+          if (i < nx) term(ex[i]);
+        }
+      } else {
+        for (int i = 0; i < nx; ++i) term(ex[i]);
+      }
+      acc[0] = rfma(ye.a, r1, acc[0]);
+      acc[1] = rfma(ye.b1, ra, acc[1]);
+      acc[2] = rfma(ye.a, r2, acc[2]);
+      acc[3] = rfma(ye.b2, ra, acc[3]);
+    }
   }
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a.x, b.x),
-                                       __fmul_rn(a.y, b.y)),
-                             __fmul_rn(a.z, b.z)),
-                   __fmul_rn(a.w, b.w));
-}
+// a stage's staged cells: kc floats a cell (0 past the map's channels)
+struct StagedCells {
+  const float* cells;
+  int kc;
+  __device__ __forceinline__ float4 operator()(int cell, int c) const {
+    return *reinterpret_cast<const float4*>(cells + cell * kc + c);
+  }
+};
 
-// wa * (hi_a - lo_a) + wb * (hi_b - lo_b), channel by channel: the
-// derivative of a bilinear sample along one axis
-__device__ __forceinline__ float4 axis_diff(float wa, float4 lo_a,
-                                            float4 hi_a, float wb,
-                                            float4 lo_b, float4 hi_b) {
-  return f4_add(f4_scale(make_float4(__fsub_rn(hi_a.x, lo_a.x),
-                                     __fsub_rn(hi_a.y, lo_a.y),
-                                     __fsub_rn(hi_a.z, lo_a.z),
-                                     __fsub_rn(hi_a.w, lo_a.w)), wa),
-                f4_scale(make_float4(__fsub_rn(hi_b.x, lo_b.x),
-                                     __fsub_rn(hi_b.y, lo_b.y),
-                                     __fsub_rn(hi_b.z, lo_b.z),
-                                     __fsub_rn(hi_b.w, lo_b.w)), wb));
-}
+// the cells from the map: `base` at the chunk's first channel, a cell is
+// its map row * W + column; with kVec one 16-byte load, else the channels
+// past `width` read as 0
+template <bool kVec>
+struct MapCells {
+  const float* base;
+  size_t cs;
+  int width;
+  __device__ __forceinline__ float4 operator()(int cell, int c) const {
+    const float* p = base + cell * cs + c;
+    if constexpr (kVec) {
+      return __ldg(reinterpret_cast<const float4*>(p));
+    } else {
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = c + q < width ? __ldg(p + q) : 0.0f;
+      return make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+};
 
-// shared memory of the roi-coordinate kernel: the staged chunk of cw
-// channels of every bin (rows of cw + 4 floats) and the two tap tables
-__host__ __device__ __forceinline__ size_t rois_bwd_smem(int out_size,
-                                                         int sr, int cw) {
-  return static_cast<size_t>(out_size) * out_size * (cw + 4) * sizeof(float)
-         + 2 * static_cast<size_t>(out_size) * sr * sizeof(RoiTap);
-}
+// a chunk's upstream gradient as copied: (channel, bin), or the input's
+// (C, S, S) at the chunk's first channel
+template <bool kLdg>
+struct StageGrad {
+  const float* g;
+  int bins;
+  __device__ __forceinline__ float operator()(int c, int bin) const {
+    const float* p = g + c * bins + bin;
+    return kLdg ? __ldg(p) : *p;
+  }
+};
 
 // Block r: the gradient of roi r's RoIAlign output with respect to its
-// coordinates, grad_rois[r] = (x1, y1, x2, y2). For every in-map sample
-// (iy, ix) and channel c, with g the upstream gradient of the sample's bin
-// times 1 / sr^2 and v00..v11 its four taps:
-//   d/dx = g (wy0 (v01 - v00) + wy1 (v11 - v10)),
-//   d/dy = g (wx0 (v10 - v00) + wx1 (v11 - v01)),
-// carried to the edges by the samples' RoiTap factors and, at the end, by
-// 1 / stride. A thread owns (sample, 4 channels) units of a chunk of cw
-// channels, the chunk's upstream gradient staged in shared memory as
-// (bin, channel); it keeps four partial sums, and one block reduction in a
-// fixed order gives the four values: no atomics. A roi whose batch index
-// or level is out of range gets zeros.
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
+// coordinates, grad_rois[r] = (x1, y1, x2, y2), times 1 / stride at the
+// end (see the note at the top). A stage is one band of output rows of
+// one chunk of kc channels (64, or 32 where two of its gradient buffers
+// would not fit): unless the roi takes the global path, the band's grid
+// of map cells (kc floats a cell, `cap` cells at most), in one of two
+// cell buffers; with a chunk's first band, the chunk's upstream gradient
+// of the bin rows that have an in-map sample, in one of two gradient
+// buffers (so a chunk's gradient is copied once for all its bands). The
+// roi's whole grid when it fits, else bands of as many of those rows as
+// fit; a roi whose grid does not fit even in bands of one row reads its
+// cells from the map (the global path), its gradient still staged. A roi
+// with no sample in the map reads nothing and gets zeros. gstage = 0 (S
+// too large for a staged chunk): nothing is staged. The block's threads
+// sum in a fixed order, and one block reduction gives the four values: no
+// atomics. A roi whose batch index or level is out of range gets zeros.
+// `path_counts` as the forward's.
+template <bool kVec, int kSr>
+__global__ void __launch_bounds__(kThreads, 4)
 roi_align_rois_backward_kernel(const Levels lv, int channels,
                                const float* __restrict__ rois,
                                const int* __restrict__ lvls, int out_size,
-                               int sr, int aligned, int cw,
+                               int sr, int aligned, int kc, int cap,
+                               int gstage,
                                const float* __restrict__ grad_out,
-                               float* __restrict__ grad_rois) {
+                               float* __restrict__ grad_rois,
+                               int* __restrict__ path_counts) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float partial[4][kThreads / 32];
   const int s = out_size * sr;
   const int bins = out_size * out_size;
-  const int ld = cw + 4;
-  float* gs = smem;                                    // bins rows of ld
-  RoiTap* ty = reinterpret_cast<RoiTap*>(gs + bins * ld);
-  RoiTap* tx = ty + s;
+  const int kt = 2 * sr;
+  const int gsz = gstage ? kc * bins : 0;              // a chunk's gradient
+  float* gbufs = smem;                                 // 2 * gsz
+  float* cbufs = gbufs + 2 * gsz;                      // 2 * cap * kc
+  RoiTap* ty = reinterpret_cast<RoiTap*>(cbufs + 2 * cap * kc);   // s
+  RoiTap* tx = ty + s;                                 // s
+  BinTap* tab = reinterpret_cast<BinTap*>(tx + s);     // 2 S kt
+  int* slots = reinterpret_cast<int*>(tab + 2 * out_size * kt);   // 2 S kt
+  int* cnt = slots + 2 * out_size * kt;                // 2 S
 
   const size_t r = blockIdx.x;
   const float* roi = rois + r * 5;
   const int l = lvls[r];
+  const bool count = path_counts != nullptr && threadIdx.x == 0;
   if (!valid_roi(lv, roi, l)) {
     if (threadIdx.x < 4) grad_rois[r * 4 + threadIdx.x] = 0.0f;
+    if (count) atomicAdd(path_counts + kInvalid, 1);
     return;
   }
   roi_tap_table(lv, roi, l, out_size, sr, aligned, ty, tx);
+  __syncthreads();
   const int hl = lv.h[l];
   const int wl = lv.w[l];
   const size_t cs = static_cast<size_t>(channels);
   const float* feat = lv.feat[l] + static_cast<size_t>(roi[0]) * hl * wl * cs;
   const float* src = grad_out + r * cs * bins;          // the roi's (C, S, S)
   const float inv_count = bin_scale(sr);
-  const int groups = cw / 4;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};             // x1, y1, x2, y2
+  const int n_chunks = (channels + kc - 1) / kc;
 
-  for (int c0 = 0; c0 < channels; c0 += cw) {
-    const int width = min(cw, channels - c0);
-    __syncthreads();       // the tables are built, the last chunk is done
-    for (int i = threadIdx.x; i < cw * bins; i += kThreads) {
-      const int c = i / bins;
-      const int bin = i - c * bins;
-      gs[bin * ld + c] =
-          c < width ? __fmul_rn(__ldg(src + (c0 + c) * bins + bin), inv_count)
-                    : 0.0f;
+  // the bin rows [oy_lo, oy_hi] with a sample in the map along y, and
+  // whether a column has one: a roi with neither reads nothing
+  int oy_lo = out_size;
+  int oy_hi = -1;
+  bool any_x = false;
+  for (int k = 0; k < s; ++k) {
+    if (!(ty[k].i0 & kOutside)) {
+      oy_lo = min(oy_lo, k / sr);
+      oy_hi = k / sr;
     }
-    __syncthreads();
-    for (int u = threadIdx.x; u < s * s * groups; u += kThreads) {
-      const int g4 = u % groups;
-      const int k = u / groups;
-      const int c = 4 * g4;
-      if (c >= width) continue;
-      const int iy = k / s;
-      const int ix = k - iy * s;
-      const RoiTap ay = ty[iy];
-      const RoiTap ax = tx[ix];
-      if ((ay.i0 | ax.i0) & kOutside) continue;        // outside: no gradient
-      const float4 g = *reinterpret_cast<const float4*>(
-          gs + ((iy / sr) * out_size + ix / sr) * ld + c);
-      const float* base = feat + c0 + c;
-      const int n = width - c;
-      const float4 v00 = load_cell<kVec>(base + (static_cast<size_t>(ay.i0) *
-                                                 wl + ax.i0) * cs, n);
-      const float4 v01 = load_cell<kVec>(base + (static_cast<size_t>(ay.i0) *
-                                                 wl + ax.i1) * cs, n);
-      const float4 v10 = load_cell<kVec>(base + (static_cast<size_t>(ay.i1) *
-                                                 wl + ax.i0) * cs, n);
-      const float4 v11 = load_cell<kVec>(base + (static_cast<size_t>(ay.i1) *
-                                                 wl + ax.i1) * cs, n);
-      const float dx = dot4(g, axis_diff(ay.w0, v00, v01, ay.w1, v10, v11));
-      const float dy = dot4(g, axis_diff(ax.w0, v00, v10, ax.w1, v01, v11));
-      acc[0] = __fadd_rn(acc[0], __fmul_rn(dx, ax.d1));
-      acc[1] = __fadd_rn(acc[1], __fmul_rn(dy, ay.d1));
-      acc[2] = __fadd_rn(acc[2], __fmul_rn(dx, ax.d2));
-      acc[3] = __fadd_rn(acc[3], __fmul_rn(dy, ay.d2));
+    any_x = any_x || !(tx[k].i0 & kOutside);
+  }
+  const int n_rows = oy_hi + 1 - oy_lo;
+  // the grid, as the forward's: columns once for the roi, rows per band of
+  // bh of the active output rows, bh as large as a buffer's `cap` cells
+  // allow
+  const AxisMap mx = axis_map(tx, 0, s - 1);
+  auto band_rows = [&](int band, int h) {
+    const int r0 = oy_lo + band * h;
+    return axis_map(ty, r0 * sr, min(oy_hi + 1, r0 + h) * sr - 1);
+  };
+  int bh = max(n_rows, 0);
+  for (; bh > 0; --bh) {
+    int rows = 0;
+    for (int band = 0; band * bh < n_rows; ++band) {
+      rows = max(rows, band_rows(band, bh).n);
     }
+    if (rows * mx.n <= cap) break;
+  }
+  if (n_rows <= 0 || !any_x) {                         // nothing in the map
+    if (count) atomicAdd(path_counts + kWhole, 1);
+    if (threadIdx.x < 4) grad_rois[r * 4 + threadIdx.x] = 0.0f;
+    return;
+  }
+  // per bin row (t < S) and bin column, the distinct map cells of its
+  // in-map samples' taps, and for each the slot of its first tap (2 k + q:
+  // tap q of sample k), for the grid's slot form
+  for (int t = threadIdx.x; t < 2 * out_size; t += kThreads) {
+    const bool is_x = t >= out_size;
+    const int o = is_x ? t - out_size : t;
+    const RoiTap* taps = is_x ? tx : ty;
+    BinTap* e = tab + t * kt;
+    int* es = slots + t * kt;
+    int n = 0;
+    for (int k = o * sr; k < (o + 1) * sr; ++k) {
+      const RoiTap a = taps[k];
+      if (a.i0 & kOutside) continue;                   // no gradient
+      for (int q = 0; q < 2; ++q) {
+        const int cell = q ? a.i1 : a.i0 & kCell;
+        const float w = q ? a.w1 : a.w0;
+        const float b1 = q ? a.d1 : -a.d1;
+        const float b2 = q ? a.d2 : -a.d2;
+        int j = 0;
+        while (j < n && e[j].cell != cell) ++j;        // a repeated tap
+        if (j == n) {
+          es[n] = 2 * k + q;
+          e[n++] = BinTap{cell, w, b1, b2};
+        } else {
+          e[j].a = __fadd_rn(e[j].a, w);
+          e[j].b1 = __fadd_rn(e[j].b1, b1);
+          e[j].b2 = __fadd_rn(e[j].b2, b2);
+        }
+      }
+    }
+    cnt[t] = n;
+  }
+  __syncthreads();
+  // stage the grid only where the bins read its cells kRoisMinReuse times
+  // or more: (the bins' reads a chunk) = (the sum over rows of a row's
+  // cells) x (the sum over columns), against the cells the bands stage
+  int reads_y = 0;
+  int reads_x = 0;
+  for (int o = 0; o < out_size; ++o) {
+    reads_y += cnt[o];
+    reads_x += cnt[out_size + o];
+  }
+  int staged = 0;
+  for (int band = 0; bh > 0 && band * bh < n_rows; ++band) {
+    staged += band_rows(band, bh).n * mx.n;
+  }
+  if (static_cast<long long>(reads_y) * reads_x <
+      static_cast<long long>(kRoisMinReuse) * staged) {
+    bh = 0;
+  }
+  const Path path = bh == n_rows ? kWhole : bh == 0 ? kGlobal : kBands;
+  if (count) atomicAdd(path_counts + path, 1);
+  // the entries' cells in the path's terms: grid row (of the row's band)
+  // times the grid's row length, or grid column; map row times W, or map
+  // column
+  for (int t = threadIdx.x; t < 2 * out_size; t += kThreads) {
+    const bool is_x = t >= out_size;
+    const int o = is_x ? t - out_size : t;
+    if (cnt[t] == 0) continue;
+    const AxisMap m = path == kGlobal ? AxisMap{0, 0, 0}
+                      : is_x ? mx
+                             : band_rows((o - oy_lo) / bh, bh);
+    const int row_len = is_x ? 1 : path == kGlobal ? wl : mx.n;
+    for (int j = 0; j < cnt[t]; ++j) {
+      BinTap& e = tab[t * kt + j];
+      const int grid = m.lo >= 0 ? e.cell - m.lo
+                                 : slots[t * kt + j] - 2 * m.first;
+      e.cell = grid * row_len;
+    }
+  }
+  __syncthreads();
+
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};             // x1, y1, x2, y2
+  if (!gstage) {
+    for (int k = 0; k < n_chunks; ++k) {
+      const int c0 = k * kc;
+      const int width = min(kc, channels - c0);
+      rois_gather<kSr>(MapCells<kVec>{feat + c0, cs, width},
+                       StageGrad<true>{src + static_cast<size_t>(c0) * bins,
+                                       bins},
+                       kc, width, inv_count, tab, cnt, out_size, kt, oy_lo,
+                       oy_hi + 1, acc);
+    }
+  } else {
+    // Stage t: band t % nb of chunk t / nb.
+    const int nb = path == kGlobal ? 1 : (n_rows + bh - 1) / bh;
+    const int n_stages = n_chunks * nb;
+    constexpr int kPer = kVec ? 4 : 1;                 // floats a copy
+    // the gradient's bins [b_lo, b_hi) of each channel: the active rows
+    const int b_lo = oy_lo * out_size;
+    const int b_n = (oy_hi + 1) * out_size - b_lo;
+    auto stage_load = [&](int t) {
+      const int c0 = t / nb * kc;
+      const int width = min(kc, channels - c0);
+      if (t % nb == 0) {
+        // the chunk's upstream gradient: one contiguous run of the input,
+        // or of each channel's active rows
+        float* gd = gbufs + (t / nb & 1) * gsz;
+        const float* from = src + static_cast<size_t>(c0) * bins;
+        if (kVec && b_n == bins) {
+          for (int i = threadIdx.x * 4; i < width * bins; i += kThreads * 4) {
+            cp_async16(gd + i, from + i);
+          }
+        } else {
+          for (int i = threadIdx.x; i < width * b_n; i += kThreads) {
+            const int c = i / b_n;
+            const int b = b_lo + i - c * b_n;
+            cp_async4(gd + c * bins + b, from + c * bins + b);
+          }
+        }
+      }
+      if (path == kGlobal) return;
+      float* buf = cbufs + (t & 1) * cap * kc;
+      // the band's cells, kc floats a cell (the chunk's width of them)
+      const AxisMap my = band_rows(t % nb, bh);
+      const int n_cells = my.n * mx.n;
+      const int per_cell = kc / kPer;
+      for (int i = threadIdx.x; i < n_cells * per_cell; i += kThreads) {
+        const int cell = i / per_cell;
+        const int c = (i - cell * per_cell) * kPer;
+        if (kVec && c >= width) continue;
+        const int j = cell / mx.n;
+        const int row = grid_source(ty, my, j);
+        const int col = grid_source(tx, mx, cell - j * mx.n);
+        const float* p = feat + (static_cast<size_t>(row) * wl + col) * cs
+                         + c0 + c;
+        float* d = buf + cell * kc + c;
+        if constexpr (kVec) {
+          cp_async16(d, p);
+        } else if (c < width) {
+          cp_async4(d, p);
+        } else {
+          *d = 0.0f;                                   // past the map's C
+        }
+      }
+    };
+    stage_load(0);
+    cp_async_commit();
+    for (int t = 0; t < n_stages; ++t) {
+      if (t + 1 < n_stages) stage_load(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();          // stage t landed; t + 1 stays in flight
+      __syncthreads();             // everyone's copies
+      const int band = t % nb;
+      const int c0 = t / nb * kc;
+      const float* gs = gbufs + (t / nb & 1) * gsz;
+      const int oy_begin = path == kGlobal ? oy_lo : oy_lo + band * bh;
+      const int oy_end = path == kGlobal ? oy_hi + 1
+                                         : min(oy_hi + 1, oy_begin + bh);
+      const int width = min(kc, channels - c0);
+      if (path == kGlobal) {
+        rois_gather<kSr>(MapCells<kVec>{feat + c0, cs, width},
+                         StageGrad<false>{gs, bins}, kc, width, inv_count,
+                         tab, cnt, out_size, kt, oy_begin, oy_end, acc);
+      } else {
+        rois_gather<kSr>(StagedCells{cbufs + (t & 1) * cap * kc, kc},
+                         StageGrad<false>{gs, bins}, kc, width, inv_count,
+                         tab, cnt, out_size, kt, oy_begin, oy_end, acc);
+      }
+      __syncthreads();             // read before stage t + 2 lands in it
+    }
+    cp_async_wait<0>();
   }
   // the block's sum, in a fixed order: each warp by shuffles, then warp 0
   const int lane = threadIdx.x & 31;
@@ -1214,20 +1535,47 @@ roi_align_rois_backward_kernel(const Levels lv, int channels,
   }
 }
 
-// the chunk width: the widest of 256, 128, ..., 4 channels (no wider than
-// C rounded up to 4) whose staged gradient and tables fit the 48 KB of
-// static shared memory (with the reduction's 128 bytes), 0 if none does
-// (S > 38)
-int rois_bwd_chunk(int channels, int out_size, int sr) {
-  const int c4 = (channels + 3) / 4 * 4;
-  for (int cw = 256; cw >= 4; cw /= 2) {
-    if (cw > c4 && cw > 4) continue;
-    if (rois_bwd_smem(out_size, sr, cw) + 4 * (kThreads / 32) * 4 <=
-        48 * 1024) {
-      return cw;
-    }
+// shared memory a block of the roi-coordinate kernel takes: four blocks
+// an SM (by registers) leave ~120 KB of the SM's 256 KB to L1, which
+// serves the grids that are not staged (measured against 40 and 55 KB:
+// roi_align_ablation.py --part rois)
+constexpr size_t kRoisBudget = 32 * 1024;
+
+// the roi-coordinate launch for these arguments: sr = 2 (P2BNet's bags)
+// known at compile time, else the generic form; one block a roi
+template <bool kVec>
+int launch_rois_backward(const Levels& lv, int channels, const float* rois,
+                         const int* lvls, int n_rois, int out_size, int sr,
+                         int aligned, const float* grad_out, float* grad_rois,
+                         int* path_counts, cudaStream_t stream) {
+  const size_t tables = rois_bwd_tables(out_size, sr);
+  if (tables > kRoisBudget) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bins = static_cast<size_t>(out_size) * out_size;
+  // chunks of 64 channels, or of 32 where two buffers of a 64-channel
+  // chunk's gradient do not fit, or nothing staged (chunks of 64)
+  size_t kc = 64;
+  while (kc >= 32 && 2 * kc * bins * sizeof(float) + tables > kRoisBudget) {
+    kc /= 2;
   }
-  return 0;
+  const int gstage = kc >= 32;
+  kc = gstage ? kc : 64;
+  const size_t gbytes = gstage ? 2 * kc * bins * sizeof(float) : 0;
+  // cells a stage buffer holds beside the chunk's gradient
+  const int cap = gstage ? static_cast<int>((kRoisBudget - tables - gbytes)
+                                            / (2 * kc * sizeof(float))) : 0;
+  const size_t smem = gbytes + 2 * cap * kc * sizeof(float) + tables;
+  auto kernel = sr == 2 ? roi_align_rois_backward_kernel<kVec, 2>
+                        : roi_align_rois_backward_kernel<kVec, 0>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(n_rois), kThreads, smem, stream>>>(
+      lv, channels, rois, lvls, out_size, sr, aligned, static_cast<int>(kc),
+      cap, gstage, grad_out, grad_rois, path_counts);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1320,23 +1668,24 @@ extern "C" int ptb_roi_align_backward(const void* grad_out,
 // f32 contiguous, as the forward took them, into grad_rois (R, 4) f32, the
 // gradients of x1, y1, x2, y2 (every row written). Launches on `stream`,
 // does not synchronise, and returns cudaGetLastError() after the launch
-// (or the error of a refused argument).
+// (or the error of a refused argument or attribute). `path_counts`, when
+// not null, is 4 int32 on the card to which each roi adds one at its path:
+// its grid staged whole, staged in bands, read from global memory,
+// invalid (the caller zeroes them).
 extern "C" int ptb_roi_align_rois_backward(
     const void* grad_out, const void* const* feats, const int* heights,
     const int* widths, const float* strides, int n_levels, int batch,
     int channels, const void* rois, const void* lvls, int n_rois,
     int out_size, int sampling_ratio, int aligned, void* grad_rois,
-    void* stream) {
+    void* path_counts, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || out_size < 1 ||
       sampling_ratio < 1 || channels < 1 || n_rois < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int cw = rois_bwd_chunk(channels, out_size, sampling_ratio);
-  if (cw == 0) return static_cast<int>(cudaErrorInvalidValue);
   Levels lv;
   lv.n = n_levels;
   lv.batch = batch;
-  bool vec = channels % 4 == 0;
+  bool vec = channels % 4 == 0 && reinterpret_cast<size_t>(grad_out) % 16 == 0;
   for (int l = 0; l < n_levels; ++l) {
     lv.feat[l] = static_cast<const float*>(feats[l]);
     lv.h[l] = heights[l];
@@ -1348,18 +1697,12 @@ extern "C" int ptb_roi_align_rois_backward(
   const auto* r = static_cast<const float*>(rois);
   const auto* lv_idx = static_cast<const int*>(lvls);
   auto* out = static_cast<float*>(grad_rois);
+  auto* counts = static_cast<int*>(path_counts);
   auto st = static_cast<cudaStream_t>(stream);
-  const size_t smem = rois_bwd_smem(out_size, sampling_ratio, cw);
-  if (vec) {
-    roi_align_rois_backward_kernel<true>
-        <<<static_cast<unsigned>(n_rois), kThreads, smem, st>>>(
-            lv, channels, r, lv_idx, out_size, sampling_ratio, aligned, cw, g,
-            out);
-  } else {
-    roi_align_rois_backward_kernel<false>
-        <<<static_cast<unsigned>(n_rois), kThreads, smem, st>>>(
-            lv, channels, r, lv_idx, out_size, sampling_ratio, aligned, cw, g,
-            out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return vec ? launch_rois_backward<true>(lv, channels, r, lv_idx, n_rois,
+                                          out_size, sampling_ratio, aligned,
+                                          g, out, counts, st)
+             : launch_rois_backward<false>(lv, channels, r, lv_idx, n_rois,
+                                           out_size, sampling_ratio, aligned,
+                                           g, out, counts, st);
 }

@@ -13,13 +13,15 @@ build or launch raises.
 `launches` counts kernel launches by name, so a run can show that it went
 through the kernels. To hold a kernel against its plain version on the
 card, call `ops/roi_align.py::roi_align_multilevel_plain`,
-`roi_align_backward_plain` or `roi_align_rois_backward_plain` directly. `PATHS` names the kernels' paths for
-a roi; pass `path_counts` to either launch to count them. The forward's:
-taps staged whole or in bands of rows, read from global memory, or an
-out-of-range roi. The backward's: the upstream gradient staged ("whole"),
-read from global memory (when two copies of a 32-channel chunk and the
-tables do not fit the block's shared memory: from S = 21 at sr = 1), or an
-out-of-range roi; it has no bands.
+`roi_align_backward_plain` or `roi_align_rois_backward_plain` directly.
+`PATHS` names the kernels' paths for a roi; pass `path_counts` to any
+launch to count them. The forward's and the roi-coordinate kernel's: the
+roi's grid of map cells staged whole or in bands of output rows, read
+from global memory (the roi-coordinate kernel's also where its bins would
+read the staged cells less than twice), or an out-of-range roi. The backward's: the upstream
+gradient staged ("whole"), read from global memory (when two copies of a
+32-channel chunk and the tables do not fit the block's shared memory:
+from S = 21 at sr = 1), or an out-of-range roi; it has no bands.
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ def build_library() -> ctypes.CDLL:
         lib.ptb_roi_align_rois_backward.argtypes = [
             vp, ctypes.POINTER(vp), ctypes.POINTER(ci), ctypes.POINTER(ci),
             ctypes.POINTER(ctypes.c_float), ci, ci, ci, vp, vp, ci, ci, ci, ci,
-            vp, vp]
+            vp, vp, vp]
         lib.ptb_roi_align_rois_backward.restype = ci
         _lib = lib
         return lib
@@ -224,7 +226,9 @@ def roi_align_rois_backward(grad_out: torch.Tensor,
                             feats: Sequence[torch.Tensor], rois: torch.Tensor,
                             lvls: torch.Tensor, strides: Sequence[int],
                             output_size: int = 7, sampling_ratio: int = 2,
-                            aligned: bool = True) -> torch.Tensor:
+                            aligned: bool = True,
+                            path_counts: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """Launch the roi-coordinate kernel: the gradient of
     `roi_align_forward` with respect to the rois' x1, y1, x2, y2, as JAX's
     autodiff of its XLA RoIAlign gives it (the clamps' 0.5 at a bound, no
@@ -232,7 +236,9 @@ def roi_align_rois_backward(grad_out: torch.Tensor,
     (made contiguous); feats, rois and lvls as the forward took them.
     Returns (R, 4) f32; a roi whose batch index or level is out of range
     gets zeros. Each row is summed in one block in a fixed order (no
-    atomics), so a launch repeats bit for bit."""
+    atomics), so a launch repeats bit for bit. `path_counts` as for the
+    forward: the roi's grid of map cells staged whole or in bands of
+    output rows, or read from global memory."""
     dev = rois.device
     _check_args(dev, len(feats), strides, rois, lvls, output_size,
                 sampling_ratio)
@@ -245,6 +251,7 @@ def roi_align_rois_backward(grad_out: torch.Tensor,
                          f"float32 grad_out on {dev}, got "
                          f"{tuple(grad_out.shape)} {grad_out.dtype} on "
                          f"{grad_out.device}")
+    _check_counts(dev, path_counts)
     out = torch.empty((r, 4), dtype=torch.float32, device=dev)
     if r == 0:
         return out
@@ -262,6 +269,7 @@ def roi_align_rois_backward(grad_out: torch.Tensor,
         (ctypes.c_float * n)(*[float(s) for s in strides]),
         n, b, c, rois.data_ptr(), lvls.data_ptr(), r, int(output_size),
         int(sampling_ratio), int(bool(aligned)), out.data_ptr(),
+        None if path_counts is None else path_counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"roi_align_rois_backward launch failed: "

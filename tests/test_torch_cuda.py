@@ -627,3 +627,71 @@ def test_roi_align_rois_backward_only_when_the_rois_need_it(cuda):
     b = _bwd(feats, rois.clone().requires_grad_(), lvls, g, 7, 2)
     assert roi_align_cuda.launches["roi_align_rois_backward"] == before + 1
     _assert_grads_close(a, b)
+
+
+def _rois_case(cuda, case):
+    """(feats, rois, lvls, g, S, sr, the path every roi must take) for one
+    path of the roi-coordinate kernel at P2BNet's S=7: its grid staged
+    whole (2-4 px rois at sr=2, also with C % 4 != 0), staged in bands
+    (1-2 px wide, 40-60 px tall rois on level 0 at sr=2: the grid is over
+    a buffer's cells, one output row's is not; the bins read each staged
+    cell more than kRoisMinReuse times), read from global memory
+    (whole-image rois on level 0 at sr=8: even one output row's grid is
+    over a buffer), or out of range."""
+    rng = np.random.RandomState(13)
+    c, out, sr, path = 256, 7, 2, "whole"
+    n = 24
+    lo, hi = {"bands": ((1, 40), (2, 60)),
+              "global": ((600, 600), (640, 640))}.get(case, ((2, 2), (4, 4)))
+    size = rng.uniform(lo, hi, (n, 2)).clip(max=[640, 512])
+    x1 = rng.uniform(0, 640 - size[:, 0])
+    y1 = rng.uniform(0, 512 - size[:, 1])
+    rois = np.stack([rng.randint(0, 2, n), x1, y1, x1 + size[:, 0],
+                     y1 + size[:, 1]], 1).astype(np.float32)
+    if case in ("bands", "global"):
+        sr, path = (2 if case == "bands" else 8), case
+    elif case == "invalid":
+        rois = rois[:6]
+        rois[0, 0], rois[1, 0], rois[2, 0] = 2.0, -1.0, float("nan")
+        path = "invalid"
+    elif case == "c13":
+        c = 13
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    feats = [torch.randn((2, h, w, c), generator=gen, device=cuda)
+             .permute(0, 3, 1, 2) for h, w in BWD_LEVELS]
+    rois = torch.from_numpy(rois).to(cuda)
+    lvls = torch.zeros(rois.shape[0], dtype=torch.int64, device=cuda)
+    if case == "invalid":
+        lvls[3:] = torch.tensor([7, -1, 4], device=cuda)
+    g = torch.randn((rois.shape[0], c, out, out), generator=gen, device=cuda)
+    return feats, rois, lvls, g, out, sr, path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["whole", "bands", "global", "invalid",
+                                  "c13"])
+def test_roi_align_rois_backward_paths_match_plain(cuda, case):
+    """Every roi takes the expected path of the roi-coordinate kernel (its
+    own counts, summing to R); the result is the plain version's within
+    ROIS_BWD_TOL of each column's max |gradient|, and a second launch
+    equals the first bit for bit; out-of-range rois get zeros."""
+    feats, rois, lvls, g, out, sr, path = _rois_case(cuda, case)
+    counts = torch.zeros(len(roi_align_cuda.PATHS), dtype=torch.int32,
+                         device=cuda)
+    got = roi_align_cuda.roi_align_rois_backward(
+        g, feats, rois, lvls, (4, 8, 16, 32), out, sr, path_counts=counts)
+    again = roi_align_cuda.roi_align_rois_backward(
+        g, feats, rois, lvls, (4, 8, 16, 32), out, sr)
+    torch.cuda.synchronize()
+    paths = dict(zip(roi_align_cuda.PATHS, counts.tolist()))
+    assert paths[path] == rois.shape[0] == sum(paths.values()), paths
+    assert torch.equal(got, again)
+    if case == "invalid":
+        assert bool((got == 0).all())
+        return
+    want = roi_align.roi_align_rois_backward_plain(g, feats, rois, lvls,
+                                                   (4, 8, 16, 32), out, sr)
+    torch.cuda.synchronize()
+    top = want.abs().amax(0)
+    assert bool((top > 0).all())
+    assert bool(((got - want).abs().amax(0) <= ROIS_BWD_TOL * top).all())
