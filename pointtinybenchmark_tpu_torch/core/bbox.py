@@ -1,8 +1,9 @@
 """DeltaXYWH box coding (mmdet delta_xywh_bbox_coder.py: bbox2delta,
-delta2bbox).
+delta2bbox) and the point-distance decode of the anchor-free heads
+(distance2bbox).
 
-Counterpart of pointtinybenchmark_tpu/core/bbox.py::bbox2delta, delta2bbox
-and `delta_coder_fns`, in the same operation order.
+Counterpart of pointtinybenchmark_tpu/core/bbox.py::bbox2delta, delta2bbox,
+distance2bbox and `delta_coder_fns`, in the same operation order.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["bbox2delta", "delta2bbox", "delta_coder_fns"]
+__all__ = ["bbox2delta", "delta2bbox", "delta_coder_fns", "distance2bbox"]
 
 
 def bbox2delta(proposals: torch.Tensor, gt: torch.Tensor,
@@ -64,6 +65,23 @@ def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
     y1 = gy - gh * 0.5
     x2 = gx + gw * 0.5
     y2 = gy + gh * 0.5
+    if max_shape is not None:
+        x1 = x1.clamp(0, max_shape[1])
+        y1 = y1.clamp(0, max_shape[0])
+        x2 = x2.clamp(0, max_shape[1])
+        y2 = y2.clamp(0, max_shape[0])
+    return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def distance2bbox(points: torch.Tensor, distance: torch.Tensor,
+                  max_shape: Optional[Tuple[int, int]] = None
+                  ) -> torch.Tensor:
+    """(..., 2) points and (..., 4) (left, top, right, bottom) distances ->
+    (..., 4) xyxy boxes, clipped to `max_shape` (h, w) if given."""
+    x1 = points[..., 0] - distance[..., 0]
+    y1 = points[..., 1] - distance[..., 1]
+    x2 = points[..., 0] + distance[..., 2]
+    y2 = points[..., 1] + distance[..., 3]
     if max_shape is not None:
         x1 = x1.clamp(0, max_shape[1])
         y1 = y1.clamp(0, max_shape[0])

@@ -23,8 +23,18 @@ clip only the parameters that require grad). Everything runs on the
 parameters' device with no host sync: `step(ok)` takes a 0-d bool tensor
 and, where it is False, leaves parameters, traces and the count as they
 were. `Adam` is optax.adam in the same chain (its class note).
-`paramwise_cfg`, Nesterov momentum, AdamW and Adam's weight decay are not
-ported.
+
+SGD's `paramwise_cfg` (JAX `_build_paramwise` / `_paramwise_mults_fn`,
+mmcv DefaultOptimizerConstructor's rules) gives each parameter an lr_mult
+and a decay_mult: step 2 adds wd * decay_mult * p, and step 4 scales the
+trace by lr_mult before the -lr(count). The rule reads the parameter's
+JAX twin's flax path (`utils/jax_weights.py::jax_param_paths`), as the
+JAX package does: the longest custom key that is a substring of it, else
+a norm leaf (a path with "batchnorm", "groupnorm", "layernorm", ".norm"
+or "_bn", lower-cased) gets norm_decay_mult, else a leaf ending in "bias"
+gets the bias mults. So a GroupNorm's bias is a norm leaf and FCOS's
+`Scale` neither. Nesterov momentum, AdamW, Adam's weight decay and Adam's
+`paramwise_cfg` are not ported.
 """
 from __future__ import annotations
 
@@ -34,8 +44,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from ..utils.jax_weights import jax_param_paths
+
 __all__ = ["build_lr_schedule", "build_optimizer", "frozen_param_names",
-           "SGD", "Adam"]
+           "paramwise_mults", "SGD", "Adam"]
 
 
 def build_lr_schedule(base_lr: float, lr_config: Optional[dict],
@@ -97,6 +109,37 @@ def frozen_param_names(model: nn.Module, frozen_stages: int) -> List[str]:
             if any(n.startswith(p) for p in prefixes)]
 
 
+PARAMWISE_KEYS = ("custom_keys", "bias_lr_mult", "bias_decay_mult",
+                  "norm_decay_mult")
+NORM_TAGS = ("batchnorm", "groupnorm", "layernorm", ".norm", "_bn")
+
+
+def paramwise_mults(model: nn.Module, paramwise_cfg: dict
+                    ) -> Dict[str, Tuple[float, float]]:
+    """{parameter name: (lr_mult, decay_mult)} by the JAX package's rule on
+    each parameter's flax path (see the module note)."""
+    unknown = sorted(set(paramwise_cfg) - set(PARAMWISE_KEYS))
+    if unknown:
+        raise NotImplementedError(f"paramwise_cfg keys {unknown} are not "
+                                  f"ported (the port takes {PARAMWISE_KEYS})")
+    custom = {k: dict(v) for k, v in
+              (paramwise_cfg.get("custom_keys") or {}).items()}
+    keys = sorted(custom, key=len, reverse=True)
+    bias = (float(paramwise_cfg.get("bias_lr_mult", 1.0)),
+            float(paramwise_cfg.get("bias_decay_mult", 1.0)))
+    norm = (1.0, float(paramwise_cfg.get("norm_decay_mult", 1.0)))
+
+    def mults(path: str) -> Tuple[float, float]:
+        for k in keys:
+            if k in path:
+                return (float(custom[k].get("lr_mult", 1.0)),
+                        float(custom[k].get("decay_mult", 1.0)))
+        if any(t in path.lower() for t in NORM_TAGS):
+            return norm
+        return bias if path.endswith("bias") else (1.0, 1.0)
+    return {n: mults(p) for n, p in jax_param_paths(model).items()}
+
+
 class _ClippedOptimizer:
     """What SGD and Adam share: the parameters by name, the frozen ones,
     the schedule, the update count, and optax's global-norm clipping."""
@@ -143,17 +186,26 @@ class _ClippedOptimizer:
 class SGD(_ClippedOptimizer):
     """SGD with momentum and weight decay in optax's order (see the module
     note). `params` are (name, parameter) pairs; the gradients are read from
-    each parameter's `.grad` (None counts as zero) and left untouched."""
+    each parameter's `.grad` (None counts as zero) and left untouched.
+    `mults` gives a parameter's (lr_mult, decay_mult), 1 where it has
+    none (`paramwise_mults`)."""
 
     def __init__(self, params: Sequence[Tuple[str, nn.Parameter]],
                  schedule: Callable[[torch.Tensor], torch.Tensor],
                  momentum: float = 0.0, weight_decay: float = 0.0,
                  max_norm: Optional[float] = None,
-                 frozen: Sequence[str] = ()):
+                 frozen: Sequence[str] = (),
+                 mults: Optional[Dict[str, Tuple[float, float]]] = None):
         super().__init__(params, schedule, max_norm, frozen)
         self.momentum = momentum
         self.weight_decay = weight_decay
         self.trace = [torch.zeros_like(p) for p in self.trainable]
+        mults = mults or {}
+        own = [mults.get(n, (1.0, 1.0)) for n, f in
+               zip(self.names, self.is_frozen) if not f]
+        self.lr_mults = ([m[0] for m in own]
+                         if any(m[0] != 1.0 for m in own) else None)
+        self.decays = [weight_decay * m[1] for m in own]
 
     @torch.no_grad()
     def step(self, ok: torch.Tensor) -> None:
@@ -167,10 +219,12 @@ class SGD(_ClippedOptimizer):
             grads = [g for g, f in zip(clipped, self.is_frozen) if not f]
         if self.weight_decay:
             grads = torch._foreach_add(grads, torch._foreach_mul(
-                params, self.weight_decay))
+                params, self.decays))
         trace = torch._foreach_add(torch._foreach_mul(self.trace,
                                                       self.momentum), grads)
-        upd = torch._foreach_mul(trace, -self.schedule(self.count))
+        upd = (trace if self.lr_mults is None
+               else torch._foreach_mul(trace, self.lr_mults))
+        upd = torch._foreach_mul(upd, -self.schedule(self.count))
         new = torch._foreach_add(params, upd)
         for p, q, t, u in zip(params, new, self.trace, trace):
             torch.where(ok, q, p, out=p)     # in place, one kernel each
@@ -259,8 +313,9 @@ def build_optimizer(model: nn.Module, optimizer_cfg: dict,
     stages frozen."""
     cfg = dict(optimizer_cfg)
     kind = cfg.pop("type", "SGD")
-    if cfg.get("paramwise_cfg") or cfg.get("nesterov"):
-        raise NotImplementedError("paramwise_cfg and nesterov are not ported")
+    if cfg.get("nesterov"):
+        raise NotImplementedError("nesterov is not ported")
+    paramwise_cfg = cfg.pop("paramwise_cfg", None)
     base_lr = float(cfg.pop("lr"))
     grad_clip = (optimizer_config or {}).get("grad_clip")
     schedule = build_lr_schedule(base_lr, lr_config, iters_per_epoch,
@@ -271,11 +326,15 @@ def build_optimizer(model: nn.Module, optimizer_cfg: dict,
         return SGD(list(model.named_parameters()), schedule,
                    momentum=float(cfg.get("momentum", 0.0)),
                    weight_decay=float(cfg.get("weight_decay", 0.0)),
-                   max_norm=max_norm, frozen=frozen)
+                   max_norm=max_norm, frozen=frozen,
+                   mults=(paramwise_mults(model, dict(paramwise_cfg))
+                          if paramwise_cfg else None))
     if kind == "Adam":
         # the JAX package builds optax.adam(schedule) with its defaults and
         # AdamW when there is weight decay
         unported = sorted(set(cfg) - {"weight_decay"})
+        if paramwise_cfg:
+            unported.append("paramwise_cfg")
         if float(cfg.get("weight_decay", 0.0)) or unported:
             raise NotImplementedError(
                 f"Adam with {unported or 'weight_decay'} is not ported")

@@ -19,9 +19,12 @@ from torch import nn
 
 from .backbones.resnet import ResNet
 from .dense_heads.anchor_head import AnchorHead
+from .dense_heads.atss_head import ATSSHead
 from .dense_heads.cpr_head import CascadeCPRHead, CPRHead
+from .dense_heads.fcos_head import FCOSHead
 from .dense_heads.p2b_head import P2BNetHead, SSDDetHead
 from .dense_heads.p2p_head import P2PHead
+from .dense_heads.reppoints_head import RepPointsHead
 from .dense_heads.retina_head import RetinaHead
 from .dense_heads.rpn_head import RPNHead
 from .detectors.single_stage import (BasicLocator, P2BNet, SSDDet,
@@ -48,9 +51,14 @@ MODULES = {
     "CascadeCPRHead": CascadeCPRHead,
     "P2BNetHead": P2BNetHead,
     "SSDDetHead": SSDDetHead,
+    "FCOSHead": FCOSHead,
+    "ATSSHead": ATSSHead,
+    "RepPointsHead": RepPointsHead,
 }
 SINGLE_STAGE = {"SingleStageDetector": SingleStageDetector,
-                "RetinaNet": SingleStageDetector,
+                "RetinaNet": SingleStageDetector, "FCOS": SingleStageDetector,
+                "ATSS": SingleStageDetector,
+                "RepPointsDetector": SingleStageDetector,
                 "BasicLocator": BasicLocator, "P2BNet": P2BNet,
                 "SSDDet": SSDDet}
 TWO_STAGE = {"TwoStageDetector": TwoStageDetector,

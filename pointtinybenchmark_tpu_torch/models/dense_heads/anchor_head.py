@@ -5,7 +5,8 @@ Counterpart of pointtinybenchmark_tpu/models/dense_heads/anchor_head.py
 `flat_anchors`, `_flatten_preds`, `get_targets`, `loss`). The JAX head runs
 one image under vmap; this one works on the whole batch of images or tiles
 at once, with no per-image loop. Inference: per level sigmoid, a
-top-`nms_pre` by the best class score, delta decode and clip, then one
+top-`nms_pre` by the best class score (times a score factor where the
+head has one, ATSS's centerness), delta decode and clip, then one
 batched `multiclass_nms`. Training: MaxIoU assignment of every anchor of
 every level (batched over images), delta-encoded targets, the
 RandomSampler's budgets for a sampling loss (cross-entropy; not for focal
@@ -32,12 +33,57 @@ from ...core.samplers import RandomSampler
 from ..losses import build_loss
 from ..utils import bias_init_with_prob, normal_init
 
-__all__ = ["AnchorHead"]
+__all__ = ["AnchorHead", "top_indices", "clip_to_image", "with_background",
+           "nms_of_config"]
 
 DEFAULT_ANCHORS = dict(scales=[8], ratios=[0.5, 1.0, 2.0],
                        strides=[4, 8, 16, 32, 64])
 # classification losses that keep every anchor (no sampler), as in mmdet
 DENSE_LOSSES = ("FocalLoss", "GHMC", "QualityFocalLoss")
+
+
+def top_indices(rank: torch.Tensor, nms_pre: int) -> torch.Tensor:
+    """(B, N) ranking scores -> (B, k) indices of the top k = min(nms_pre,
+    N) (all N where nms_pre <= 0): a stable descending sort, sliced, which
+    is lax.top_k's order, ties to the lower index (torch.topk on CUDA fixes
+    no order among ties)."""
+    n = rank.shape[1]
+    k = min(nms_pre, n) if nms_pre > 0 else n
+    _, idx = torch.sort(rank, dim=1, descending=True, stable=True)
+    return idx[:, :k]
+
+
+def clip_to_image(boxes: torch.Tensor, img_shapes: torch.Tensor
+                  ) -> torch.Tensor:
+    """(B, K, 4) boxes clipped into each image's [0, w] x [0, h];
+    img_shapes (B, 2) (h, w)."""
+    h = img_shapes[:, 0:1].to(boxes.dtype)
+    w = img_shapes[:, 1:2].to(boxes.dtype)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    zero = boxes.new_zeros(())
+    return torch.stack([
+        torch.minimum(torch.maximum(x1, zero), w),
+        torch.minimum(torch.maximum(y1, zero), h),
+        torch.minimum(torch.maximum(x2, zero), w),
+        torch.minimum(torch.maximum(y2, zero), h)], dim=-1)
+
+
+def with_background(level_scores) -> torch.Tensor:
+    """Per-level (B, k, C) scores -> (B, K, C+1) with the zero background
+    column that multiclass_nms drops."""
+    scores = torch.cat(level_scores, dim=1)
+    return torch.cat([scores, scores.new_zeros(scores.shape[:2] + (1,))],
+                     dim=-1)
+
+
+def nms_of_config(test_cfg: dict, boxes: torch.Tensor, scores: torch.Tensor,
+                  factors: Optional[torch.Tensor] = None) -> DetResult:
+    """multiclass_nms with a head's test_cfg (score_thr, nms.iou_threshold,
+    max_per_img) and optional score factors."""
+    return multiclass_nms(
+        boxes, scores, float(test_cfg.get("score_thr", 0.05)),
+        float(test_cfg.get("nms", {}).get("iou_threshold", 0.5)),
+        int(test_cfg.get("max_per_img", 100)), score_factors=factors)
 
 
 class AnchorHead(nn.Module):
@@ -100,57 +146,51 @@ class AnchorHead(nn.Module):
                 for g in grids]
         return self._anchor_cache[key]
 
-    def candidates(self, cls_outs, bbox_outs, img_shapes: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def candidates(self, cls_outs, bbox_outs, img_shapes: torch.Tensor,
+                   factor_outs=None):
         """Everything before NMS: (B, K, 4) boxes clipped to `img_shapes`
-        (B, 2) (h, w), and (B, K, C+1) scores with a zero background column.
+        (B, 2) (h, w), (B, K, C+1) scores with a zero background column,
+        and, with `factor_outs` (per level (B, A, H, W) centerness or
+        objectness logits), their sigmoids (B, K), else None. A factor
+        multiplies the best class score for the top-`nms_pre` ranking;
         K is the sum over levels of min(nms_pre, H*W*A)."""
         nms_pre = int(self.test_cfg.get("nms_pre", 1000))
         b = cls_outs[0].shape[0]
         dev = cls_outs[0].device
         anchors = self.level_anchors([tuple(c.shape[-2:]) for c in cls_outs],
                                      dev)
-        h = img_shapes[:, 0:1].to(torch.float32)
-        w = img_shapes[:, 1:2].to(torch.float32)
-        all_boxes, all_scores = [], []
-        for cls_o, box_o, anc in zip(cls_outs, bbox_outs, anchors):
-            sc = cls_o.permute(0, 2, 3, 1).reshape(b, -1, self.cls_out_channels)
-            sc = sc.sigmoid()
+        all_boxes, all_scores, all_factors = [], [], []
+        for lvl, (cls_o, box_o, anc) in enumerate(zip(cls_outs, bbox_outs,
+                                                      anchors)):
+            sc = cls_o.permute(0, 2, 3, 1).reshape(
+                b, -1, self.cls_out_channels).sigmoid()
             deltas = box_o.permute(0, 2, 3, 1).reshape(b, -1, 4)
-            n = sc.shape[1]
-            k = min(nms_pre, n) if nms_pre > 0 else n
-            # stable sort, sliced: the order of lax.top_k, ties to the lower
-            # index (torch.topk on CUDA fixes no order among ties)
-            _, idx = torch.sort(sc.amax(-1), dim=1, descending=True,
-                                stable=True)
-            idx = idx[:, :k]
+            rank = sc.amax(-1)
+            if factor_outs is not None:
+                fac = factor_outs[lvl].permute(0, 2, 3, 1).reshape(
+                    b, -1).sigmoid()
+                rank = rank * fac
+            idx = top_indices(rank, nms_pre)
             idx4 = idx[..., None].expand(-1, -1, 4)
             boxes = self.decode(anc[idx], deltas.gather(1, idx4),
                                 self.means, self.stds)
-            x1, y1, x2, y2 = boxes.unbind(-1)
-            zero = boxes.new_zeros(())
-            boxes = torch.stack([
-                torch.minimum(torch.maximum(x1, zero), w),
-                torch.minimum(torch.maximum(y1, zero), h),
-                torch.minimum(torch.maximum(x2, zero), w),
-                torch.minimum(torch.maximum(y2, zero), h)], dim=-1)
-            all_boxes.append(boxes)
+            all_boxes.append(clip_to_image(boxes, img_shapes))
             all_scores.append(sc.gather(
                 1, idx[..., None].expand(-1, -1, self.cls_out_channels)))
-        boxes = torch.cat(all_boxes, dim=1)
-        scores = torch.cat(all_scores, dim=1)
-        scores = torch.cat([scores, scores.new_zeros(scores.shape[:2] + (1,))],
-                           dim=-1)
-        return boxes, scores
+            if factor_outs is not None:
+                all_factors.append(fac.gather(1, idx))
+        return (torch.cat(all_boxes, dim=1), with_background(all_scores),
+                torch.cat(all_factors, dim=1) if all_factors else None)
 
-    def get_bboxes(self, cls_outs, bbox_outs,
-                   img_shapes: torch.Tensor) -> DetResult:
-        boxes, scores = self.candidates(cls_outs, bbox_outs, img_shapes)
-        cfg = self.test_cfg
-        return multiclass_nms(
-            boxes, scores, float(cfg.get("score_thr", 0.05)),
-            float(cfg.get("nms", {}).get("iou_threshold", 0.5)),
-            int(cfg.get("max_per_img", 100)))
+    def get_bboxes(self, cls_outs, bbox_outs, img_shapes: torch.Tensor,
+                   factor_outs=None) -> DetResult:
+        """Detections per image. With `factor_outs` (ATSS's centerness) the
+        factor ranks the candidates with the class score and multiplies
+        the output score, while the score threshold gates the raw class
+        score (mmdet bbox_nms.py's score_factors)."""
+        boxes, scores, factors = self.candidates(cls_outs, bbox_outs,
+                                                 img_shapes, factor_outs)
+        return nms_of_config(self.test_cfg, boxes, scores, factors)
 
     # ---------------------------------------------------------------- train
     @property

@@ -52,7 +52,7 @@ class SingleStageDetector(nn.Module):
         return self.neck(x) if self.neck is not None else x
 
     def forward(self, img: torch.Tensor):
-        """img (B, H, W, 3) -> per-level (cls_outs, reg_outs), NCHW."""
+        """img (B, H, W, 3) -> the head's per-level NCHW outputs."""
         return self.bbox_head(self.extract_feat(img))
 
     def forward_train(self, img: torch.Tensor, batch: Dict[str, torch.Tensor],
@@ -66,8 +66,10 @@ class SingleStageDetector(nn.Module):
 
     def simple_test(self, img: torch.Tensor,
                     img_shapes: torch.Tensor) -> DetResult:
-        cls_outs, reg_outs = self(img)
-        return self.bbox_head.get_bboxes(cls_outs, reg_outs, img_shapes)
+        """The head's detections from all its outputs (RetinaNet's two,
+        FCOS's and ATSS's three, RepPoints' four), as the JAX detector
+        passes `*outs`."""
+        return self.bbox_head.get_bboxes(*self(img), img_shapes)
 
 
 class BasicLocator(SingleStageDetector):

@@ -1,15 +1,18 @@
 """Losses of the ported heads (mmdet names and config keys)."""
 from .cross_entropy_loss import CrossEntropyLoss
 from .focal_loss import FocalLoss
+from .iou_loss import GIoULoss, IoULoss
 from .mil_loss import MILLoss
 from .smooth_l1_loss import L1Loss, SmoothL1Loss
 from .utils import accuracy, weight_reduce_loss
 
-__all__ = ["CrossEntropyLoss", "FocalLoss", "L1Loss", "MILLoss",
-           "SmoothL1Loss", "accuracy", "build_loss", "weight_reduce_loss"]
+__all__ = ["CrossEntropyLoss", "FocalLoss", "GIoULoss", "IoULoss", "L1Loss",
+           "MILLoss", "SmoothL1Loss", "accuracy", "build_loss",
+           "weight_reduce_loss"]
 
 LOSSES = {"CrossEntropyLoss": CrossEntropyLoss, "FocalLoss": FocalLoss,
-          "L1Loss": L1Loss, "MILLoss": MILLoss, "SmoothL1Loss": SmoothL1Loss}
+          "GIoULoss": GIoULoss, "IoULoss": IoULoss, "L1Loss": L1Loss,
+          "MILLoss": MILLoss, "SmoothL1Loss": SmoothL1Loss}
 
 
 def build_loss(cfg: dict):

@@ -144,8 +144,10 @@ def iou_bitmask_plain(boxes: torch.Tensor, iou_threshold: float,
                       n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of kernel A, on the tensor's device: the IoU of
     ops/nms.py::_pairwise_iou in the same operation order, thresholded and
-    packed 64 columns to a word, PLAIN_ROW_CHUNK rows at a time. It defines
-    every bit (0 left of the diagonal), so `n_valid` changes nothing."""
+    packed 64 columns to a word, PLAIN_ROW_CHUNK rows at a time, each chunk
+    from the word of its first row on (the words left of it hold no bit
+    above the diagonal). It defines every bit (0 left of the diagonal), so
+    `n_valid` changes nothing."""
     b, n, _ = boxes.shape
     words = -(-n // WORD)
     dev = boxes.device
@@ -157,20 +159,23 @@ def iou_bitmask_plain(boxes: torch.Tensor, iou_threshold: float,
     for r0 in range(0, n, PLAIN_ROW_CHUNK):
         r1 = min(r0 + PLAIN_ROW_CHUNK, n)
         sl = slice(r0, r1)
-        ix1 = torch.maximum(x1[:, sl, None], x1[:, None, :])
-        iy1 = torch.maximum(y1[:, sl, None], y1[:, None, :])
-        ix2 = torch.minimum(x2[:, sl, None], x2[:, None, :])
-        iy2 = torch.minimum(y2[:, sl, None], y2[:, None, :])
+        w0 = r0 // WORD
+        cs = slice(w0 * WORD, n)
+        ix1 = torch.maximum(x1[:, sl, None], x1[:, None, cs])
+        iy1 = torch.maximum(y1[:, sl, None], y1[:, None, cs])
+        ix2 = torch.minimum(x2[:, sl, None], x2[:, None, cs])
+        iy2 = torch.minimum(y2[:, sl, None], y2[:, None, cs])
         inter = (ix2 - ix1).clamp(min=0) * (iy2 - iy1).clamp(min=0)
-        union = torch.clamp(area[:, sl, None] + area[:, None, :] - inter,
+        union = torch.clamp(area[:, sl, None] + area[:, None, cs] - inter,
                             min=1e-6)
         sup = (inter / union) > iou_threshold
-        sup &= cols[None, None, :] > torch.arange(r0, r1, device=dev)[None, :, None]
+        sup &= cols[None, None, cs] > torch.arange(r0, r1,
+                                                   device=dev)[None, :, None]
         sup = torch.nn.functional.pad(sup, (0, words * WORD - n))
         # distinct powers of two: the sum is the OR, and bit 63 (the int64
         # sign) cannot overflow because the other bits sum below 2**63
-        bits = sup.view(b, r1 - r0, words, WORD).to(torch.int64) << shifts
-        out[:, sl] = bits.sum(-1)
+        bits = sup.view(b, r1 - r0, words - w0, WORD).to(torch.int64) << shifts
+        out[:, sl, w0:] = bits.sum(-1)
     return out
 
 

@@ -12,6 +12,14 @@ likewise `reg_conv{i}`; the point heads' `cls_out`, `reg_out` (P2P's
 convolutions) and `ins_out` (CPR's dense layers) keep their names;
 P2BNet's `bbox_head_m/stage{s}_shared_fc{i}`, `stage{s}_cls` and
 `stage{s}_ins` -> `bbox_head.stages.{s}.shared_fcs.{i}`, `.cls`, `.ins`;
+the dense heads' output convs keep their names (FCOS's `conv_cls`,
+`conv_reg`, `conv_centerness`; ATSS's `atss_cls`, `atss_reg`,
+`atss_centerness`; RepPoints' `pts_init_conv`, `pts_init_out`, `cls_dcn`,
+`cls_out`, `refine_dcn`, `pts_refine_out`, whose 1x1 `cls_dcn` /
+`refine_dcn` kernels (1, 1, 9 C, out) read the gathered taps tap-major,
+channel-minor, the port's order too), FCOS's `scale{i}/scale` ->
+`bbox_head.scales.{i}.scale` and RepPoints' `moment_transfer` ->
+`bbox_head.moment_transfer`;
 `rpn_head_m/rpn_conv` -> `rpn_head.rpn_conv`; `roi_head_m/bbox_head_m/
 shared_fc{i}` -> `roi_head.bbox_head.shared_fcs.{i}`; `roi_head_m/
 mask_head_m/conv{i}` -> `roi_head.mask_head.convs.{i}.conv`, `upsample` and
@@ -28,19 +36,21 @@ its input rows permuted: the JAX heads flatten (S, S, C) RoI features as
 tools/model_converters/torch2jax.py). Every leaf
 of the trees must be used and every entry of the model's state_dict
 filled; BN's `num_batches_tracked` has no JAX counterpart and is left as
-it is.
+it is. `jax_param_paths` is the inverse for a model's parameters: each
+one's flax path, held to give the parameter's name back through the same
+map (the optimizer's `paramwise_cfg` classifies parameters by it).
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.backbones.resnet import BasicBlock
 
-__all__ = ["load_jax_variables", "jax_to_state_dict"]
+__all__ = ["load_jax_variables", "jax_to_state_dict", "jax_param_paths"]
 
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
@@ -88,6 +98,11 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int,
         if leaf == "kernel":
             return f"backbone.{mod}.weight"
         return f"backbone.{mod}.{_BN[leaf]}" if leaf in _BN else None
+    if top == "bbox_head_m" and not scope and leaf == "moment_transfer":
+        return "bbox_head.moment_transfer"
+    if top == "bbox_head_m" and len(scope) == 1 and leaf == "scale":
+        m = re.fullmatch(r"scale(\d+)", scope[0])
+        return None if m is None else f"bbox_head.scales.{m[1]}.scale"
     name = {"kernel": "weight", "bias": "bias", "scale": "weight"}.get(leaf)
     if name is None:
         return None
@@ -132,9 +147,85 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int,
             return f"bbox_head.stages.{m[1]}.{mod}.{name}"
     if top == "bbox_head_m" and len(scope) == 1 and scope[0] in (
             "retina_cls", "retina_reg", "conv_cls", "conv_reg", "cls_out",
-            "reg_out", "ins_out"):
+            "reg_out", "ins_out", "conv_centerness", "atss_cls", "atss_reg",
+            "atss_centerness", "pts_init_conv", "pts_init_out", "cls_dcn",
+            "refine_dcn", "pts_refine_out"):
         return f"bbox_head.{scope[0]}.{name}"
     return None
+
+
+def _jax_module(parts: List[str], n_lateral: int,
+                basic: bool) -> Optional[Tuple[str, ...]]:
+    """The flax scope of a port module path (its name split at dots):
+    the inverse of `_torch_key`'s module rules."""
+    top, rest = parts[0], parts[1:]
+    if top == "backbone":
+        if rest in (["conv1"], ["bn1"]):
+            return ("backbone_m",
+                    "Conv_0" if rest[0] == "conv1" else "BatchNorm_0")
+        if len(rest) < 3:
+            return None
+        blk = f"{rest[0]}_block{rest[1]}"
+        m = re.fullmatch(r"(conv|bn)(\d)", rest[2])
+        if m is not None and len(rest) == 3:
+            kind = "Conv" if m[1] == "conv" else "BatchNorm"
+            return ("backbone_m", blk, f"{kind}_{int(m[2]) - 1}")
+        if rest[2] == "downsample" and len(rest) == 4:
+            kind = "Conv" if rest[3] == "0" else "BatchNorm"
+            return ("backbone_m", blk, f"{kind}_{2 if basic else 3}")
+        return None
+    if top == "neck" and len(rest) == 3 and rest[2] == "conv":
+        i = int(rest[1])
+        if rest[0] == "lateral_convs":
+            return ("neck_m", f"lateral_conv{i}")
+        return ("neck_m", f"fpn_conv{i}" if i < n_lateral
+                else f"extra_conv{i - n_lateral}")
+    if top == "bbox_head":
+        if len(rest) == 3 and rest[0] in ("cls_convs", "reg_convs"):
+            return ("bbox_head_m", f"{rest[0][:3]}_conv{rest[1]}",
+                    "Conv_0" if rest[2] == "conv" else "GroupNorm_0")
+        if len(rest) == 2 and rest[0] == "scales":
+            return ("bbox_head_m", f"scale{rest[1]}")
+        if len(rest) >= 3 and rest[0] == "stages":
+            sub = (f"shared_fc{rest[3]}" if rest[2] == "shared_fcs"
+                   else rest[2])
+            return ("bbox_head_m", f"stage{rest[1]}_{sub}")
+        return ("bbox_head_m",) + tuple(rest)
+    if top == "rpn_head":
+        return ("rpn_head_m",) + tuple(rest)
+    if top == "roi_head" and len(rest) >= 2:
+        head = rest[0] + "_m"
+        if rest[1] in ("shared_fcs", "convs"):
+            stem = "shared_fc" if rest[1] == "shared_fcs" else "conv"
+            return ("roi_head_m", head, f"{stem}{rest[2]}")
+        return ("roi_head_m", head, rest[1])
+    return None
+
+
+def jax_param_paths(model: torch.nn.Module) -> Dict[str, str]:
+    """{parameter name: its JAX twin's flax path, dot-joined}, e.g.
+    `bbox_head.cls_convs.0.gn.bias` -> `bbox_head_m.cls_conv0.GroupNorm_0.
+    bias`. Raises if a path does not map back to its name."""
+    neck = getattr(model, "neck", None)
+    n_lateral = len(neck.lateral_convs) if neck is not None else 0
+    basic = any(isinstance(m, BasicBlock) for m in model.modules())
+    out = {}
+    for name, _ in model.named_parameters():
+        *mod, leaf = name.split(".")
+        if mod == ["bbox_head"] and leaf == "moment_transfer":
+            path: Optional[Tuple[str, ...]] = ("bbox_head_m", leaf)
+        else:
+            scope = _jax_module(mod, n_lateral, basic) if mod else None
+            norm = scope is not None and scope[-1].startswith(
+                ("BatchNorm_", "GroupNorm_"))
+            jleaf = {"weight": "scale" if norm else "kernel",
+                     "bias": "bias", "scale": "scale"}.get(leaf)
+            path = None if scope is None or jleaf is None else \
+                scope + (jleaf,)
+        if path is None or _torch_key(path, n_lateral, basic) != name:
+            raise KeyError(f"{name}: no JAX path maps back to it ({path})")
+        out[name] = ".".join(path)
+    return out
 
 
 def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
@@ -168,7 +259,7 @@ def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
                     3, 2, 0, 1).reshape(arr.shape[1], -1)  # (out, c*h*w)
             elif path[-1] == "kernel":
                 arr = arr.T                              # (in, out) -> (out, in)
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            out[key] = torch.from_numpy(np.array(arr, order="C"))  # keeps 0-d
     if unused:
         raise KeyError(f"{len(unused)} JAX leaves not consumed: {unused[:8]}")
     return out

@@ -1,7 +1,8 @@
 """The CUDA kernels (NMS pair, multilevel RoIAlign, its backward for the
 maps and for the roi coordinates) against their plain PyTorch versions, on
 the card; and train steps on the card: the RoIAlign kernels on a Mask
-R-CNN step's own rois, a RetinaNet-c step against the CPU's.
+R-CNN step's own rois, a RetinaNet-c step against the CPU's; FCOS, ATSS
+and RepPoints (detections on a tile and a train step) against the CPU's.
 
 These tests import no JAX, so they run where only the port is installed:
 
@@ -695,3 +696,64 @@ def test_roi_align_rois_backward_paths_match_plain(cuda, case):
     top = want.abs().amax(0)
     assert bool((top > 0).all())
     assert bool(((got - want).abs().amax(0) <= ROIS_BWD_TOL * top).all())
+
+
+# ------------------------------------------- the dense TinyPerson baselines
+@pytest.mark.cuda
+def test_point_sample_pixel_zeros_on_the_card_matches_the_cpu(cuda):
+    """RepPoints' gather ("zeros" padding, points well past every edge):
+    values and both gradients within 1e-6 of each one's max."""
+    from pointtinybenchmark_tpu_torch.ops.grid_sample import \
+        point_sample_pixel
+    rng = np.random.RandomState(1)
+    feat = rng.randn(2, 32, 40, 16).astype(np.float32)
+    pts = rng.uniform(-6, 46, (2, 4000, 2)).astype(np.float32)
+    wts = rng.randn(2, 4000, 16).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda):
+        f = torch.from_numpy(feat).to(dev).requires_grad_()
+        p = torch.from_numpy(pts).to(dev).requires_grad_()
+        v = point_sample_pixel(f, p, padding_mode="zeros")
+        (v * torch.from_numpy(wts).to(dev)).sum().backward()
+        out.append([t.detach().cpu() for t in (v, f.grad, p.grad)])
+    for want, got in zip(*out):
+        assert float((got - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", [0, 1, 2], ids=["fcos", "atss",
+                                                   "reppoints"])
+def test_dense_baseline_on_the_card_matches_the_cpu(no_tf32, family):
+    """The config at full width with seeded weights and its classifier's
+    bias at 0: on one 512x640 tile the card's detections (through the NMS
+    kernel pair, one launch each) match the CPU's at the golden
+    tolerances; one train step on one image gives the CPU's losses within
+    LOSS_TOL, with positives."""
+    from chip_smoke import DENSE, dets_match, tile_dets
+    _, config, cls_name = DENSE[family]
+    cfg = Config.fromfile(str(config))
+    img = torch.from_numpy(np.random.RandomState(2).randn(
+        1, 512, 640, 3).astype(np.float32))
+    dets = []
+    for dev in ("cpu", no_tf32):
+        model = train_model(cfg, device=dev)
+        with torch.no_grad():
+            getattr(model.bbox_head, cls_name).bias.zero_()
+            before = dict(nms_cuda.launches)
+            dets.append(tile_dets(model.simple_test(
+                img.to(dev), torch.tensor([[512, 640]], device=dev))))
+    assert nms_cuda.launches["iou_bitmask"] == before["iou_bitmask"] + 1
+    assert dets_match(*dets) > 0
+    collated = DetCollator((512, 640))(
+        train_samples(np.random.RandomState(15), 1))
+    got, _ = one_step(train_model(cfg, device=no_tf32), cfg,
+                      batch_to_device(collated, no_tf32), seed=0,
+                      device=no_tf32)
+    want, _ = one_step(train_model(cfg, device="cpu"), cfg,
+                       batch_to_device(collated, "cpu"), seed=0,
+                       device="cpu")
+    assert want["num_pos"] > 0
+    for k in want:
+        if k.startswith("loss") or k == "num_pos":
+            assert abs(got[k] - want[k]) <= LOSS_TOL * abs(want[k]), k

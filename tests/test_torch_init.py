@@ -1,8 +1,9 @@
 """The port's seeded weights against the JAX package's initialisers.
 
-For each of the seven configurations the port runs (PERF.md section 4),
+For each of the ten configurations the port runs (PERF.md section 4),
 cut to toy width (ResNet-18 at base_channels=8, FPN and heads at 16
-channels, GroupNorm of 4 groups, FCs of 32), `build_detector(seed=0)`
+channels, GroupNorm of 4 groups, FCs of 32; 32 channels where a head's
+`norm_cfg=None` builds GroupNorm of 32 groups), `build_detector(seed=0)`
 and the JAX twin's jitted `model.init` from its own key are paired
 parameter by parameter through `utils/jax_weights.py`'s name map. The
 two RNGs differ, so the values are compared as distributions:
@@ -39,24 +40,34 @@ CONFIGS = (
     "tinypersonv2/cpr/coarse_point_refine_r50_fpns4_1x_tinypersonv2_640.py",
     "p2b/p2bnet_r50_fpn_1x_coco.py",
     "ssd_det/ssd_det_r50_fpn_1x_coco.py",
+    "tinyperson/fcos_r50_fpns4_1x_tinyperson640.py",
+    "tinyperson/atss_r50_fpns4_1x_tinyperson640.py",
+    "tinyperson/reppoints_r50_fpns4_1x_tinyperson640.py",
 )
 WIDTH, GROUPS, FC = 16, 4, 32
+# heads whose `norm_cfg=None` builds GroupNorm of 32 groups (in both
+# packages): at toy width they get 32 channels
+GN32_HEADS = ("FCOSHead", "ATSSHead", "RepPointsHead")
 TRUNC = 0.87962566103423978       # std of a standard normal cut at +-2
 
 
 def toy(model: dict) -> dict:
     """The config's model at toy width: every structural key kept."""
     m = copy.deepcopy(model)
+    head = m.get("bbox_head") or {}
+    width = (32 if head.get("type") in GN32_HEADS
+             and not head.get("norm_cfg") else WIDTH)
     m["backbone"].update(depth=18, base_channels=8)
     m["neck"]["in_channels"] = [8, 16, 32, 64]
-    m["neck"]["out_channels"] = WIDTH
+    m["neck"]["out_channels"] = width
     heads = [m.get("bbox_head"), m.get("rpn_head"), m["neck"]]
     roi = m.get("roi_head")
     if roi:
         heads += [roi["bbox_head"], roi.get("mask_head")]
     for h in filter(None, heads):
-        for k, v in (("in_channels", WIDTH), ("feat_channels", WIDTH),
-                     ("conv_out_channels", WIDTH), ("fc_out_channels", FC),
+        for k, v in (("in_channels", width), ("feat_channels", width),
+                     ("point_feat_channels", width),
+                     ("conv_out_channels", width), ("fc_out_channels", FC),
                      ("fc_channels", FC)):
             if k in h and h is not m["neck"]:
                 h[k] = v

@@ -442,12 +442,29 @@ PORT_CONFIGS = (RETINA_CFG,
 DCN_CFG = "configs/coco/faster_rcnn_r50_fpn_dconv_c3_c5_1x_coco.py"
 
 
+_BUILT = {}
+
+
+def _built(path):
+    """init_detector(path) on the CPU, built once for the two tests that
+    read it, on one thread (the seeded draw of a full-width model is the
+    cost; its generator draws the same numbers on any number of threads,
+    and other processes of a parallel run keep the cores)."""
+    from pointtinybenchmark_tpu_torch.apis.inference import init_detector
+    if path not in _BUILT:
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            _BUILT[path] = init_detector(path, device="cpu").model
+        finally:
+            torch.set_num_threads(n)
+    return _BUILT[path]
+
+
 @pytest.mark.parametrize("path", PORT_CONFIGS)
 def test_port_configs_still_build(path):
     """Every config the port runs builds, with no key refused."""
-    cfg = Config.fromfile(path)
-    model = build_detector(dict(cfg.model), cfg.get("train_cfg"),
-                           cfg.get("test_cfg"), device="cpu")
+    model = _built(path)
     assert sum(p.numel() for p in model.parameters()) > 2e7
 
 
@@ -473,8 +490,7 @@ def test_point_configs_init_detector(path, head):
     """The point configs through init_detector: a BasicLocator whose FPN
     took `norm_cfg` (GN) and, as the JAX package's, has no norm; the
     head's GN convs have no conv bias."""
-    from pointtinybenchmark_tpu_torch.apis.inference import init_detector
-    model = init_detector(path, device="cpu").model
+    model = _built(path)
     assert type(model).__name__ == "BasicLocator"
     assert type(model.bbox_head).__name__ == head
     assert Config.fromfile(path).model["neck"]["norm_cfg"]["type"] == "GN"

@@ -4,15 +4,18 @@ uint8 frame.
 
 The detectors are tiny: tests/test_device_pipeline.py's RetinaNet at depth
 50 (base_channels=8), a Faster R-CNN of the same backbone, FPN 16 and 2 FCs
-of 32, and a Mask R-CNN that adds a 1-convolution FCNMaskHead at 8 channels
-and samples both RoIAligns with sampling_ratio=0 (which becomes 2), on a
-128x192 frame cut into 64x96 tiles. Per-tile NMS (and for the two-stage
-detectors the RPN's proposal NMS and the RoIAlign), the tile shift and the
+of 32, a Mask R-CNN that adds a 1-convolution FCNMaskHead at 8 channels
+and samples both RoIAligns with sampling_ratio=0 (which becomes 2), and
+FCOS, ATSS and RepPoints on a ResNet-18 (base 8) with one GN(4) conv a
+branch, on a 128x192 frame cut into 64x96 tiles. Per-tile NMS (and for
+the two-stage detectors the RPN's proposal NMS and the RoIAlign), the
+tile shift and the
 global merge all run; the tiled engine merges detections only and drops
 the mask probabilities, in both packages. Random init leaves the scores far too close
 together for two frameworks to order them alike, so the classifier that
-scores each stage (`retina_cls`; `rpn_cls` and `fc_cls`) is redrawn, the
-same numbers on both sides, to spread them. nms_pre covers whole levels and
+scores each stage (`retina_cls`; `rpn_cls` and `fc_cls`; the dense heads'
+`conv_cls`, `atss_cls` and `cls_out`) is redrawn, the same numbers on
+both sides, to spread them. nms_pre covers whole levels and
 max_per_img every kept box, so no near-tie at a top-k boundary picks
 different candidates. Detections are compared at the
 tests/test_detector_golden.py:88 tolerances (same count, box atol 2e-3,
@@ -135,6 +138,48 @@ def _assert_dets_match(ref, got, atol_box=2e-3, atol_score=1e-4):
         used[np.argmax(ok)] = True
 
 
+# the dense TinyPerson baselines on ResNet-18 (base 8), FPN 16 from stride
+# 4, one GN(4) conv a branch
+DENSE_NECK = """
+    backbone=dict(type="ResNet", depth=18, base_channels=8),
+    neck=dict(type="FPN", in_channels=[8, 16, 32, 64], out_channels=16,
+              start_level=0, add_extra_convs=True, num_outs=5,
+              relu_before_extra_convs=True),"""
+DENSE_TEST = """
+test_cfg = dict(nms_pre=4000, score_thr=0.3,
+                nms=dict(type="nms", iou_threshold={thr}), max_per_img=1000)
+"""
+FCOS_MODEL = """
+model = dict(
+    type="FCOS",""" + DENSE_NECK + """
+    bbox_head=dict(
+        type="FCOSHead", num_classes=2, in_channels=16, feat_channels=16,
+        stacked_convs=1, strides=[4, 8, 16, 32, 64],
+        regress_ranges=((-1, 16), (16, 32), (32, 64), (64, 128), (128, 1e8)),
+        norm_cfg=dict(type="GN", num_groups=4)))
+""" + DENSE_TEST.format(thr=0.5)
+ATSS_MODEL = """
+model = dict(
+    type="ATSS",""" + DENSE_NECK + """
+    bbox_head=dict(
+        type="ATSSHead", num_classes=2, in_channels=16, feat_channels=16,
+        stacked_convs=1, norm_cfg=dict(type="GN", num_groups=4),
+        anchor_generator=dict(type="AnchorGenerator", octave_base_scale=4,
+                              scales_per_octave=1, ratios=[1.0],
+                              strides=[4, 8, 16, 32, 64]),
+        bbox_coder=dict(type="DeltaXYWHBBoxCoder", target_means=[0, 0, 0, 0],
+                        target_stds=[0.1, 0.1, 0.2, 0.2])))
+""" + DENSE_TEST.format(thr=0.6)
+REPPOINTS_MODEL = """
+model = dict(
+    type="RepPointsDetector",""" + DENSE_NECK + """
+    bbox_head=dict(
+        type="RepPointsHead", num_classes=2, in_channels=16,
+        feat_channels=16, point_feat_channels=16, stacked_convs=1,
+        point_strides=[4, 8, 16, 32, 64], norm_cfg=dict(type="GN",
+                                                         num_groups=4)))
+""" + DENSE_TEST.format(thr=0.5)
+
 # per detector: the config's model part and (scope, classifier, scale) of
 # each classifier redrawn to spread the scores
 DETECTORS = {
@@ -145,11 +190,15 @@ DETECTORS = {
     "mask_rcnn": (MASK_MODEL, [(("rpn_head_m",), "rpn_cls", 0.3),
                                (("roi_head_m", "bbox_head_m"), "fc_cls",
                                 0.3)]),
+    "fcos": (FCOS_MODEL, [(("bbox_head_m",), "conv_cls", 0.3)]),
+    "atss": (ATSS_MODEL, [(("bbox_head_m",), "atss_cls", 0.3)]),
+    "reppoints": (REPPOINTS_MODEL, [(("bbox_head_m",), "cls_out", 0.3)]),
 }
 
 
 @pytest.mark.parametrize("detector", ["retinanet", "faster_rcnn",
-                                      "mask_rcnn"])
+                                      "mask_rcnn", "fcos", "atss",
+                                      "reppoints"])
 def test_tiled_slice_matches_jax(tmp_path, detector):
     model_text, redraw = DETECTORS[detector]
     text = CFG_TEXT
@@ -180,5 +229,5 @@ def test_tiled_slice_matches_jax(tmp_path, detector):
 
     frame = np.random.RandomState(6).randint(0, 256, (128, 192, 3), np.uint8)
     ref = _dets(jax_tiled(jh, frame))
-    assert ref[0].shape[0] > 0
+    assert ref[0].shape[0] > 0, detector
     _assert_dets_match(ref, _dets(inference_detector_tiled(th, frame)))

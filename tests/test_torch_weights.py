@@ -124,6 +124,10 @@ def test_port_imports_no_jax():
             "pointtinybenchmark_tpu_torch.models.dense_heads.p2p_head, "
             "pointtinybenchmark_tpu_torch.models.dense_heads.cpr_head, "
             "pointtinybenchmark_tpu_torch.models.dense_heads.p2b_head, "
+            "pointtinybenchmark_tpu_torch.models.dense_heads.fcos_head, "
+            "pointtinybenchmark_tpu_torch.models.dense_heads.atss_head, "
+            "pointtinybenchmark_tpu_torch.models.dense_heads.reppoints_head, "
+            "pointtinybenchmark_tpu_torch.models.losses.iou_loss, "
             "pointtinybenchmark_tpu_torch.data.noise, "
             "pointtinybenchmark_tpu_torch.models.detectors.single_stage, "
             "pointtinybenchmark_tpu_torch.models.losses.mil_loss, "
@@ -242,3 +246,56 @@ def test_mask_rcnn_state_dict_round_trip():
     assert "roi_head.mask_head.convs.1.conv.weight" in want
     for k in want:
         assert torch.equal(want[k], got[k]), k
+
+
+# the dense baselines' heads: (config, names the map must fill)
+DENSE = {
+    "fcos": ("tinyperson/fcos_r50_fpns4_1x_tinyperson640.py",
+             ["conv_cls", "conv_reg", "conv_centerness", "scales.0",
+              "scales.4"]),
+    "atss": ("tinyperson/atss_r50_fpns4_1x_tinyperson640.py",
+             ["atss_cls", "atss_reg", "atss_centerness"]),
+    "reppoints": ("tinyperson/reppoints_r50_fpns4_1x_tinyperson640.py",
+                  ["pts_init_conv", "pts_init_out", "cls_dcn", "cls_out",
+                   "refine_dcn", "pts_refine_out", "moment_transfer"]),
+}
+
+
+@pytest.mark.parametrize("family", sorted(DENSE))
+def test_dense_heads_load_every_jax_leaf(family):
+    """The JAX model's tree at toy width, filled with seeded values, loads
+    into the port's model: every leaf consumed, every entry filled, and
+    the heads' new names carry the JAX leaf (a kernel HWIO -> OIHW, so the
+    1x1 `cls_dcn` / `refine_dcn` keep their tap-major input order; the
+    Scale and `moment_transfer` as they are)."""
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+    from test_torch_init import toy
+
+    name, heads = DENSE[family]
+    cfg = Config.fromfile(osp.join(REPO, "configs", name))
+    model_cfg = toy(cfg.model)
+    jm = jax_build(dict(model_cfg), cfg.get("train_cfg"), cfg.get("test_cfg"))
+    shapes = jax.eval_shape(lambda r, x: jm.init(r, x, train=False),
+                            jax.random.PRNGKey(0),
+                            jnp.zeros((1, 64, 64, 3), jnp.float32))
+    rng = np.random.RandomState(8)
+    tree = jax.tree_util.tree_map(
+        lambda s: np.asarray(rng.randn(*s.shape), np.float32), shapes)
+    model = build_detector(dict(model_cfg), cfg.get("train_cfg"),
+                           cfg.get("test_cfg"), device="cpu")
+    load_jax_variables(model, tree["params"], tree["batch_stats"])
+    sd = model.state_dict()
+    head = tree["params"]["bbox_head_m"]
+    for h in heads:
+        if h == "moment_transfer":
+            got, want = sd["bbox_head.moment_transfer"], head[h]
+        elif h.startswith("scales."):
+            i = h.split(".")[1]
+            got, want = sd[f"bbox_head.{h}.scale"], head[f"scale{i}"]["scale"]
+        else:
+            got = sd[f"bbox_head.{h}.weight"]
+            want = head[h]["kernel"].transpose(3, 2, 0, 1)
+            assert torch.equal(sd[f"bbox_head.{h}.bias"],
+                               torch.from_numpy(head[h]["bias"])), h
+        assert tuple(got.shape) == np.shape(want), h
+        assert torch.equal(got, torch.from_numpy(np.asarray(want))), h
