@@ -4,12 +4,12 @@
     python3 chip_smoke.py
 
 Builds the kernels of ops/csrc with nvcc (one nvcc per source, started
-together), then runs twenty main paths, the tiled protocol of Adap
+together), then runs twenty-two main paths, the tiled protocol of Adap
 RetinaNet-c, Adap Faster R-CNN, COCO Mask R-CNN, Adap P2P, Adap FCOS, Adap
-ATSS and Adap RepPoints, each on two 1920x1080 uint8 frames, the training
-of Adap Faster R-CNN, Adap RetinaNet-c, COCO Mask R-CNN, P2P, CPR,
-P2BNet, SSD-Det, FCOS, ATSS and RepPoints, and the refinement of CPR,
-P2BNet and SSD-Det:
+ATSS, Adap RepPoints and Adap Grid R-CNN, each on two 1920x1080 uint8
+frames, the training of Adap Faster R-CNN, Adap RetinaNet-c, COCO Mask
+R-CNN, P2P, CPR, P2BNet, SSD-Det, FCOS, ATSS, RepPoints and Grid R-CNN,
+and the refinement of CPR, P2BNet and SSD-Det:
 
 1. kernel vs plain, NMS: the IoU-bitmask and greedy-reduce kernels against
    their plain PyTorch version on the card, on synthetic TinyPerson-like
@@ -194,6 +194,27 @@ P2BNet and SSD-Det:
    LOSS_TOL), step ms, img/s and peak memory; (c) profiles of warm
    protocol calls and steps with the others at the end (the gather and
    the index_add_ scatter of RepPoints' sampling as families).
+13. Adap Grid R-CNN (configs/tinyperson/grid_rcnn_r50_fpn_1x_
+   tinyperson640.py at full width: Faster R-CNN's network and a grid head
+   of 8 GN(36) 3x3 convs at 576, 9 point branches with first-order fusion
+   and two transposed convs to 56x56 heat maps, on K2's S=14 sr=2 crops)
+   with seeded weights, no random-weight fix: (a) `phase_grid`,
+   `inference_detector_tiled` on the two frames, launches {iou_bitmask: 3,
+   greedy_reduce: 3, roi_align: 2} (K2 at S=7 sr=1 for the proposals, at
+   S=14 sr=2 for every valid detection slot), merged detections equal to
+   those with every kernel swapped for its plain version, K2 torch.equal
+   to its plain version on the protocol's own grid rois (PLAIN_CHUNK rois
+   a call), the grid head on the card against the CPU's on GRID_CPU_ROIS
+   rois of one tile, protocol and forward-only img/s over GRID_ITERS
+   calls, the grid branch's share of the forward, the grid head's TFLOP/s,
+   a protocol call's peak memory; (b) `phase_grid_train`: `train_run` for
+   20 iterations (launches {1, 1, 2, 2} a step, no roi-coordinate launch:
+   the jittered grid rois carry no gradient), one step with the kernels
+   against one with the plain RoIAlign (equal losses, gradients within
+   GRAD_TOL), K2 forward and backward on that step's bbox and grid rois
+   against their plain versions, GRID_TIMED_STEPS steps from the seeded
+   weights by CUDA events; (c) profiles with the others at the end, and
+   the K2 forward's and backward's device times on the grid rois.
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
@@ -203,8 +224,9 @@ the main paths, its error against the plain version, its time, the plain
 version's time and its bound (`by_shape`: K1 at every launch shape, the
 Mask R-CNN train step's RPN NMS and the two protocol launches of P2P,
 FCOS, ATSS and RepPoints; for
-RoIAlign the phase-2 shapes, the slices' rois and the train steps' rois;
-for its backward the phase-6 shapes and the train steps' rois; for the
+RoIAlign the phase-2 shapes, the slices' rois (Grid R-CNN's grid rois
+included) and the train steps' rois; for its backward the phase-6 shapes
+and the train steps' rois; for the
 roi-coordinate kernel phase 11 (a)'s shapes and the P2BNet step's two
 launches; `ms` is whole wrapper calls
 between CUDA events, as for every kernel, and the backward adds
@@ -329,6 +351,27 @@ DENSE = (
      "cls_out"))
 DENSE_STRIDES = (4, 8, 16, 32, 64)
 DENSE_TRAIN_EPOCHS = 2           # 8 iterations at samples_per_gpu=1
+# phase 13: Adap Grid R-CNN, Faster R-CNN's network with a grid head on
+# K2's S=14 sr=2 crops: of every valid detection slot in the protocol
+# (after the RPN's and the RoI head's NMS, so K1 3 + 3 and K2 2 a call),
+# of the 96 jittered sampled rois of a train step (K2 and its backward
+# twice a step: the bbox rois at S=7 sr=1 and the grid rois; the proposals
+# carry no gradient, so no roi-coordinate launch)
+GRID_CONFIG = REPO / "configs/tinyperson/grid_rcnn_r50_fpn_1x_tinyperson640.py"
+GRID_LAUNCHES = {"iou_bitmask": 3, "greedy_reduce": 3, "roi_align": 2,
+                 "roi_align_backward": 0, "roi_align_rois_backward": 0}
+GRID_TRAIN_LAUNCHES = {"iou_bitmask": 1, "greedy_reduce": 1, "roi_align": 2,
+                       "roi_align_backward": 2, "roi_align_rois_backward": 0}
+# a protocol call runs the grid head on every valid slot (~6 s at full
+# width on random weights, which keep ~1,000 slots a tile): warm calls
+# timed, warm calls profiled, and rois of one tile held against the CPU's
+# grid head
+GRID_ITERS = 1
+GRID_PROFILE_CALLS = 1
+GRID_CPU_ROIS = 16
+GRID_TIMED_STEPS = 20
+# calls of a kernel traced for its device time
+DEVICE_MS_CALLS = 20
 P2B_CONFIG = REPO / "configs/p2b/p2bnet_r50_fpn_1x_coco.py"
 SSD_CONFIG = REPO / "configs/ssd_det/ssd_det_r50_fpn_1x_coco.py"
 P2B_TRAIN_LAUNCHES = {"iou_bitmask": 0, "greedy_reduce": 0, "roi_align": 3,
@@ -474,6 +517,20 @@ def time_ms(fn, iters):
     """Mean ms per call on the current stream, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def events_ms(fn, iters):
+    """Mean ms per call of `iters` calls on the current stream by CUDA
+    events, without a warm-up call (for work that is warm already and
+    takes seconds a call)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -704,14 +761,22 @@ def plain_nms():
 @contextlib.contextmanager
 def plain_roi_align():
     """Inside this block ops/roi_align.py runs the plain RoIAlign on CUDA
-    tensors too, in place of the kernels: the plain forward, and autograd
+    tensors too, in place of the kernels: the plain forward (PLAIN_CHUNK
+    rois a call: each roi's output is its own, and Grid R-CNN's tens of
+    thousands of 14x14 crops would take tens of GB at once), and autograd
     through it in place of the two backward kernels."""
     from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
 
     saved = (roi_align_cuda.roi_align_forward,
              roi_align_cuda.roi_align_backward,
              roi_align_cuda.roi_align_rois_backward)
-    roi_align_cuda.roi_align_forward = roi_align.roi_align_multilevel_plain
+    def forward(feats, rois, lvls, *args, **kwargs):
+        return torch.cat([roi_align.roi_align_multilevel_plain(
+            feats, rois[c], lvls[c], *args, **kwargs)
+            for c in chunks(rois.shape[0])]) if rois.shape[0] else \
+            roi_align.roi_align_multilevel_plain(feats, rois, lvls, *args,
+                                                 **kwargs)
+    roi_align_cuda.roi_align_forward = forward
     roi_align_cuda.roi_align_backward = roi_align.roi_align_backward_plain
     roi_align_cuda.roi_align_rois_backward = \
         roi_align.roi_align_rois_backward_plain
@@ -1663,15 +1728,16 @@ def _busy_us(events):
     return busy + (cur[1] - cur[0] if cur is not None else 0.0)
 
 
-def phase_profile(card, handle, frames, label):
+def phase_profile(card, handle, frames, label, calls=PROFILE_CALLS,
+                  warm=True):
     from pointtinybenchmark_tpu_torch.apis.inference import \
         inference_detector_tiled
 
     frame_list = list(frames)
-    inference_detector_tiled(handle, frame_list)
+    if warm:
+        inference_detector_tiled(handle, frame_list)
     device_profile(card, lambda: inference_detector_tiled(handle, frame_list),
-                   label, PROFILE_CALLS,
-                   f"warm protocol calls of {N_FRAMES} frames")
+                   label, calls, f"warm protocol calls of {N_FRAMES} frames")
 
 
 def device_profile(card, run, label, calls, what):
@@ -2355,7 +2421,8 @@ def time_replayed(run, restore, iters):
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def time_step(card, phase, label, cfg, model, batch, held, images):
+def time_step(card, phase, label, cfg, model, batch, held, images,
+              steps=TRAIN_TIMED_STEPS):
     """Warm train steps of `model` on `batch` from its weights
     (`replayed_steps`) by CUDA events, and the peak memory above `held`
     (the saved start not counted). Returns the numbers and a function that
@@ -2373,14 +2440,14 @@ def time_step(card, phase, label, cfg, model, batch, held, images):
                                                 gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_ms = time_replayed(run, restore, TRAIN_TIMED_STEPS)
+    step_ms = time_replayed(run, restore, steps)
     peak = (torch.cuda.max_memory_allocated() - held - saved) / 2 ** 30
     check(f"phase {phase} {label} timed steps")
     restore_ms = time_ms(restore, TRAIN_TIMED_STEPS)
     hw = tuple(batch["img"].shape[1:3])
     print(f"phase {phase} train step ({label}, {images} image(s) of {hw}, "
           f"f32, TF32 off, warm, CUDA events round each of "
-          f"{TRAIN_TIMED_STEPS} steps from the seeded weights, restored "
+          f"{steps} steps from the seeded weights, restored "
           f"between them untimed ({restore_ms:.4f} ms a restore), no host "
           f"sync between them): {step_ms:.4f} ms, "
           f"{images * 1e3 / step_ms:.4f} img/s; peak memory {peak:.3f} GiB "
@@ -2520,18 +2587,19 @@ def coco_train_samples(rng, n, hw=None):
     return out
 
 
-def step_rois(card, fwd, bwd):
+def step_rois(card, fwd, bwd, phase="8", label="mask_rcnn train step",
+              kinds=((7, "bbox"), (14, "mask"))):
     """The K2 forward (torch.equal) and backward (within BWD_TOL) against
     their plain versions on one train step's recorded launches, with the
-    rois on each kernel path, call times and bounds. Returns the forward's
-    and the backward's records and the backward's inputs, one per forward
-    launch."""
+    rois on each kernel path, call times and bounds; `kinds` names the
+    launches by S. Returns the forward's and the backward's records and the
+    backward's inputs, one per forward launch."""
     f_rows, b_rows, b_inputs = [], [], []
     for (feats, rois, lvls, _, out, sr, *_), _, _ in fwd:
         feats = [f.detach() for f in feats]
         g = next(args[0] for args, _, _ in bwd if args[0].shape[-1] == out)
         shapes = [tuple(f.shape) for f in feats]
-        name = f"mask_rcnn train step {'bbox' if out == 7 else 'mask'} rois"
+        name = f"{label} {dict(kinds)[out]} rois"
         r = rois.shape[0]
         per_level = torch.bincount(lvls, minlength=len(ROI_LEVELS)).tolist()
         _, f_err = compare_roi_align(feats, rois, lvls, out, sr)
@@ -2544,12 +2612,12 @@ def step_rois(card, fwd, bwd):
         b_ms, b_plain = time_roi_align_backward(g, rois, lvls, shapes, out,
                                                 sr)
         b_bms, b_by = roi_align_backward_bound(r, g.shape[1], out, sr, shapes)
-        print(f"phase 8 {name} (R={r}, S={out}, sr={sr}, per level "
+        print(f"phase {phase} {name} (R={r}, S={out}, sr={sr}, per level "
               f"{per_level}): forward kernel == plain (torch.equal), paths "
               f"{shares(f_paths)}; backward kernel vs plain {err:.3e} "
               f"({share:.3e} of the level's max, bar {BWD_TOL}), paths "
               f"{shares(b_paths)}")
-        print(f"phase 8 {name}: forward kernel {f_ms:.4f} ms (plain "
+        print(f"phase {phase} {name}: forward kernel {f_ms:.4f} ms (plain "
               f"{f_plain:.4f}, bound {f_bms:.4f} {f_by}), backward call "
               f"{b_ms:.4f} ms (plain {b_plain:.4f}, bound {b_bms:.4f} {b_by})"
               f" [{card}]")
@@ -4216,6 +4284,353 @@ def phase_dense_train(card, name, config):
     return launches, profile
 
 
+# -------------------------------------------- phase 13: Adap Grid R-CNN
+def forward_device_ms(feats, rois, lvls, out, sr, label,
+                      calls=DEVICE_MS_CALLS):
+    """The K2 forward kernel's device time per call, the mean of its
+    events in a torch.profiler trace of `calls` warm wrapper calls (the
+    trace goes to build/)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+
+    def run():
+        roi_align_cuda.roi_align_forward(feats, rois, lvls, ROI_STRIDES, out,
+                                         sr)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    trace = REPO / "build" / f"forward_trace_{label}.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    durs = [e["dur"] for e in json.loads(trace.read_text())["traceEvents"]
+            if e.get("cat") == "kernel" and "dur" in e
+            and "roi_align_kernel" in e.get("name", "")]
+    if len(durs) < calls // 2:
+        raise AssertionError(f"{label}: {len(durs)} forward kernels traced "
+                             f"in {calls} calls")
+    return sum(durs) / len(durs) / 1e3
+
+
+def grid_head_flops(head, r, s):
+    """f32 operations of the grid head on r crops of s x s: the 3x3
+    convolutions and the point features at s, the 5x5 fusions at s, the
+    two 2x2 stride-2 transposed convolutions (one tap per output pixel and
+    input channel) at 2s and 4s; 2 per multiply-add."""
+    convs = sum(2 * r * s * s * 9 * m.in_channels * m.out_channels
+                for name, m in head.named_children()
+                if name.startswith("conv"))
+    rest = sum(2 * r * s * s * m.weight[0].numel() * m.out_channels
+               for name, m in head.named_children()
+               if name.startswith(("point_feat", "fuse")))
+    up = sum(2 * r * (2 * s * (2 if name.startswith("deconv2") else 1)) ** 2
+             * m.in_channels * m.out_channels
+             for name, m in head.named_children()
+             if name.startswith("deconv"))
+    return convs + rest + up
+
+
+def phase_grid(card, frames):
+    """Phase 13 (a): Adap Grid R-CNN's tiled protocol at full width
+    (Faster R-CNN's network, the grid head of 8 GN(36) convs at 576 on
+    S=14 sr=2 crops) with seeded weights on the two frames: launches
+    (K2 once at S=7 sr=1, once at S=14 sr=2), detections equal to those of
+    the run with every kernel swapped for its plain version, K2 on the
+    protocol's own grid rois torch.equal to the plain version (PLAIN_CHUNK
+    rois a call), with paths, times, device time and bound; the grid head
+    on the card against the CPU's on GRID_CPU_ROIS rois of one tile;
+    protocol and forward-only img/s (GRID_ITERS calls), the grid branch's
+    share of the forward, the grid head's TFLOP/s, a protocol call's peak
+    memory. Returns the launches, the handle (for the profile), the K2
+    record and a function that adds K2's device time to it, to be run
+    after every timing."""
+    import copy
+
+    from pointtinybenchmark_tpu_torch.apis.inference import (
+        inference_detector_tiled, init_detector)
+    from pointtinybenchmark_tpu_torch.models.roi_heads.grid_roi_head import \
+        grid_refine_boxes
+    from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
+        map_roi_levels
+    from pointtinybenchmark_tpu_torch.models.roi_heads.standard_roi_head \
+        import StandardRoIHead
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+
+    handle = init_detector(str(GRID_CONFIG), device=DEVICE, seed=0)
+    model = handle.model
+    head = model.roi_head
+    gh = head.grid_head
+    ext = head.grid_extractor
+    print(f"phase 13: {GRID_CONFIG.name} with seeded weights, no "
+          f"random-weight fix; grid head {gh.num_convs} convs of "
+          f"{gh.conv0.out_channels} with GroupNorm({gh.gn0.num_groups}), "
+          f"point features {gh.point_feat0.out_channels}, on S="
+          f"{ext['output_size']} sr={ext['sampling_ratio']} crops of the "
+          f"valid detection slots, {head.chunk} rois a pass")
+    torch.backends.cudnn.deterministic = True
+    fwd = []
+    reset_launches()
+    with recorded(roi_align_cuda, "roi_align_forward", fwd):
+        results = inference_detector_tiled(handle, list(frames))
+    launches = read_launches()
+    print(f"phase 13 launches on the Grid R-CNN path: {launches}")
+    got_shapes = sorted(tuple(args[4:6]) for args, _, _ in fwd)
+    if launches != GRID_LAUNCHES or got_shapes != [(7, 1), (14, 2)]:
+        raise AssertionError(f"expected {GRID_LAUNCHES} with K2 at (S, sr) "
+                             f"(7, 1) and (14, 2), got {launches}, "
+                             f"{got_shapes}")
+    grid_rois = next(args[1] for args, _, _ in fwd if args[4] == 14)
+    del fwd
+    check_frames(results, "phase 13")
+    # the bbox branch's detections of one call, as deterministic as the run
+    eng = next(iter(handle.tiled_engines.values()))
+    tiles = eng.pre(frames)
+    b = tiles.shape[0]
+    img_shapes = torch.tensor([eng.pre.tile_hw], dtype=torch.int32,
+                              device=DEVICE).expand(b, 2)
+    with torch.no_grad():
+        feats = model.extract_feat(tiles)
+        props, _, valid = model.rpn_head.get_proposals(
+            *model.rpn_head(feats), img_shapes, model.rpn_head.test_cfg)
+        dets = StandardRoIHead.simple_test(head, feats, props, valid,
+                                           img_shapes)
+    with plain_nms(), plain_roi_align():
+        results_plain = inference_detector_tiled(handle, list(frames))
+    torch.backends.cudnn.deterministic = False
+    for i, (r, p) in enumerate(zip(results, results_plain)):
+        if not (np.array_equal(r["bboxes"], p["bboxes"])
+                and np.array_equal(r["labels"], p["labels"])):
+            raise AssertionError(f"frame {i}: kernels and plain disagree")
+    print("phase 13: merged detections (grid-refined boxes) with the "
+          "kernels == with every kernel swapped for its plain version")
+    slots = dets.valid.reshape(-1).nonzero()[:, 0]
+    rois = slice_rois(dets.bboxes[..., :4])[slots]
+    kept = dets.valid.sum(1)
+    print(f"phase 13 RPN proposals per tile {valid.sum(1).min().item()}.."
+          f"{valid.sum(1).max().item()}; valid detection slots per tile "
+          f"{kept.tolist()}: {rois.shape[0]} of {dets.valid.numel()} slots "
+          f"go through the grid head, {-(-rois.shape[0] // head.chunk)} "
+          f"passes of at most {head.chunk} rois")
+    if kept.min() <= 0 or not torch.equal(rois, grid_rois):
+        raise AssertionError("a tile has no detection, or the protocol's "
+                             "grid rois are not the valid slots' boxes")
+    del grid_rois
+
+    # K2 on the protocol's own grid rois
+    k_feats = list(feats[:len(ROI_STRIDES)])
+    out, sr = ext["output_size"], ext["sampling_ratio"]
+    lvls = map_roi_levels(rois, len(ROI_STRIDES))
+    per_level = torch.bincount(lvls, minlength=len(ROI_STRIDES)).tolist()
+    crops = roi_align_cuda.roi_align_forward(k_feats, rois, lvls,
+                                             ROI_STRIDES, out, sr)
+    want = forward_plain(k_feats, rois, lvls, out, sr)
+    torch.cuda.synchronize()
+    k2_err = float((crops - want).abs().max())
+    if not torch.equal(crops, want):
+        raise AssertionError(f"RoIAlign kernel != plain on the grid rois: "
+                             f"{k2_err}")
+    del want
+    paths = roi_paths(k_feats, rois, lvls, out, sr)
+    k2_ms = time_ms(lambda: roi_align_cuda.roi_align_forward(
+        k_feats, rois, lvls, ROI_STRIDES, out, sr), ITERS)
+    k2_plain = time_ms(lambda: forward_plain(k_feats, rois, lvls, out, sr),
+                       PLAIN_ITERS)
+    bms, by = roi_align_bound(k_feats, rois, lvls, out, sr)
+    r = rois.shape[0]
+    print(f"phase 13 RoIAlign grid rois (R={r}, S={out}, sr={sr}, rois per "
+          f"level {per_level}): kernel == plain (torch.equal); kernel "
+          f"paths: {shares(paths)}")
+    print(f"phase 13 RoIAlign grid rois: kernel {k2_ms:.4f} ms, plain "
+          f"{k2_plain:.4f} ms ({PLAIN_CHUNK} rois a call), bound {bms:.4f} "
+          f"ms ({by}); {ps_per_sample(k2_ms, k_feats, r, out, sr):.4f} ps "
+          f"per sample and channel [{card}]")
+    record = dict(shape="grid_rcnn slice, grid rois", R=r, S=out, sr=sr,
+                  max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
+                  bound_ms=bms, bound_by=by, per_level=per_level,
+                  paths=paths)
+
+    # the grid head on the card against the CPU's, on rois of tile 0
+    n = min(GRID_CPU_ROIS, int(kept[0]))
+    cpu_head = copy.deepcopy(gh).cpu()
+    with torch.no_grad():
+        g_heat = gh(crops[:n])
+        c_heat = cpu_head(crops[:n].cpu())
+        g_box = grid_refine_boxes(rois[:n], torch.sigmoid(g_heat))
+        c_box = grid_refine_boxes(rois[:n].cpu(), torch.sigmoid(c_heat))
+    err = rel_err([g_heat], [c_heat])
+    box_err = float((g_box.cpu() - c_box).abs().max())
+    print(f"phase 13 grid head, card vs CPU on {n} rois of tile 0: heat-map "
+          f"logits max rel err {err:.3e}; refined boxes max abs diff "
+          f"{box_err:.4f} px")
+    if err > 1e-4:
+        raise AssertionError(f"grid head, card vs CPU: {err}")
+    del cpu_head, g_heat, c_heat
+
+    # timing: the model is warm (the runs above), so each number is one
+    # call (a call is seconds), the protocol's with its peak memory
+    frame_list = list(frames)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(GRID_ITERS):
+        inference_detector_tiled(handle, frame_list)
+    protocol = N_FRAMES * GRID_ITERS / (time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    with torch.no_grad():
+        fwd_ms = events_ms(lambda: model(tiles), GRID_ITERS)
+        grid_ms = events_ms(lambda: head.grid_refine(feats, rois),
+                            GRID_ITERS)
+    flop = grid_head_flops(gh, r, out)
+    print(f"phase 13 protocol ({N_FRAMES} frames of {eng.pre.n_views} "
+          f"tiles, host in the loop, {GRID_ITERS} warm call(s)): "
+          f"{protocol:.4f} img/s; forward only (tiles -> grid-refined "
+          f"detections, {b} tiles, f32, TF32 off): "
+          f"{N_FRAMES * 1e3 / fwd_ms:.4f} img/s, {fwd_ms:.4f} ms per forward "
+          f"by CUDA events; a protocol call's peak memory {peak:.3f} GiB "
+          f"above the {held / 2 ** 30:.3f} GiB held [{card}]")
+    print(f"phase 13 grid branch (K2 on the {r} grid rois, {k2_ms:.4f} ms; "
+          f"the grid head in passes of {head.chunk}; the refinement): "
+          f"{grid_ms:.4f} ms, share of the forward {grid_ms / fwd_ms:.4f}; "
+          f"the grid head's {flop / 1e12:.3f} TFLOP at "
+          f"{flop / (grid_ms - k2_ms) / 1e9:.2f} TFLOP/s of the branch's "
+          f"time without K2 [{card}]")
+    print(json.dumps({"grid_rcnn": dict(
+        protocol_img_s=protocol, forward_img_s=N_FRAMES * 1e3 / fwd_ms,
+        forward_ms=fwd_ms, grid_branch_ms=grid_ms,
+        grid_share=grid_ms / fwd_ms, grid_head_tflop=flop / 1e12,
+        grid_rois=r, chunk=head.chunk, peak_gib=peak)}))
+    del crops, feats, tiles
+
+    def device_ms():
+        record["device_ms"] = forward_device_ms(k_feats, rois, lvls, out, sr,
+                                                "grid_rcnn_slice")
+        print(f"phase 13 RoIAlign grid rois (R={r}), device time per call "
+              f"from a profile of {DEVICE_MS_CALLS} calls: "
+              f"{record['device_ms']:.4f} ms (call {k2_ms:.4f} ms, bound "
+              f"{bms:.4f} ms) [{card}]")
+    return launches, handle, record, device_ms
+
+
+def phase_grid_train(card):
+    """Phase 13 (b): Adap Grid R-CNN training at full width with seeded
+    weights: `train_run` for 20 iterations of one 512x640 image (launches
+    per step {1, 1, 2, 2} and no roi-coordinate launch, finite losses,
+    loss_grid included, positives in both stages, frozen and trainable
+    parameters); one step with the kernels against one with the plain
+    RoIAlign from the same weights and draws (equal losses, gradients
+    within GRAD_TOL); on that step's own launches K2 forward (torch.equal)
+    and backward (BWD_TOL) at the bbox rois (S=7 sr=1) and the grid rois
+    (S=14 sr=2), with paths, times and bounds; the grid branch alone on
+    the step's own inputs and GRID_TIMED_STEPS train steps from the seeded
+    weights, by CUDA events. Returns the run's
+    launches, the K2 records and the profile, with the kernels' device
+    times, to be run after every timing."""
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.train import batch_to_device
+    from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(str(GRID_CONFIG))
+    spg = int(cfg.data["samples_per_gpu"])
+    samples = train_samples(np.random.RandomState(17), TRAIN_IMAGES)
+    print(f"phase 13 training config: {GRID_CONFIG.name}, samples_per_gpu "
+          f"{spg}, optimizer {dict(cfg.optimizer)}, lr_config "
+          f"{dict(cfg.lr_config)}; {TRAIN_IMAGES} synthetic images, gts per "
+          f"image {[len(s['gt_bboxes']) for s in samples]}")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    model, init, launches = train_run(card, "13", cfg, samples, TRAIN_EPOCHS,
+                                      GRID_TRAIN_LAUNCHES,
+                                      {"rpn_num_pos": spg, "rcnn_num_pos": 0})
+    collator = DetCollator(tuple(cfg.loader["pad_shape"]),
+                           max_gt=int(cfg.loader["max_gt"]),
+                           max_gt_ignore=int(cfg.loader["max_gt_ignore"]))
+    batch = batch_to_device(collator(samples[:spg]), DEVICE)
+
+    torch.backends.cudnn.deterministic = True
+    fwd, bwd, grid_calls = [], [], []
+    reset_launches()
+    with recorded(roi_align_cuda, "roi_align_forward", fwd), \
+            recorded(roi_align_cuda, "roi_align_backward", bwd), \
+            recorded(model.roi_head, "grid_loss", grid_calls):
+        got, got_grads = one_step(model, cfg, batch, seed=3)
+    k_launches = read_launches()
+    model.load_state_dict(init)
+    reset_launches()
+    with plain_roi_align():
+        want, want_grads = one_step(model, cfg, batch, seed=3)
+    p_launches = read_launches()
+    model.load_state_dict(init)
+    torch.backends.cudnn.deterministic = False
+    loss_keys = [k for k in want if k.startswith("loss") or "num_pos" in k]
+    worst = grad_error(got_grads, want_grads)
+    print(f"phase 13 one step, kernels vs plain RoIAlign: launches "
+          f"{k_launches} vs {p_launches}; " + ", ".join(
+              f"{k} {got[k]:.6f}" for k in loss_keys) + f"; losses equal: "
+          f"{all(got[k] == want[k] for k in loss_keys)}; worst gradient "
+          f"error {worst:.3e} of its parameter's max |grad| (bar "
+          f"{GRAD_TOL})")
+    if k_launches != GRID_TRAIN_LAUNCHES or p_launches["roi_align"] \
+            or p_launches["roi_align_backward"]:
+        raise AssertionError(f"launches {k_launches}, plain {p_launches}")
+    if any(got[k] != want[k] for k in loss_keys) or worst > GRAD_TOL \
+            or not got["loss_grid"] > 0:
+        raise AssertionError(f"kernels vs plain: {got} vs {want}, gradient "
+                             f"{worst}")
+    del got_grads, want_grads
+    f_rows, b_rows, b_inputs = step_rois(
+        card, fwd, bwd, phase="13", label="grid_rcnn train step",
+        kinds=((7, "bbox"), (14, "grid")))
+    f_inputs = [(tuple(f.detach() for f in args[0]),) + tuple(args[1:6])
+                for args, _, _ in fwd]
+    # the grid branch alone on the step's own inputs: K2 on the 96 jittered
+    # rois, the grid head and the loss, forward and backward to the maps
+    (g_feats, *g_args), _, _ = grid_calls[0]
+    g_feats = [f.detach().requires_grad_() for f in g_feats]
+    grid_head = model.roi_head.grid_head
+    grid_loss = model.roi_head.grid_loss
+
+    def grid_branch():
+        grid_loss(g_feats, *g_args).backward()
+        for t in g_feats + list(grid_head.parameters()):
+            t.grad = None
+    del fwd, bwd, init, grid_calls
+    grid_ms = time_ms(grid_branch, TRAIN_TIMED_STEPS)
+    del g_feats, g_args
+    model = train_model(cfg)
+    numbers, step_profile = time_step(card, "13", "grid_rcnn_train", cfg,
+                                      model, batch, held, spg,
+                                      steps=GRID_TIMED_STEPS)
+    k2 = sum(rec["ms"] for rec in f_rows + b_rows)
+    print(f"phase 13 K2 forward + backward calls on the step's two "
+          f"launches {k2:.4f} ms, share of the step "
+          f"{k2 / numbers['step_ms']:.4f}; the grid branch alone (K2 on the "
+          f"grid rois, the grid head, the loss, forward and backward, by "
+          f"CUDA events) {grid_ms:.4f} ms, share of the step "
+          f"{grid_ms / numbers['step_ms']:.4f} [{card}]")
+    numbers.update(grid_branch_ms=grid_ms,
+                   grid_share=grid_ms / numbers["step_ms"])
+
+    def profile():
+        step_profile()
+        for rec, (feats, rois, lvls, _, out, sr) in zip(f_rows, f_inputs):
+            rec["device_ms"] = forward_device_ms(
+                list(feats), rois, lvls, out, sr, rec["shape"].replace(" ",
+                                                                       "_"))
+            print(f"phase 13 RoIAlign {rec['shape']} (R={rec['R']}), "
+                  f"forward device time per call from a profile of "
+                  f"{DEVICE_MS_CALLS} calls: {rec['device_ms']:.4f} ms "
+                  f"(call {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
+                  f"ms) [{card}]")
+        for rec, args in zip(b_rows, b_inputs):
+            add_device_ms(card, rec, *args, phase="13")
+    return launches, f_rows, b_rows, profile
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -4278,6 +4693,11 @@ def main():
         dense[name] = phase_dense(card, frames, name, config, cls_name)
         dense[name + "_train"] = phase_dense_train(card, name, config)
     lap("phase 12 (a), (b)")
+    grid_launches, grid, grid_record, grid_device_ms = phase_grid(card,
+                                                                  frames)
+    (grid_train_launches, grid_train_fwd, grid_train_bwd,
+     grid_train_profile) = phase_grid_train(card)
+    lap("phase 13 (a), (b)")
     # the profiles last: once torch.profiler has traced the card, later
     # launches of the process can cost more host time (phase 6 times the
     # train step before and after them)
@@ -4295,6 +4715,11 @@ def main():
     for name, _, _ in DENSE:
         phase_profile(card, dense[name][1], frames, name)
         dense[name + "_train"][1]()
+    # its model is warm from phase 13's calls
+    phase_profile(card, grid, frames, "grid_rcnn", GRID_PROFILE_CALLS,
+                  warm=False)
+    grid_device_ms()
+    grid_train_profile()
     lap("the profiles")
     for k in ("iou_bitmask", "greedy_reduce"):
         records[k]["by_shape"].append(mask_train_k1[k])
@@ -4303,10 +4728,11 @@ def main():
                                    for row in dense[name][2]]
     records["roi_align"] = dict(
         slice_record, by_shape=roi_shapes + [slice_record] + mask_records
-        + [train_fwd] + mask_train_fwd + p2b_rows[0])
+        + [train_fwd] + mask_train_fwd + p2b_rows[0] + [grid_record]
+        + grid_train_fwd)
     records["roi_align_backward"] = dict(
         train_bwd, by_shape=bwd_shapes + [train_bwd] + mask_train_bwd
-        + p2b_rows[1])
+        + p2b_rows[1] + grid_train_bwd)
     # the P2BNet step's negatives, its largest launch
     records["roi_align_rois_backward"] = dict(
         p2b_rows[2][1], by_shape=rois_rows + p2b_rows[2])
@@ -4319,7 +4745,9 @@ def main():
                "p2p": p2p_launches, "p2p_train": p2p_train_launches,
                "cpr_refine": cpr_launches, "cpr_train": cpr_train_launches,
                **p2b_by_path,
-               **{k: v[0] for k, v in dense.items()}}
+               **{k: v[0] for k, v in dense.items()},
+               "grid_rcnn": grid_launches,
+               "grid_rcnn_train": grid_train_launches}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],

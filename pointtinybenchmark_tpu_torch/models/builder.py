@@ -8,6 +8,10 @@ would build another network than JAX's. The training keys
 (`frozen_stages`, the heads' losses, `train_cfg`) are taken. The one
 exception is the FPN's `norm_cfg`, which the point configs set: the port's
 FPN takes it and, as the JAX package, builds no norm (see necks/fpn.py).
+A list of necks (Libra R-CNN's [FPN, BFP]) is refused: the JAX package's
+TwoStageDetector.setup calls `build_neck(dict(neck))` on it
+(models/detectors/two_stage.py:37), which raises ValueError, so there is
+no JAX network to match.
 """
 from __future__ import annotations
 
@@ -29,9 +33,11 @@ from .dense_heads.retina_head import RetinaHead
 from .dense_heads.rpn_head import RPNHead
 from .detectors.single_stage import (BasicLocator, P2BNet, SSDDet,
                                      SingleStageDetector)
-from .detectors.two_stage import MaskRCNN, TwoStageDetector
+from .detectors.two_stage import GridRCNN, MaskRCNN, TwoStageDetector
+from .necks.extra_necks import BFP
 from .necks.fpn import FPN
 from .roi_heads.bbox_head import Shared2FCBBoxHead
+from .roi_heads.grid_roi_head import GridHead, GridRoIHead
 from .roi_heads.mask_head import FCNMaskHead
 from .roi_heads.standard_roi_head import StandardRoIHead
 
@@ -40,10 +46,13 @@ __all__ = ["build_detector", "build_module", "MODULES"]
 MODULES = {
     "ResNet": ResNet,
     "FPN": FPN,
+    "BFP": BFP,
     "AnchorHead": AnchorHead,
     "RetinaHead": RetinaHead,
     "RPNHead": RPNHead,
     "StandardRoIHead": StandardRoIHead,
+    "GridRoIHead": GridRoIHead,
+    "GridHead": GridHead,
     "Shared2FCBBoxHead": Shared2FCBBoxHead,
     "FCNMaskHead": FCNMaskHead,
     "P2PHead": P2PHead,
@@ -62,7 +71,8 @@ SINGLE_STAGE = {"SingleStageDetector": SingleStageDetector,
                 "BasicLocator": BasicLocator, "P2BNet": P2BNet,
                 "SSDDet": SSDDet}
 TWO_STAGE = {"TwoStageDetector": TwoStageDetector,
-             "FasterRCNN": TwoStageDetector, "MaskRCNN": MaskRCNN}
+             "FasterRCNN": TwoStageDetector, "MaskRCNN": MaskRCNN,
+             "GridRCNN": GridRCNN}
 
 
 def build_module(cfg: dict) -> nn.Module:
@@ -96,13 +106,21 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
     two-stage detector's RPN gets `train_cfg["rpn"]` and
     `test_cfg["rpn"]`, its RoI head `train_cfg["rcnn"]` and
     `test_cfg["rcnn"]` and the built bbox head and, for Mask R-CNN, mask
-    head; the detector keeps `train_cfg["rpn_proposal"]` (JAX
-    two_stage.py:38-45)."""
+    head (for Grid R-CNN, grid head); the detector keeps
+    `train_cfg["rpn_proposal"]` (JAX two_stage.py:38-45). A list of necks
+    raises (see the module note)."""
     cfg = dict(cfg)
     kind = cfg.pop("type")
     train_cfg = cfg.get("train_cfg") or train_cfg
     test_cfg = cfg.get("test_cfg") or test_cfg
     backbone = build_module(cfg["backbone"])
+    if isinstance(cfg.get("neck"), (list, tuple)):
+        raise NotImplementedError(
+            f"a list of necks ({[n.get('type') for n in cfg['neck']]}, "
+            f"Libra R-CNN's form) is not ported: the JAX package's "
+            f"TwoStageDetector.setup calls build_neck(dict(neck)) on it "
+            f"(models/detectors/two_stage.py:37) and raises ValueError, so "
+            f"there is no JAX network to match")
     neck = build_module(cfg["neck"]) if cfg.get("neck") else None
     if kind in SINGLE_STAGE:
         head_cfg = dict(cfg["bbox_head"])
@@ -118,8 +136,9 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
         roi_cfg.setdefault("train_cfg", (train_cfg or {}).get("rcnn"))
         roi_cfg.setdefault("test_cfg", (test_cfg or {}).get("rcnn"))
         roi_cfg["bbox_head"] = build_module(roi_cfg["bbox_head"])
-        if roi_cfg.get("mask_head"):
-            roi_cfg["mask_head"] = build_module(roi_cfg["mask_head"])
+        for key in ("mask_head", "grid_head"):
+            if roi_cfg.get(key):
+                roi_cfg[key] = build_module(roi_cfg[key])
         model = TWO_STAGE[kind](backbone=backbone, neck=neck,
                                 rpn_head=build_module(rpn_cfg),
                                 roi_head=build_module(roi_cfg),

@@ -1,11 +1,12 @@
-"""Two-stage detector (Faster R-CNN, Mask R-CNN): backbone -> neck -> RPN
--> RoI head.
+"""Two-stage detector (Faster R-CNN, Mask R-CNN, Grid R-CNN): backbone ->
+neck -> RPN -> RoI head.
 
 Counterpart of pointtinybenchmark_tpu/models/detectors/two_stage.py::
-TwoStageDetector / FasterRCNN / MaskRCNN. The RPN proposes with
+TwoStageDetector / FasterRCNN / MaskRCNN / GridRCNN. The RPN proposes with
 `test_cfg["rpn"]` and the RoI head detects with `test_cfg["rcnn"]` (each
 head holds its part); Mask R-CNN is the same detector with a mask head in
-its RoI head, whose results then carry the mask probabilities. Public
+its RoI head, whose results then carry the mask probabilities; Grid R-CNN
+the same detector with a `GridRoIHead`, which refines the boxes. Public
 functions take NHWC images, like the JAX model and the single-stage
 detector.
 
@@ -14,7 +15,7 @@ agnostic: every gt is class 0), proposals from `train_cfg["rpn_proposal"]`
 computed without gradient on the RPN's outputs (the proposal NMS runs
 here), then the RoI head's loss on them. The losses come back under the
 JAX package's names: loss_rpn_cls, loss_rpn_bbox, rpn_num_pos, loss_cls,
-loss_bbox, rcnn_acc, rcnn_num_pos.
+loss_bbox, rcnn_acc, rcnn_num_pos (and Grid R-CNN's loss_grid).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from ...core.post_processing import DetResult
 from ..dense_heads.rpn_head import RPNHead
 from ..roi_heads.standard_roi_head import StandardRoIHead
 
-__all__ = ["TwoStageDetector", "MaskRCNN"]
+__all__ = ["TwoStageDetector", "MaskRCNN", "GridRCNN"]
 
 DEFAULT_PROPOSAL_CFG = dict(nms_pre=1000, max_per_img=1000,
                             nms=dict(iou_threshold=0.7), min_bbox_size=0)
@@ -114,3 +115,8 @@ class TwoStageDetector(nn.Module):
 class MaskRCNN(TwoStageDetector):
     """Mask R-CNN (mmdet models/detectors/mask_rcnn.py): the mask branch
     lives in the RoI head (its `mask_head`)."""
+
+
+class GridRCNN(TwoStageDetector):
+    """Grid R-CNN (mmdet models/detectors/grid_rcnn.py): the grid branch
+    lives in the RoI head (`roi_heads/grid_roi_head.py::GridRoIHead`)."""

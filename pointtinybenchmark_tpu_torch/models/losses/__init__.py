@@ -3,14 +3,15 @@ from .cross_entropy_loss import CrossEntropyLoss
 from .focal_loss import FocalLoss
 from .iou_loss import GIoULoss, IoULoss
 from .mil_loss import MILLoss
-from .smooth_l1_loss import L1Loss, SmoothL1Loss
+from .smooth_l1_loss import BalancedL1Loss, L1Loss, SmoothL1Loss
 from .utils import accuracy, weight_reduce_loss
 
-__all__ = ["CrossEntropyLoss", "FocalLoss", "GIoULoss", "IoULoss", "L1Loss",
-           "MILLoss", "SmoothL1Loss", "accuracy", "build_loss",
-           "weight_reduce_loss"]
+__all__ = ["BalancedL1Loss", "CrossEntropyLoss", "FocalLoss", "GIoULoss",
+           "IoULoss", "L1Loss", "MILLoss", "SmoothL1Loss", "accuracy",
+           "build_loss", "weight_reduce_loss"]
 
-LOSSES = {"CrossEntropyLoss": CrossEntropyLoss, "FocalLoss": FocalLoss,
+LOSSES = {"BalancedL1Loss": BalancedL1Loss,
+          "CrossEntropyLoss": CrossEntropyLoss, "FocalLoss": FocalLoss,
           "GIoULoss": GIoULoss, "IoULoss": IoULoss, "L1Loss": L1Loss,
           "MILLoss": MILLoss, "SmoothL1Loss": SmoothL1Loss}
 

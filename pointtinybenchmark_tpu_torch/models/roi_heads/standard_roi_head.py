@@ -199,6 +199,18 @@ class StandardRoIHead(nn.Module):
         the mask loss, gt_masks (B, G, H, W) uint8. Returns loss_cls,
         loss_bbox, acc and num_pos, and with a mask head and gt_masks
         loss_mask."""
+        return self._forward_train(feats, proposals, prop_valid, batch,
+                                   generator)[0]
+
+    def _forward_train(self, feats: Sequence[torch.Tensor],
+                       proposals: torch.Tensor, prop_valid: torch.Tensor,
+                       batch: Dict[str, torch.Tensor],
+                       generator: torch.Generator
+                       ) -> Tuple[Dict[str, torch.Tensor],
+                                  Tuple[torch.Tensor, ...]]:
+        """`forward_train`'s losses, and the gathered rois' boxes
+        (B, S, 4), positive weights (B, S) float and matched gt indices
+        (B, S) (what the JAX Grid R-CNN head stashes from `_bbox_loss`)."""
         scfg = dict(self.train_cfg.get("sampler", dict(
             type="RandomSampler", num=512, pos_fraction=0.25, neg_pos_ub=-1,
             add_gt_as_proposals=True)))
@@ -237,7 +249,7 @@ class StandardRoIHead(nn.Module):
             out["loss_mask"] = self._mask_loss(
                 feats, sel_boxes, labels, sel_pos.float(), safe,
                 batch["gt_masks"], max(1, pos_budget))
-        return out
+        return out, (sel_boxes, sel_pos.float(), safe)
 
     def _mask_loss(self, feats: Sequence[torch.Tensor], boxes: torch.Tensor,
                    labels: torch.Tensor, pos_w: torch.Tensor,

@@ -23,10 +23,13 @@ channel-minor, the port's order too), FCOS's `scale{i}/scale` ->
 `rpn_head_m/rpn_conv` -> `rpn_head.rpn_conv`; `roi_head_m/bbox_head_m/
 shared_fc{i}` -> `roi_head.bbox_head.shared_fcs.{i}`; `roi_head_m/
 mask_head_m/conv{i}` -> `roi_head.mask_head.convs.{i}.conv`, `upsample` and
-`conv_logits` keep their names), conv kernels go HWIO -> OIHW, dense
+`conv_logits` keep their names; `roi_head_m/grid_head_m/X` -> `roi_head.
+grid_head.X` for every Grid R-CNN layer, `GroupNorm_{i}` (scale, bias) as
+`gn{i}` (weight, bias)), conv kernels go HWIO -> OIHW, dense
 kernels (in, out) -> Linear weights (out, in), and BN (scale, bias, mean,
-var) go to (weight, bias, running_mean, running_var). The mask head's
-transposed convolution is the exception among the 4-d kernels: flax's
+var) go to (weight, bias, running_mean, running_var). The transposed
+convolutions (the mask head's `upsample`, the grid head's `deconv1_{k}`
+and `deconv2_{k}`) are the exception among the 4-d kernels: flax's
 `ConvTranspose` kernel is (kh, kw, in, out) with its taps indexed in the
 opposite order to `nn.ConvTranspose2d`'s (in, out, kh, kw), so it is
 flipped in both spatial axes as well.
@@ -106,6 +109,15 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int,
     name = {"kernel": "weight", "bias": "bias", "scale": "weight"}.get(leaf)
     if name is None:
         return None
+    if top == "roi_head_m" and len(scope) == 2 and scope[0] == "grid_head_m":
+        m = re.fullmatch(r"GroupNorm_(\d+)", scope[1])
+        if m is not None:
+            return f"roi_head.grid_head.gn{m[1]}.{name}"
+        if leaf == "scale" or not re.fullmatch(
+                r"conv\d+|point_feat\d+|fuse\d+_\d+|deconv[12]_\d+",
+                scope[1]):
+            return None
+        return f"roi_head.grid_head.{scope[1]}.{name}"
     if top == "bbox_head_m" and len(scope) == 2 and \
             scope[1] in ("Conv_0", "GroupNorm_0"):
         m = re.fullmatch(r"(cls|reg)_conv(\d+)", scope[0])
@@ -193,6 +205,10 @@ def _jax_module(parts: List[str], n_lateral: int,
         return ("bbox_head_m",) + tuple(rest)
     if top == "rpn_head":
         return ("rpn_head_m",) + tuple(rest)
+    if top == "roi_head" and len(rest) == 2 and rest[0] == "grid_head":
+        m = re.fullmatch(r"gn(\d+)", rest[1])
+        return ("roi_head_m", "grid_head_m",
+                f"GroupNorm_{m[1]}" if m is not None else rest[1])
     if top == "roi_head" and len(rest) >= 2:
         head = rest[0] + "_m"
         if rest[1] in ("shared_fcs", "convs"):
@@ -247,7 +263,8 @@ def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
                 unused.append("/".join(path))
                 continue
             arr = np.array(val, np.float32)
-            if path[-1] == "kernel" and path[-2] == "upsample":
+            if path[-1] == "kernel" and re.fullmatch(
+                    r"upsample|deconv[12]_\d+", path[-2]):
                 # flax ConvTranspose (kh, kw, in, out), taps the other way
                 arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
             elif path[-1] == "kernel" and arr.ndim == 4:

@@ -1,8 +1,9 @@
 """The CUDA kernels (NMS pair, multilevel RoIAlign, its backward for the
 maps and for the roi coordinates) against their plain PyTorch versions, on
 the card; and train steps on the card: the RoIAlign kernels on a Mask
-R-CNN step's own rois, a RetinaNet-c step against the CPU's; FCOS, ATSS
-and RepPoints (detections on a tile and a train step) against the CPU's.
+R-CNN step's own rois and a Grid R-CNN step's (the grid rois at S=14
+sr=2), a RetinaNet-c step against the CPU's; FCOS, ATSS and RepPoints
+(detections on a tile and a train step) against the CPU's.
 
 These tests import no JAX, so they run where only the port is installed:
 
@@ -493,6 +494,36 @@ def test_mask_rcnn_train_step_roi_align_matches_plain(cuda):
         metrics, _ = one_step(model, cfg, batch, seed=0, device=cuda)
     assert np.isfinite(metrics["loss_mask"]) and metrics["rcnn_num_pos"] > 0
     assert sorted(args[4:6] for args, _, _ in fwd) == [(7, 2), (14, 2)]
+    assert sorted(args[0].shape[-1] for args, _, _ in bwd) == [7, 14]
+    for (feats, rois, lvls, _, out, sr, *_), _, _ in fwd:
+        feats = [f.detach() for f in feats]
+        g = next(a[0] for a, _, _ in bwd if a[0].shape[-1] == out)
+        compare_roi_align(feats, rois, lvls, out, sr)
+        compare_roi_align_backward(g, rois, lvls,
+                                   [tuple(f.shape) for f in feats], out, sr)
+
+
+@pytest.mark.cuda
+def test_grid_rcnn_train_step_roi_align_matches_plain(cuda):
+    """One step of the Grid R-CNN config at full width on one 512x640
+    image: both RoIAlign launches (bbox rois S=7 sr=1, the 96 jittered grid
+    rois S=14 sr=2), forward torch.equal to plain and backward within 1e-5
+    of each level's max, on the step's own features, rois and gradients;
+    the roi-coordinate kernel not launched (the grid rois carry no
+    gradient)."""
+    from chip_smoke import GRID_CONFIG
+    cfg = Config.fromfile(str(GRID_CONFIG))
+    model = train_model(cfg, device=cuda)
+    batch = batch_to_device(DetCollator((512, 640))(
+        train_samples(np.random.RandomState(16), 1)), cuda)
+    fwd, bwd = [], []
+    before = roi_align_cuda.launches["roi_align_rois_backward"]
+    with recorded(roi_align_cuda, "roi_align_forward", fwd), \
+            recorded(roi_align_cuda, "roi_align_backward", bwd):
+        metrics, _ = one_step(model, cfg, batch, seed=0, device=cuda)
+    assert roi_align_cuda.launches["roi_align_rois_backward"] == before
+    assert np.isfinite(metrics["loss_grid"]) and metrics["rcnn_num_pos"] > 0
+    assert sorted(tuple(args[4:6]) for args, _, _ in fwd) == [(7, 1), (14, 2)]
     assert sorted(args[0].shape[-1] for args, _, _ in bwd) == [7, 14]
     for (feats, rois, lvls, _, out, sr, *_), _, _ in fwd:
         feats = [f.detach() for f in feats]

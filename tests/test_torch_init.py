@@ -1,6 +1,6 @@
 """The port's seeded weights against the JAX package's initialisers.
 
-For each of the ten configurations the port runs (PERF.md section 4),
+For each of the eleven configurations the port runs (PERF.md section 4),
 cut to toy width (ResNet-18 at base_channels=8, FPN and heads at 16
 channels, GroupNorm of 4 groups, FCs of 32; 32 channels where a head's
 `norm_cfg=None` builds GroupNorm of 32 groups), `build_detector(seed=0)`
@@ -43,6 +43,7 @@ CONFIGS = (
     "tinyperson/fcos_r50_fpns4_1x_tinyperson640.py",
     "tinyperson/atss_r50_fpns4_1x_tinyperson640.py",
     "tinyperson/reppoints_r50_fpns4_1x_tinyperson640.py",
+    "tinyperson/grid_rcnn_r50_fpn_1x_tinyperson640.py",
 )
 WIDTH, GROUPS, FC = 16, 4, 32
 # heads whose `norm_cfg=None` builds GroupNorm of 32 groups (in both
@@ -63,7 +64,8 @@ def toy(model: dict) -> dict:
     heads = [m.get("bbox_head"), m.get("rpn_head"), m["neck"]]
     roi = m.get("roi_head")
     if roi:
-        heads += [roi["bbox_head"], roi.get("mask_head")]
+        heads += [roi["bbox_head"], roi.get("mask_head"),
+                  roi.get("grid_head")]
     for h in filter(None, heads):
         for k, v in (("in_channels", width), ("feat_channels", width),
                      ("point_feat_channels", width),
