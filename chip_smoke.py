@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the kernels of ops/csrc with nvcc (one nvcc per source, started
-together), then runs twenty-two main paths, the tiled protocol of Adap
+together), then runs twenty-four main paths, the tiled protocol of Adap
 RetinaNet-c, Adap Faster R-CNN, COCO Mask R-CNN, Adap P2P, Adap FCOS, Adap
 ATSS, Adap RepPoints and Adap Grid R-CNN, each on two 1920x1080 uint8
 frames, the training of Adap Faster R-CNN, Adap RetinaNet-c, COCO Mask
 R-CNN, P2P, CPR, P2BNet, SSD-Det, FCOS, ATSS, RepPoints and Grid R-CNN,
-and the refinement of CPR, P2BNet and SSD-Det:
+the refinement of CPR, P2BNet and SSD-Det, and Adap Faster R-CNN's train
+and test command-line tools on a TinyPerson-format dataset:
 
 1. kernel vs plain, NMS: the IoU-bitmask and greedy-reduce kernels against
    their plain PyTorch version on the card, on synthetic TinyPerson-like
@@ -215,6 +216,27 @@ and the refinement of CPR, P2BNet and SSD-Det:
    against their plain versions, GRID_TIMED_STEPS steps from the seeded
    weights by CUDA events; (c) profiles with the others at the end, and
    the K2 forward's and backward's device times on the grid rois.
+14. Adap Faster R-CNN from a dataset (`phase_dataset`): a synthetic
+   TinyPerson-format set written to a temporary folder under build/
+   (DATASET_TEST_FRAMES JPEG frames of 1920x1080 with 20-200 persons of
+   2-20 px, some tagged ignore or uncertain; DATASET_TRAIN_FRAMES frames
+   cut by the port's `generate_corner_dataset` into the config's 640x512
+   corners with 100 px overlap); (a) the train CLI
+   (`pointtinybenchmark_tpu_torch.tools.train`, the config at full width
+   with `--cfg-options` for the data and an IterBasedRunner of
+   DATASET_ITERS iterations): launches {1, 1, 1, 1} a step and {3, 3, 1,
+   0} a validation frame, the loss finite at every logged step, it/s from
+   the loader; the validation at the end by `run_tiled_test` and the tiny
+   COCO evaluation; (b) the test CLI (`tools.test`) on its checkpoint:
+   launches {3, 3, 1, 0} a frame, detections in `--out`, metrics equal to
+   the train CLI's; (c) `run_tiled_test` with the kernels against the
+   all-plain run (merged detections and metrics equal) and against
+   `DeviceTiledInference` on the decoded frames (tests/
+   test_detector_golden.py:88's tolerances), the dataset path's img/s,
+   its host pipeline's share and parts, the device protocol's img/s on the
+   same frames; (d) the evaluation's native and Python loops (equal stats,
+   seconds each), and the gts as detections at score 1 (every AP*_all and
+   AP*_tiny 1.0).
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
@@ -372,6 +394,24 @@ GRID_CPU_ROIS = 16
 GRID_TIMED_STEPS = 20
 # calls of a kernel traced for its device time
 DEVICE_MS_CALLS = 20
+# phase 14: Adap Faster R-CNN from a dataset, through the port's train and
+# test CLIs: a synthetic TinyPerson-format set (JPEG frames of 1920x1080,
+# 20-200 persons of 2-20 px each in disjoint DATASET_CELL-px cells, so that
+# no two gts overlap; ~10% tagged ignore, ~5% uncertain), its train frames
+# cut into the config's sw640_sh512 corners with 100 px overlap
+DATASET_TEST_FRAMES = 8
+DATASET_TRAIN_FRAMES = 4
+DATASET_PERSONS = (20, 201)
+DATASET_SIDES = (2.0, 20.0)
+DATASET_CELL = 24
+DATASET_CORNER = dict(sub_img_w=640, sub_img_h=512, overlap_w=100,
+                      overlap_h=100)
+DATASET_ITERS = 40               # an IterBasedRunner at samples_per_gpu=1
+# a frame of the tiled test: K1 for the RPN NMS, the RoI head's NMS and the
+# global merge, K2 once
+DATASET_FRAME_LAUNCHES = {"iou_bitmask": 3, "greedy_reduce": 3,
+                          "roi_align": 1, "roi_align_backward": 0,
+                          "roi_align_rois_backward": 0}
 P2B_CONFIG = REPO / "configs/p2b/p2bnet_r50_fpn_1x_coco.py"
 SSD_CONFIG = REPO / "configs/ssd_det/ssd_det_r50_fpn_1x_coco.py"
 P2B_TRAIN_LAUNCHES = {"iou_bitmask": 0, "greedy_reduce": 0, "roi_align": 3,
@@ -478,6 +518,8 @@ PEAK_F32 = 67e12
 OVERLAP_OPS = 4
 IOU_OPS = 15
 PROFILE_CALLS = 5
+# traces of one profile, taken again where one lost the device activity
+PROFILE_ATTEMPTS = 3
 # substrings of device kernel names, first match wins; cuDNN runs some
 # convolutions through FFTs (complex GEMMs and products), a convolution's
 # data gradient as dgrad (in inference: the mask head's transposed
@@ -1740,29 +1782,49 @@ def phase_profile(card, handle, frames, label, calls=PROFILE_CALLS,
                    label, calls, f"warm protocol calls of {N_FRAMES} frames")
 
 
+def traced_events(run, calls, trace, enough, cpu=False):
+    """The device events (kernels, copies, fills) of `calls` warm runs of
+    `run` under torch.profiler, the Chrome trace written to `trace`. A
+    trace can lose a run's device activity, some of it or all: one whose
+    events fail `enough(events)` is taken again, PROFILE_ATTEMPTS traces in
+    all. Returns (events, or None if every trace lost it; the wall ms per
+    call of the last trace; what the traces held, by event name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    for attempt in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        prof.export_chrome_trace(str(trace))
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and "dur" in e]
+        traced = collections.Counter(e["name"][:60] for e in events)
+        if enough(events):
+            return events, wall_ms, traced
+        print(f"trace {attempt + 1} of {PROFILE_ATTEMPTS} of {calls} calls "
+              f"({trace.name}) lost device activity: {dict(traced)}")
+    return None, wall_ms, traced
+
+
 def device_profile(card, run, label, calls, what):
     """`calls` runs of `run` (warm) under torch.profiler: wall and device
     busy ms per call, the idle share, device ms by kernel family and the
     top kernels; the Chrome trace goes to build/. Returns (wall ms, busy
     ms, {family: ms}) per call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     trace = REPO / "build" / f"protocol_trace_{label}.json"
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-              and "dur" in e]
-    if not events:
-        raise AssertionError("the profiler traced no device activity")
+    events, wall_ms, _ = traced_events(run, calls, trace, bool, cpu=True)
+    if events is None:
+        raise AssertionError(f"{label}: {PROFILE_ATTEMPTS} traces held no "
+                             f"device activity")
     busy_ms = _busy_us(events) / 1e3 / calls
     family, by_name, count = (collections.Counter() for _ in range(3))
     for e in events:
@@ -1855,46 +1917,41 @@ def backward_device_ms(g, rois, lvls, shapes, out, sr, label,
     trace of `calls` warm calls (no host time in it): (the backward kernel,
     the rest of the call's device work: the zero fill of the level
     gradients and the levels' int32 copy, the sum of both, which run one
-    after the other on the stream). The trace goes to build/."""
-    from torch.profiler import ProfilerActivity, profile
-
+    after the other on the stream), and whence the times came. The trace
+    goes to build/; where every trace lost the kernel's events, the call
+    is timed by CUDA events instead, kernel and fill together."""
     from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
 
     def run():
         roi_align_cuda.roi_align_backward(g, rois, lvls, shapes,
                                           [True] * len(shapes), ROI_STRIDES,
                                           out, sr)
+
+    def enough(events):
+        return sum("roi_align_backward" in e["name"]
+                   for e in events) >= calls // 2
     run()
     torch.cuda.synchronize()
     trace = REPO / "build" / f"backward_trace_{label}.json"
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    # the trace may miss some of the calls' activity: each kind of event
-    # (by name) gives its mean duration, once a call; a trace that lost
-    # the backward kernel's events is taken again, once
-    for attempt in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                run()
-            torch.cuda.synchronize()
-        prof.export_chrome_trace(str(trace))
-        events = [e for e in json.loads(trace.read_text())["traceEvents"]
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                  and "dur" in e]
-        by_name = collections.defaultdict(list)
-        for e in events:
-            by_name[e["name"]].append(e["dur"])
-        kernel = [n for n in by_name if "roi_align_backward" in n]
-        traced = {n[:60]: len(v) for n, v in by_name.items()}
-        if len(kernel) == 1 and len(by_name[kernel[0]]) >= calls // 2:
-            break
-        if attempt:
-            raise AssertionError(f"{calls} calls traced as {traced}")
-        print(f"{label}: the trace of {calls} backward calls lost the "
-              f"kernel's events ({traced}); tracing them again")
+    # each kind of event (by name) gives its mean duration, once a call
+    events, _, traced = traced_events(run, calls, trace, enough)
+    if events is None:
+        ms = events_ms(run, calls)
+        print(f"{label}: every trace lost the backward kernel's events "
+              f"({dict(traced)}); the call's time by CUDA events instead: "
+              f"{ms:.4f} ms, kernel and fill not apart")
+        return ms, 0.0, ms, f"CUDA events over {calls} calls"
+    by_name = collections.defaultdict(list)
+    for e in events:
+        by_name[e["name"]].append(e["dur"])
+    kernel = [n for n in by_name if "roi_align_backward" in n]
+    if len(kernel) != 1:
+        raise AssertionError(f"{calls} calls traced as {dict(traced)}")
     means = {n: sum(v) / len(v) / 1e3 for n, v in by_name.items()}
     kernel_ms = means.pop(kernel[0])
     rest_ms = sum(means.values())
-    return kernel_ms, rest_ms, kernel_ms + rest_ms
+    return (kernel_ms, rest_ms, kernel_ms + rest_ms,
+            f"a profile of {calls} calls")
 
 
 def backward_inputs():
@@ -1993,12 +2050,11 @@ def add_device_ms(card, rec, g, rois, lvls, shapes, out, sr, phase="6"):
     (device_ms: the kernel and the rest of the call's device work) and
     print them beside the call time and the bound."""
     label = rec["shape"].replace(" ", "_")
-    k_ms, rest_ms, busy_ms = backward_device_ms(g, rois, lvls, shapes, out,
-                                                sr, label)
+    k_ms, rest_ms, busy_ms, how = backward_device_ms(g, rois, lvls, shapes,
+                                                     out, sr, label)
     rec.update(device_ms=busy_ms, kernel_ms=k_ms, fill_ms=rest_ms)
     print(f"phase {phase} RoIAlign backward {rec['shape']} (R={rec['R']}, "
-          f"S={out}, sr={sr}), device time per call from a profile of "
-          f"{BWD_PROFILE_CALLS} calls: kernel {k_ms:.4f} ms, zero fill and "
+          f"S={out}, sr={sr}), device time per call from {how}: kernel {k_ms:.4f} ms, zero fill and "
           f"level copy {rest_ms:.4f} ms, together {busy_ms:.4f} ms (call "
           f"{rec['ms']:.4f} ms); bound {rec['bound_ms']:.4f} ms, share "
           f"{rec['bound_ms'] / busy_ms:.3f} (kernel alone "
@@ -4289,30 +4345,30 @@ def forward_device_ms(feats, rois, lvls, out, sr, label,
                       calls=DEVICE_MS_CALLS):
     """The K2 forward kernel's device time per call, the mean of its
     events in a torch.profiler trace of `calls` warm wrapper calls (the
-    trace goes to build/)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    trace goes to build/), and whence it came: where every trace lost the
+    kernel's events, the call's time by CUDA events instead."""
     from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
 
     def run():
         roi_align_cuda.roi_align_forward(feats, rois, lvls, ROI_STRIDES, out,
                                          sr)
+
+    def durs(events):
+        return [e["dur"] for e in events if e.get("cat") == "kernel"
+                and "roi_align_kernel" in e["name"]]
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
     trace = REPO / "build" / f"forward_trace_{label}.json"
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    durs = [e["dur"] for e in json.loads(trace.read_text())["traceEvents"]
-            if e.get("cat") == "kernel" and "dur" in e
-            and "roi_align_kernel" in e.get("name", "")]
-    if len(durs) < calls // 2:
-        raise AssertionError(f"{label}: {len(durs)} forward kernels traced "
-                             f"in {calls} calls")
-    return sum(durs) / len(durs) / 1e3
+    events, _, traced = traced_events(
+        run, calls, trace, lambda ev: len(durs(ev)) >= calls // 2)
+    if events is None:
+        ms = events_ms(run, calls)
+        print(f"{label}: every trace lost the forward kernel's events "
+              f"({dict(traced)}); the call's time by CUDA events instead: "
+              f"{ms:.4f} ms")
+        return ms, f"CUDA events over {calls} calls"
+    d = durs(events)
+    return sum(d) / len(d) / 1e3, f"a profile of {calls} calls"
 
 
 def grid_head_flops(head, r, s):
@@ -4506,10 +4562,10 @@ def phase_grid(card, frames):
     del crops, feats, tiles
 
     def device_ms():
-        record["device_ms"] = forward_device_ms(k_feats, rois, lvls, out, sr,
-                                                "grid_rcnn_slice")
+        record["device_ms"], how = forward_device_ms(
+            k_feats, rois, lvls, out, sr, "grid_rcnn_slice")
         print(f"phase 13 RoIAlign grid rois (R={r}), device time per call "
-              f"from a profile of {DEVICE_MS_CALLS} calls: "
+              f"from {how}: "
               f"{record['device_ms']:.4f} ms (call {k2_ms:.4f} ms, bound "
               f"{bms:.4f} ms) [{card}]")
     return launches, handle, record, device_ms
@@ -4618,17 +4674,314 @@ def phase_grid_train(card):
     def profile():
         step_profile()
         for rec, (feats, rois, lvls, _, out, sr) in zip(f_rows, f_inputs):
-            rec["device_ms"] = forward_device_ms(
+            rec["device_ms"], how = forward_device_ms(
                 list(feats), rois, lvls, out, sr, rec["shape"].replace(" ",
                                                                        "_"))
             print(f"phase 13 RoIAlign {rec['shape']} (R={rec['R']}), "
-                  f"forward device time per call from a profile of "
-                  f"{DEVICE_MS_CALLS} calls: {rec['device_ms']:.4f} ms "
+                  f"forward device time per call from {how}: "
+                  f"{rec['device_ms']:.4f} ms "
                   f"(call {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
                   f"ms) [{card}]")
         for rec, args in zip(b_rows, b_inputs):
             add_device_ms(card, rec, *args, phase="13")
     return launches, f_rows, b_rows, profile
+
+
+def write_tinyperson_set(root, name, n, rng):
+    """`n` JPEG frames of FRAME_HW under root/name/ and their COCO json
+    root/name.json, TinyPerson's format: one class "person", persons of
+    DATASET_SIDES px (bright blocks on a dark noisy ground) in disjoint
+    DATASET_CELL-px cells, ~10% tagged `ignore`, ~5% `uncertain`."""
+    from PIL import Image
+
+    h, w = FRAME_HW
+    c = DATASET_CELL
+    cells = [(x, y) for y in range(0, h - c + 1, c)
+             for x in range(0, w - c + 1, c)]
+    (root / name).mkdir()
+    images, anns = [], []
+    for i in range(n):
+        img = rng.randint(0, 70, (h, w, 3)).astype(np.uint8)
+        for k in rng.permutation(len(cells))[:rng.randint(*DATASET_PERSONS)]:
+            bw, bh = (float(v) for v in np.round(rng.uniform(
+                *DATASET_SIDES, 2), 2))
+            x = float(np.round(cells[k][0] + rng.uniform(0, c - bw), 2))
+            y = float(np.round(cells[k][1] + rng.uniform(0, c - bh), 2))
+            img[int(y):int(np.ceil(y + bh)),
+                int(x):int(np.ceil(x + bw))] = rng.randint(150, 256, 3)
+            ann = dict(id=len(anns) + 1, image_id=i + 1, category_id=1,
+                       bbox=[x, y, bw, bh], area=bw * bh, iscrowd=0)
+            kind = rng.rand()
+            if kind < 0.10:
+                ann["ignore"] = 1
+            elif kind < 0.15:
+                ann["uncertain"] = 1
+            anns.append(ann)
+        fn = f"{name}_{i}.jpg"
+        Image.fromarray(img).save(root / name / fn, quality=90)
+        images.append(dict(id=i + 1, file_name=fn, width=w, height=h))
+    path = root / f"{name}.json"
+    path.write_text(json.dumps(dict(
+        images=images, annotations=anns,
+        categories=[dict(id=1, name="person")])))
+    return path
+
+
+class TimedDataset:
+    """A dataset whose __getitem__ (the host pipeline) is timed."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+        self.seconds = 0.0
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        t0 = time.perf_counter()
+        sample = self.dataset[i]
+        self.seconds += time.perf_counter() - t0
+        return sample
+
+
+def phase_dataset(card):
+    """Phase 14: Adap Faster R-CNN on a TinyPerson-format dataset through
+    the port's own entry points, at full width: (a) the train CLI
+    (`tools.train`) for DATASET_ITERS iterations of an IterBasedRunner on
+    the corner tiles of DATASET_TRAIN_FRAMES frames, its validation at the
+    end by `run_tiled_test` on DATASET_TEST_FRAMES frames and the tiny COCO
+    evaluation; (b) the test CLI (`tools.test`) on that checkpoint, its
+    metrics equal to the train CLI's last ones; (c) `run_tiled_test` with
+    the kernels against the all-plain run (merged detections and metrics
+    equal), against `DeviceTiledInference` on the same decoded frames
+    (tests/test_detector_golden.py:88's tolerances), the dataset path's
+    img/s and host share beside the device protocol's img/s; (d) the native
+    and the Python evaluation loops (equal stats, seconds), and the gts as
+    detections at score 1 (every AP*_all and AP*_tiny 1.0). Returns the
+    launches of the two CLI runs."""
+    import copy
+    import tempfile
+
+    from PIL import Image
+
+    from pointtinybenchmark_tpu_torch.apis.inference import init_detector
+    from pointtinybenchmark_tpu_torch.data import build_dataset
+    from pointtinybenchmark_tpu_torch.data.tiling import \
+        generate_corner_dataset
+    from pointtinybenchmark_tpu_torch.engine.test import (
+        DeviceTiledInference, run_tiled_test)
+    from pointtinybenchmark_tpu_torch.tools import test as test_cli
+    from pointtinybenchmark_tpu_torch.tools import train as train_cli
+
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build, prefix="tinyperson_set_")
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(14)
+    test_json = write_tinyperson_set(root, "test", DATASET_TEST_FRAMES, rng)
+    train_json = write_tinyperson_set(root, "train", DATASET_TRAIN_FRAMES,
+                                      rng)
+    corner = generate_corner_dataset(str(train_json), DATASET_CORNER)
+    corner_json = root / "train_corner_sw640_sh512.json"
+    corner_json.write_text(json.dumps(corner))
+    gt = json.loads(test_json.read_text())
+    n_gt = [sum(a["image_id"] == im["id"] for a in gt["annotations"])
+            for im in gt["images"]]
+    print(f"phase 14: synthetic TinyPerson set written in "
+          f"{time.perf_counter() - t0:.2f} s: {DATASET_TEST_FRAMES} test "
+          f"frames of {FRAME_HW[1]}x{FRAME_HW[0]} (JPEG by PIL) with "
+          f"{n_gt} persons, {DATASET_TRAIN_FRAMES} train frames cut into "
+          f"{len(corner['images'])} corners of 640x512 "
+          f"(generate_corner_dataset, 100 px overlap) with "
+          f"{len(corner['annotations'])} clipped annotations")
+    data = [f"data.train.ann_file={corner_json}",
+            f"data.train.img_prefix={root / 'train'}"]
+    for split in ("val", "test"):
+        data += [f"data.{split}.ann_file={test_json}",
+                 f"data.{split}.img_prefix={root / 'test'}"]
+    work = root / "work"
+    # the two CLI runs and the comparisons below must match bit for bit
+    torch.backends.cudnn.deterministic = True
+    reset_launches()
+    t0 = time.perf_counter()
+    train_metrics = train_cli.main([
+        str(FRCNN_CONFIG), "--work-dir", str(work), "--seed", "0",
+        "--device", DEVICE, "--cfg-options", *data, "runner.type=IterBasedRunner",
+        f"runner.max_iters={DATASET_ITERS}",
+        f"checkpoint_config.interval={DATASET_ITERS}",
+        f"evaluation.interval={DATASET_ITERS}", "log_config.interval=1"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    want = {k: DATASET_ITERS * TRAIN_LAUNCHES[k]
+            + DATASET_TEST_FRAMES * DATASET_FRAME_LAUNCHES[k]
+            for k in TRAIN_LAUNCHES}
+    print(f"phase 14 (a) train CLI: {train_s:.1f} s (host clock); launches "
+          f"{train_launches} ({DATASET_ITERS} steps x {TRAIN_LAUNCHES} + "
+          f"{DATASET_TEST_FRAMES} validation frames x "
+          f"{DATASET_FRAME_LAUNCHES})")
+    if train_launches != want:
+        raise AssertionError(f"expected {want}")
+    log = [json.loads(line) for line in open(work / "log.json")]
+    losses = [e["loss"] for e in log]
+    if ([e["step"] for e in log] != list(range(1, DATASET_ITERS + 1))
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"logged steps {[e['step'] for e in log]}, "
+                             f"losses {losses}")
+    # log.json's iter_time is the mean since the epoch began
+    half = DATASET_ITERS // 2
+    late_ms = (log[-1]["iter_time"] * DATASET_ITERS - log[half - 1][
+        "iter_time"] * half) / (DATASET_ITERS - half) * 1e3
+    print(f"phase 14 (a) loss at every step finite: first {losses[0]:.4f}, "
+          f"last {losses[-1]:.4f}; loader + step {1 / log[-1]['iter_time']:.2f}"
+          f" it/s over the {DATASET_ITERS} iterations (mean "
+          f"{log[-1]['iter_time'] * 1e3:.2f} ms), {1e3 / late_ms:.2f} it/s "
+          f"over the last {DATASET_ITERS - half} ({late_ms:.2f} ms; host "
+          f"clock, a host sync a step for the log, cudnn deterministic); "
+          f"validation metrics {train_metrics}")
+
+    ckpt = work / f"iter_{DATASET_ITERS}.pth"
+    out = root / "results.json"
+    reset_launches()
+    test_metrics = test_cli.main([str(FRCNN_CONFIG), str(ckpt), "--out",
+                                  str(out), "--device", DEVICE,
+                                  "--cfg-options", *data])
+    test_launches = read_launches()
+    want = {k: DATASET_TEST_FRAMES * v
+            for k, v in DATASET_FRAME_LAUNCHES.items()}
+    n_dets = len(json.loads(out.read_text()))
+    print(f"phase 14 (b) test CLI: launches {test_launches}, "
+          f"{n_dets / DATASET_TEST_FRAMES:.1f} detections a frame in "
+          f"{out.name}; metrics {test_metrics}")
+    if test_launches != want or n_dets == 0:
+        raise AssertionError(f"expected {want} and detections")
+    if test_metrics != train_metrics:
+        raise AssertionError("the test CLI's metrics differ from the train "
+                             "CLI's last validation")
+    print(f"phase 14 (b): the test CLI's metrics == the train CLI's last "
+          f"validation's (random weights after {DATASET_ITERS} steps: AP "
+          f"near 0, not a quality number)")
+
+    cfg = test_cli.load_config(str(FRCNN_CONFIG), data)
+    model = init_detector(cfg, str(ckpt), device=DEVICE).model.eval()
+    ds_cfg = dict(cfg.data["test"])
+    ds_cfg["test_mode"] = True
+    dataset = TimedDataset(build_dataset(ds_cfg))
+    eval_kwargs, _, collator = test_cli.eval_settings(cfg)
+    results = run_tiled_test(model, dataset, collator)      # warm
+    dataset.seconds = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_tiled_test(model, dataset, collator)
+    wall = time.perf_counter() - t0
+    host = dataset.seconds
+    with plain_nms(), plain_roi_align():
+        plain = run_tiled_test(model, dataset.dataset, collator)
+    for i, (r, p) in enumerate(zip(results, plain)):
+        if not (np.array_equal(r["bboxes"], p["bboxes"])
+                and np.array_equal(r["labels"], p["labels"])):
+            raise AssertionError(f"frame {i}: kernels and plain disagree")
+    metrics = dataset.dataset.evaluate(results, **eval_kwargs)
+    if (metrics != dataset.dataset.evaluate(plain, **eval_kwargs)
+            or dict(metrics) != test_metrics):
+        raise AssertionError("metrics of the kernels' run, the plain run "
+                             "and the test CLI differ")
+    print("phase 14 (c): run_tiled_test's merged detections and metrics "
+          "with the kernels == with every kernel swapped for its plain "
+          "version == the test CLI's")
+
+    # the host pipeline's parts: decode, the views' deep copies, the rest
+    # of the tiler (crop, normalize, pad, collect)
+    ds = dataset.dataset
+    load, tiler = ds.pipeline.transforms
+    t_load = t_copy = t_tile = 0.0
+    for i in range(len(ds)):
+        r = ds._base_results(i)
+        r["ann_info"] = ds.get_ann_info(i)
+        t0 = time.perf_counter()
+        r = load(r)
+        t1 = time.perf_counter()
+        n_views = len(tiler(r)["views"])
+        t2 = time.perf_counter()
+        for _ in range(n_views):
+            copy.deepcopy({k: r[k] for k in r if k != "img"})
+        t3 = time.perf_counter()
+        t_load, t_tile, t_copy = (t_load + t1 - t0, t_tile + t2 - t1,
+                                  t_copy + t3 - t2)
+    n = len(ds)
+    print(f"phase 14 (c) host pipeline a frame: decode "
+          f"{t_load * 1e3 / n:.1f} ms, the tiler {t_tile * 1e3 / n:.1f} ms "
+          f"(of which the {n_views} views' deep copies "
+          f"{t_copy * 1e3 / n:.1f} ms, timed apart)")
+    t0 = time.perf_counter()
+    frames = np.stack([np.asarray(Image.open(root / "test" / im["file_name"])
+                                  .convert("RGB")) for im in gt["images"]])
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    norm = next(t for t in cfg.data["test"]["pipeline"][1]["transforms"]
+                if t["type"] == "Normalize")
+    eng = DeviceTiledInference(model, FRAME_HW, (512, 640), (100, 100),
+                               img_norm=dict(mean=norm["mean"],
+                                             std=norm["std"]))
+    for i, r in enumerate(results):
+        dev = eng(frames[i])[0]
+        order = np.argsort(-dev["bboxes"][:, 4], kind="stable")
+        ref = np.argsort(-r["bboxes"][:, 4], kind="stable")
+        dets_match((r["bboxes"][ref], r["labels"][ref]),
+                   (dev["bboxes"][order], dev["labels"][order]))
+    pairs = [frames[i:i + N_FRAMES] for i in range(0, len(frames), N_FRAMES)]
+    for p in pairs:
+        eng(p)                                               # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in pairs:
+        eng(p)
+    device_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = False
+    print(f"phase 14 (c): run_tiled_test == DeviceTiledInference on the "
+          f"decoded frames within tests/test_detector_golden.py:88's "
+          f"tolerances, every frame")
+    print(f"phase 14 (c) dataset path (run_tiled_test: decode, crop, "
+          f"normalize and pad on the host, 12 tiles a sample): "
+          f"{len(results) / wall:.4f} img/s, host pipeline "
+          f"{host / wall:.3f} of the wall ({host * 1e3 / len(results):.1f} "
+          f"ms a frame); device protocol (DeviceTiledInference, "
+          f"{N_FRAMES} decoded frames a call): "
+          f"{len(frames) / device_s:.4f} img/s on the same frames, decode "
+          f"{decode_ms:.1f} ms a frame besides ({card})")
+
+    t0 = time.perf_counter()
+    native = dataset.dataset.evaluate(results, **eval_kwargs)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = dataset.dataset.evaluate(results, native=False, **eval_kwargs)
+    python_s = time.perf_counter() - t0
+    if list(native.items()) != list(python.items()):
+        raise AssertionError(f"native {native} vs Python {python}")
+    print(f"phase 14 (d) evaluation of {sum(len(r['bboxes']) for r in results)}"
+          f" detections on {len(results)} frames: native {native_s:.3f} s, "
+          f"Python loops {python_s:.3f} s, stats equal")
+    gts = []
+    for im in gt["images"]:
+        b = np.asarray([a["bbox"] for a in gt["annotations"]
+                        if a["image_id"] == im["id"]], np.float32)
+        b[:, 2:] += b[:, :2]
+        gts.append(dict(bboxes=np.hstack([b, np.ones((len(b), 1),
+                                                     np.float32)]),
+                        labels=np.zeros(len(b), np.int64)))
+    perfect = dataset.dataset.evaluate(gts, **eval_kwargs)
+    print(f"phase 14 (d) the gts as detections at score 1: {dict(perfect)}")
+    ones = {k: v for k, v in perfect.items() if k.startswith("AP")
+            and (k.endswith("_all") or k.endswith("_tiny"))}
+    if len(ones) != 6 or any(v != 1.0 for v in ones.values()):
+        raise AssertionError(f"expected 1.0: {ones}")
+    print(f"phase 14 launches per frame {DATASET_FRAME_LAUNCHES}, per train "
+          f"step {TRAIN_LAUNCHES}")
+    del model, eng
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return {"faster_rcnn_dataset_train_cli": train_launches,
+            "faster_rcnn_dataset_test_cli": test_launches}
 
 
 def main():
@@ -4698,6 +5051,8 @@ def main():
     (grid_train_launches, grid_train_fwd, grid_train_bwd,
      grid_train_profile) = phase_grid_train(card)
     lap("phase 13 (a), (b)")
+    dataset_launches = phase_dataset(card)
+    lap("phase 14")
     # the profiles last: once torch.profiler has traced the card, later
     # launches of the process can cost more host time (phase 6 times the
     # train step before and after them)
@@ -4747,7 +5102,8 @@ def main():
                **p2b_by_path,
                **{k: v[0] for k, v in dense.items()},
                "grid_rcnn": grid_launches,
-               "grid_rcnn_train": grid_train_launches}
+               "grid_rcnn_train": grid_train_launches,
+               **dataset_launches}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],

@@ -1,12 +1,18 @@
 """Inference engines: the plain test loop and tiled protocol inference.
 
 Counterpart of pointtinybenchmark_tpu/engine/test.py (`run_test`,
-`DeviceTiledInference`, `run_device_tiled_test`, `run_refine_test`).
+`run_tiled_test`, `merge_tile_dets`, `DeviceTiledInference`,
+`run_device_tiled_test`, `run_refine_test`).
 
 - `run_test`: collated batches of preprocessed images through
   `simple_test`, boxes rescaled to each original image; a Mask R-CNN's
   mask probabilities are pasted into the original frame on the host and
   RLE-encoded (`_to_result`).
+- `run_tiled_test`: the tiled protocol on a dataset whose pipeline ends in
+  CroppedTilesFlipAug (host decode, crop, normalize and pad per tile):
+  per sample, its tile views are collated into one batch through
+  `simple_test`, each tile's boxes shifted by its `tile_offset`, and one
+  class-aware NMS (`merge_tile_dets`, K1 on the card) merges them.
 - Tiled protocol: uint8 frames in, globally merged detections out. Normalize
   and tile on the device, one batched forward over every tile of every
   frame, one batched per-tile NMS, a shift of each tile's boxes by its
@@ -32,8 +38,8 @@ from ..data.device_pipeline import DevicePreprocessor
 from ..evaluation.mask_utils import paste_masks, rle_encode
 from ..ops.nms import batched_nms
 
-__all__ = ["run_test", "DeviceTiledInference", "run_device_tiled_test",
-           "run_refine_test"]
+__all__ = ["run_test", "run_tiled_test", "merge_tile_dets",
+           "DeviceTiledInference", "run_device_tiled_test", "run_refine_test"]
 
 logger = logging.getLogger("ptb_torch")
 
@@ -94,6 +100,59 @@ def run_test(model, dataset, collator, batch_size: int = 1,
                 ori))
         if (start // batch_size) % 50 == 0:
             logger.info("test %d/%d", start + len(flat), n)
+    return results
+
+
+def merge_tile_dets(boxes: torch.Tensor, scores: torch.Tensor,
+                    labels: torch.Tensor, valid: torch.Tensor,
+                    iou_threshold: float, max_per_img: int
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The global class-aware NMS across one image's tiles (fork
+    two_stage.py:244-253): boxes (N, 4) in the image's frame, scores,
+    labels and valid (N,), on their device. Returns the kept boxes, scores
+    and labels in pick order, as numpy."""
+    keep, _ = batched_nms(boxes, scores, labels, iou_threshold, max_per_img,
+                          valid_mask=valid)
+    keep = keep.cpu().numpy()
+    sel = keep[keep >= 0]
+    return (boxes.cpu().numpy()[sel], scores.cpu().numpy()[sel],
+            labels.cpu().numpy()[sel])
+
+
+@torch.no_grad()
+def run_tiled_test(model, dataset, collator,
+                   merge_iou_threshold: float = 0.5, max_per_img: int = 1000,
+                   rescale: bool = True) -> List[dict]:
+    """Tiled evaluation over `dataset`, whose samples hold `views`: the
+    tile views of one image (CroppedTilesFlipAug), each with its
+    `tile_offset` in `img_metas`. A sample's views go through one batched
+    `simple_test` on the model's device; the boxes are shifted back into
+    the image's frame and merged (`merge_tile_dets`). Returns per image
+    bboxes (n, 5) and labels (n,)."""
+    device = next(model.parameters()).device
+    results: List[dict] = []
+    for idx in range(len(dataset)):
+        views = dataset[idx]["views"]
+        batch = collator(views)
+        dets = model.simple_test(
+            torch.from_numpy(batch["img"]).to(device),
+            torch.from_numpy(batch["img_shape"]).to(device),
+            torch.from_numpy(batch["scale_factor"]).to(device), rescale)
+        if not isinstance(dets, DetResult):       # (detections, masks)
+            dets = dets[0]
+        offs = np.stack([np.asarray(v["img_metas"].get(
+            "tile_offset", [0.0, 0.0]), np.float32) for v in views])
+        shift = torch.from_numpy(np.concatenate([offs, offs], 1)).to(device)
+        boxes = dets.bboxes[..., :4] + shift[:, None, :]
+        mb, ms, ml = merge_tile_dets(
+            boxes.reshape(-1, 4), dets.bboxes[..., 4].reshape(-1),
+            dets.labels.reshape(-1), dets.valid.reshape(-1),
+            merge_iou_threshold, max_per_img)
+        results.append(dict(bboxes=np.concatenate([mb, ms[:, None]], 1),
+                            labels=ml))
+        if idx % 20 == 0:
+            logger.info("tiled test %d/%d (%d tiles)", idx + 1, len(dataset),
+                        len(views))
     return results
 
 

@@ -126,7 +126,8 @@ def train_detector(model: nn.Module, dataset, cfg, work_dir: str,
     checkpoint of the port's own (`engine/checkpoint.py`): its step,
     epoch, optimizer and train state; `load_from` takes the weights of one,
     or the params and batch_stats of a JAX package `.ckpt`. Returns
-    the model, the optimizer, the train state and the logged history."""
+    the model, the optimizer, the train state, the logged history and the
+    last evaluation's metrics (`metrics`, None when none ran)."""
     os.makedirs(work_dir, exist_ok=True)
     model.to(device)
     data_cfg = cfg.get("data", {})
@@ -198,11 +199,13 @@ def train_detector(model: nn.Module, dataset, cfg, work_dir: str,
     stop_while_nan = bool(cfg.get("check", {}).get("stop_while_nan", False))
 
     generator = torch.Generator(device=device).manual_seed(seed + 1)
-    result = dict(model=model, optimizer=optimizer, state=state, history=[])
+    result = dict(model=model, optimizer=optimizer, state=state, history=[],
+                  metrics=None)
 
     def evaluate(tag: str) -> None:
         model.eval()
-        logger.info("eval (%s): %s", tag, eval_fn(model))
+        result["metrics"] = eval_fn(model)
+        logger.info("eval (%s): %s", tag, result["metrics"])
 
     if do_first_eval and eval_fn is not None:
         evaluate("first")

@@ -1,22 +1,27 @@
-"""Mask paste and COCO RLE encoding, host numpy.
+"""Mask paste, COCO RLE and mask IoU, host numpy.
 
 Counterpart of pointtinybenchmark_tpu/evaluation/mask_utils.py
-(`paste_masks`, `rle_encode`, `_counts_to_string`), kept in this package so
-that it imports nothing of the JAX package; the functions are the same
-numpy code, so the port's masks and RLE strings equal the JAX package's bit
-for bit. `paste_masks` resamples each (s, s) probability crop into its box
+(`paste_masks`, `rle_encode` / `rle_decode`, `rle_area`, `rle_to_bbox`,
+`mask_iou`, `ann_to_rle`, `polys_to_mask`), kept in this package so that
+it imports nothing of the JAX package; the functions are the same numpy
+code, so the port's masks and RLE strings equal the JAX package's bit for
+bit. `paste_masks` resamples each (s, s) probability crop into its box
 of the image, half-pixel aligned (mmdet FCNMaskHead._do_paste_mask,
 grid_sample with align_corners=False), and thresholds it; `rle_encode`
 writes pycocotools' compressed RLE (column-major run lengths starting with
-a run of zeros, maskApi.c's rleToString).
+a run of zeros, maskApi.c's rleToString). `mask_iou` takes the native
+run-length IoU (`evaluation/native.py`, which raises if it cannot be
+built) or, with `native=False`, the numpy reference; polygons are
+rasterized with PIL's scanline fill, gts and results alike.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Union
 
 import numpy as np
 
-__all__ = ["paste_masks", "rle_encode"]
+__all__ = ["paste_masks", "rle_encode", "rle_decode", "rle_area",
+           "rle_to_bbox", "mask_iou", "ann_to_rle", "polys_to_mask"]
 
 RLE = Dict[str, object]  # {"size": [h, w], "counts": str}
 
@@ -44,6 +49,28 @@ def _counts_to_string(cnts: Sequence[int]) -> str:
     return "".join(out)
 
 
+def _string_to_counts(s: str) -> List[int]:
+    """maskApi.c rleFrString."""
+    cnts: List[int] = []
+    p = 0
+    while p < len(s):
+        x = 0
+        k = 0
+        more = True
+        while more:
+            c = ord(s[p]) - 48
+            x |= (c & 0x1F) << (5 * k)
+            more = bool(c & 0x20)
+            p += 1
+            k += 1
+            if not more and (c & 0x10):
+                x |= -1 << (5 * k)
+        if len(cnts) > 2:
+            x += cnts[-2]
+        cnts.append(x)
+    return cnts
+
+
 def rle_encode(mask: np.ndarray) -> RLE:
     """Binary (H, W) mask -> compressed RLE dict."""
     h, w = mask.shape
@@ -57,6 +84,92 @@ def rle_encode(mask: np.ndarray) -> RLE:
     if flat[0]:
         runs = [0] + runs
     return {"size": [h, w], "counts": _counts_to_string(runs)}
+
+
+def _rle_counts(rle: RLE) -> List[int]:
+    counts = rle["counts"]
+    if isinstance(counts, bytes):
+        counts = counts.decode()
+    if isinstance(counts, str):
+        return _string_to_counts(counts)
+    return [int(c) for c in counts]
+
+
+def rle_decode(rle: RLE) -> np.ndarray:
+    """RLE dict -> binary (H, W) uint8 mask."""
+    h, w = rle["size"]
+    cnts = _rle_counts(rle)
+    flat = np.zeros(h * w, np.uint8)
+    pos = 0
+    val = 0
+    for c in cnts:
+        if val:
+            flat[pos:pos + c] = 1
+        pos += c
+        val ^= 1
+    return flat.reshape((w, h)).T  # column-major
+
+
+def rle_area(rle: RLE) -> int:
+    cnts = _rle_counts(rle)
+    return int(sum(cnts[1::2]))
+
+
+def rle_to_bbox(rle: RLE) -> List[float]:
+    """[x, y, w, h] of the mask extent (maskApi rleToBbox)."""
+    m = rle_decode(rle)
+    ys, xs = np.nonzero(m)
+    if len(xs) == 0:
+        return [0.0, 0.0, 0.0, 0.0]
+    x0, x1 = xs.min(), xs.max()
+    y0, y1 = ys.min(), ys.max()
+    return [float(x0), float(y0), float(x1 - x0 + 1), float(y1 - y0 + 1)]
+
+
+def mask_iou(dt: List[RLE], gt: List[RLE], iscrowd: Sequence[int],
+             native: bool = True) -> np.ndarray:
+    """(D, G) IoU matrix; crowd gt columns use union = area(dt)
+    (pycocotools maskUtils.iou semantics)."""
+    D, G = len(dt), len(gt)
+    if D == 0 or G == 0:
+        return np.zeros((D, G))
+    if native:
+        from .native import rle_iou_native
+        return rle_iou_native([_rle_counts(r) for r in dt],
+                              [_rle_counts(r) for r in gt], list(iscrowd))
+    dm = np.stack([rle_decode(r).astype(bool).ravel() for r in dt])  # (D,P)
+    gm = np.stack([rle_decode(r).astype(bool).ravel() for r in gt])  # (G,P)
+    inter = (dm.astype(np.float64) @ gm.T.astype(np.float64))        # (D,G)
+    da = dm.sum(1).astype(np.float64)[:, None]
+    ga = gm.sum(1).astype(np.float64)[None, :]
+    crowd = np.asarray(iscrowd, bool)[None, :]
+    union = np.where(crowd, da, da + ga - inter)
+    return inter / np.maximum(union, 1e-10)
+
+
+def polys_to_mask(polys: List[Sequence[float]], h: int, w: int) -> np.ndarray:
+    """Flattened [x0,y0,x1,y1,...] polygon list -> (H, W) uint8 mask."""
+    from PIL import Image, ImageDraw
+    img = Image.new("L", (int(w), int(h)), 0)
+    draw = ImageDraw.Draw(img)
+    for poly in polys:
+        if poly is None or len(poly) < 6:
+            continue
+        draw.polygon([float(v) for v in poly], fill=1)
+    return np.asarray(img, np.uint8)
+
+
+def ann_to_rle(segm: Union[RLE, List], h: int, w: int) -> RLE:
+    """COCO `segmentation` field (polygons / uncompressed / compressed RLE)
+    -> compressed RLE (pycocotools COCO.annToRLE)."""
+    if isinstance(segm, dict):
+        if isinstance(segm.get("counts"), (list, tuple)):
+            return {"size": segm["size"],
+                    "counts": _counts_to_string(list(segm["counts"]))}
+        return segm
+    # polygon list
+    polys = segm if segm and isinstance(segm[0], (list, tuple)) else [segm]
+    return rle_encode(polys_to_mask(polys, h, w))
 
 
 def paste_masks(crops: np.ndarray, boxes: np.ndarray, h: int, w: int,

@@ -77,9 +77,14 @@ def with_background(level_scores) -> torch.Tensor:
 
 
 def nms_of_config(test_cfg: dict, boxes: torch.Tensor, scores: torch.Tensor,
-                  factors: Optional[torch.Tensor] = None) -> DetResult:
+                  factors: Optional[torch.Tensor] = None,
+                  scale_factors: Optional[torch.Tensor] = None) -> DetResult:
     """multiclass_nms with a head's test_cfg (score_thr, nms.iou_threshold,
-    max_per_img) and optional score factors."""
+    max_per_img) and optional score factors. With `scale_factors` (B, 4)
+    the boxes (B, N, 4) are divided by them before the NMS, into the
+    original image's frame, as the JAX heads' `rescale` does."""
+    if scale_factors is not None:
+        boxes = boxes / scale_factors[:, None, :]
     return multiclass_nms(
         boxes, scores, float(test_cfg.get("score_thr", 0.05)),
         float(test_cfg.get("nms", {}).get("iou_threshold", 0.5)),
@@ -183,14 +188,17 @@ class AnchorHead(nn.Module):
                 torch.cat(all_factors, dim=1) if all_factors else None)
 
     def get_bboxes(self, cls_outs, bbox_outs, img_shapes: torch.Tensor,
-                   factor_outs=None) -> DetResult:
+                   factor_outs=None,
+                   scale_factors: Optional[torch.Tensor] = None
+                   ) -> DetResult:
         """Detections per image. With `factor_outs` (ATSS's centerness) the
         factor ranks the candidates with the class score and multiplies
         the output score, while the score threshold gates the raw class
         score (mmdet bbox_nms.py's score_factors)."""
         boxes, scores, factors = self.candidates(cls_outs, bbox_outs,
                                                  img_shapes, factor_outs)
-        return nms_of_config(self.test_cfg, boxes, scores, factors)
+        return nms_of_config(self.test_cfg, boxes, scores, factors,
+                             scale_factors)
 
     # ---------------------------------------------------------------- train
     @property

@@ -180,6 +180,9 @@ class ATSSHead(AnchorHead):
                 "num_pos": pos_f.sum()}
 
     def get_bboxes(self, cls_outs, reg_outs, ctr_outs,
-                   img_shapes: torch.Tensor) -> DetResult:
+                   img_shapes: torch.Tensor,
+                   scale_factors: Optional[torch.Tensor] = None
+                   ) -> DetResult:
         return AnchorHead.get_bboxes(self, cls_outs, reg_outs, img_shapes,
-                                     factor_outs=ctr_outs)
+                                     factor_outs=ctr_outs,
+                                     scale_factors=scale_factors)

@@ -271,7 +271,9 @@ class FCOSHead(nn.Module):
 
     # --------------------------------------------------------- inference
     def get_bboxes(self, cls_outs, reg_outs, ctr_outs,
-                   img_shapes: torch.Tensor) -> DetResult:
+                   img_shapes: torch.Tensor,
+                   scale_factors: Optional[torch.Tensor] = None
+                   ) -> DetResult:
         nms_pre = int(self.test_cfg.get("nms_pre", 1000))
         b = cls_outs[0].shape[0]
         dev = cls_outs[0].device
@@ -291,4 +293,5 @@ class FCOSHead(nn.Module):
                 1, idx[..., None].expand(-1, -1, self.num_classes)))
             factors.append(ctr.gather(1, idx))
         return nms_of_config(self.test_cfg, torch.cat(boxes, 1),
-                             with_background(scores), torch.cat(factors, 1))
+                             with_background(scores), torch.cat(factors, 1),
+                             scale_factors)

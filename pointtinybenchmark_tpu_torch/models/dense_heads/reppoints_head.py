@@ -281,7 +281,9 @@ class RepPointsHead(nn.Module):
 
     # --------------------------------------------------------- inference
     def get_bboxes(self, cls_outs, init_outs, refine_outs, moment_transfer,
-                   img_shapes: torch.Tensor) -> DetResult:
+                   img_shapes: torch.Tensor,
+                   scale_factors: Optional[torch.Tensor] = None
+                   ) -> DetResult:
         del init_outs
         nms_pre = int(self.test_cfg.get("nms_pre", 1000))
         b = cls_outs[0].shape[0]
@@ -304,4 +306,5 @@ class RepPointsHead(nn.Module):
             scores.append(sc.gather(
                 1, idx[..., None].expand(-1, -1, self.num_classes)))
         return nms_of_config(self.test_cfg, torch.cat(boxes, 1),
-                             with_background(scores))
+                             with_background(scores),
+                             scale_factors=scale_factors)

@@ -64,12 +64,16 @@ class SingleStageDetector(nn.Module):
         batch = dict(batch, pad_shape=tuple(img.shape[1:3]))
         return self.bbox_head.loss(*self(img), batch, generator)
 
-    def simple_test(self, img: torch.Tensor,
-                    img_shapes: torch.Tensor) -> DetResult:
+    def simple_test(self, img: torch.Tensor, img_shapes: torch.Tensor,
+                    scale_factors: Optional[torch.Tensor] = None,
+                    rescale: bool = False) -> DetResult:
         """The head's detections from all its outputs (RetinaNet's two,
         FCOS's and ATSS's three, RepPoints' four), as the JAX detector
-        passes `*outs`."""
-        return self.bbox_head.get_bboxes(*self(img), img_shapes)
+        passes `*outs`; with `rescale`, boxes divided by `scale_factors`
+        (B, 4) before the NMS: the original image's frame."""
+        return self.bbox_head.get_bboxes(
+            *self(img), img_shapes,
+            scale_factors=scale_factors if rescale else None)
 
 
 class BasicLocator(SingleStageDetector):

@@ -146,21 +146,25 @@ def iou_bitmask_plain(boxes: torch.Tensor, iou_threshold: float,
     ops/nms.py::_pairwise_iou in the same operation order, thresholded and
     packed 64 columns to a word, PLAIN_ROW_CHUNK rows at a time, each chunk
     from the word of its first row on (the words left of it hold no bit
-    above the diagonal). It defines every bit (0 left of the diagonal), so
-    `n_valid` changes nothing."""
+    above the diagonal). Without `n_valid` it defines every bit (0 left of
+    the diagonal); with it, the rows and columns below the batch's largest
+    n_valid, which hold every bit the kernel defines, and 0 past them (a
+    merge's padded slots cost nothing)."""
     b, n, _ = boxes.shape
     words = -(-n // WORD)
     dev = boxes.device
     out = torch.zeros((b, n, words), dtype=torch.int64, device=dev)
+    m = n if n_valid is None or b == 0 else min(n, int(n_valid.max()))
+    m_words = -(-m // WORD)
     x1, y1, x2, y2 = boxes.unbind(-1)
     area = (x2 - x1) * (y2 - y1)
     cols = torch.arange(n, device=dev)
     shifts = torch.arange(WORD, dtype=torch.int64, device=dev)
-    for r0 in range(0, n, PLAIN_ROW_CHUNK):
-        r1 = min(r0 + PLAIN_ROW_CHUNK, n)
+    for r0 in range(0, m, PLAIN_ROW_CHUNK):
+        r1 = min(r0 + PLAIN_ROW_CHUNK, m)
         sl = slice(r0, r1)
         w0 = r0 // WORD
-        cs = slice(w0 * WORD, n)
+        cs = slice(w0 * WORD, m)
         ix1 = torch.maximum(x1[:, sl, None], x1[:, None, cs])
         iy1 = torch.maximum(y1[:, sl, None], y1[:, None, cs])
         ix2 = torch.minimum(x2[:, sl, None], x2[:, None, cs])
@@ -171,11 +175,12 @@ def iou_bitmask_plain(boxes: torch.Tensor, iou_threshold: float,
         sup = (inter / union) > iou_threshold
         sup &= cols[None, None, cs] > torch.arange(r0, r1,
                                                    device=dev)[None, :, None]
-        sup = torch.nn.functional.pad(sup, (0, words * WORD - n))
+        sup = torch.nn.functional.pad(sup, (0, m_words * WORD - m))
         # distinct powers of two: the sum is the OR, and bit 63 (the int64
         # sign) cannot overflow because the other bits sum below 2**63
-        bits = sup.view(b, r1 - r0, words - w0, WORD).to(torch.int64) << shifts
-        out[:, sl, w0:] = bits.sum(-1)
+        bits = (sup.view(b, r1 - r0, m_words - w0, WORD).to(torch.int64)
+                << shifts)
+        out[:, sl, w0:m_words] = bits.sum(-1)
     return out
 
 

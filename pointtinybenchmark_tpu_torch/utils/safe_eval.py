@@ -1,20 +1,22 @@
 """Whitelisted evaluation of config-supplied expression strings.
 
-The port's own copy of pointtinybenchmark_tpu/utils/safe_eval.py::
-safe_eval_expr, for the location evaluator's `recThrs` strings such as
-'np.linspace(.0, 1.00, 101)': the string is parsed with `ast` and only a
-fixed arithmetic subset is admitted (numeric literals, min / max / abs and
-a few numpy functions, arithmetic, comparisons and conditionals, tuples
-and lists); anything else raises ValueError.
+The port's own copy of pointtinybenchmark_tpu/utils/safe_eval.py
+(`safe_eval_expr`, `safe_eval_lambda`), for the location evaluator's
+`recThrs` strings such as 'np.linspace(.0, 1.00, 101)' and the tiny COCO
+evaluation's `iod_th_of_iou_f` such as 'lambda iou: iou': the string is
+parsed with `ast` and only a fixed arithmetic subset is admitted (numeric
+literals, min / max / abs and a few numpy functions, arithmetic,
+comparisons and conditionals, tuples and lists); anything else raises
+ValueError.
 """
 from __future__ import annotations
 
 import ast
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 
-__all__ = ["safe_eval_expr"]
+__all__ = ["safe_eval_expr", "safe_eval_lambda"]
 
 _ALLOWED_BUILTINS = {"min": min, "max": max, "abs": abs, "float": float,
                      "int": int, "round": round}
@@ -103,4 +105,20 @@ def _compile(expr: str, arg_names: Sequence[str] = ()):
 def safe_eval_expr(expr: str):
     """Evaluate a whitelisted arithmetic/numpy expression string."""
     code, glb = _compile(expr)
+    return eval(code, glb)  # noqa: S307 — AST-validated whitelist
+
+
+def safe_eval_lambda(expr: str) -> Callable:
+    """Parse ``"lambda x[, y...]: <arith>"`` into a callable; only the
+    lambda's own arguments and the whitelist may appear in its body."""
+    tree = ast.parse(expr, mode="eval")
+    if not isinstance(tree.body, ast.Lambda):
+        raise ValueError("expected a lambda expression")
+    a = tree.body.args
+    if (a.posonlyargs or a.kwonlyargs or a.vararg or a.kwarg or a.defaults
+            or a.kw_defaults):
+        raise ValueError("only plain positional lambda args allowed")
+    _validate(tree.body.body, frozenset(arg.arg for arg in a.args))
+    code = compile(tree, "<safe_eval>", "eval")
+    glb = {"__builtins__": {}, "np": _SafeNp(), **_ALLOWED_BUILTINS}
     return eval(code, glb)  # noqa: S307 — AST-validated whitelist

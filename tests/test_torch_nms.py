@@ -217,6 +217,34 @@ def test_defined_words_of_plain_mask_equal_pairwise_iou(n_valid):
         assert bits.sum() > 0
 
 
+@pytest.mark.parametrize("n_valid", [(0, 0), (1, 2), (130, 700), (777, 5)])
+def test_plain_mask_given_n_valid_keeps_the_defined_bits(n_valid):
+    """Given n_valid, the plain mask computes only the rows and columns
+    below the batch's largest n_valid: the bits the kernel defines equal
+    the whole mask's, every bit past the largest is 0, and the NMS over
+    the mask keeps what JAX's keeps."""
+    rng = np.random.RandomState(sum(n_valid))
+    boxes = np.stack([_boxes(rng, 777)[0] for _ in n_valid])
+    nv = torch.tensor(n_valid, dtype=torch.int32)
+    whole = nms_cuda.iou_bitmask_plain(torch.from_numpy(boxes), 0.5)
+    part = nms_cuda.iou_bitmask_plain(torch.from_numpy(boxes), 0.5, nv)
+    assert torch.equal(nms_cuda.defined_words(part, nv),
+                       nms_cuda.defined_words(whole, nv))
+    bits = _unpack(part, 777)
+    top = max(n_valid)
+    assert not bits[:, top:].any() and not bits[:, :, top:].any()
+    if top > 64:
+        assert bits.sum() > 0
+    scores = rng.rand(len(n_valid), 777).astype(np.float32)
+    valid = np.arange(777)[None] < np.asarray(n_valid)[:, None]
+    keep, num = tnms.nms(*_t(boxes, scores), 0.5, 300,
+                         valid_mask=torch.from_numpy(valid))
+    for i in range(len(n_valid)):
+        want = jnms.nms(jnp.asarray(boxes[i]), jnp.asarray(scores[i]), 0.5,
+                        300, valid_mask=jnp.asarray(valid[i]))
+        _assert_same(want, (keep[i], num[i]))
+
+
 @pytest.mark.parametrize("thr", [0.5, 0.7])
 def test_threshold_ties_match_jax_division(thr):
     """Pairs whose float32 IoU is exactly thr or one of its float

@@ -30,12 +30,18 @@ import jax.numpy as jnp
 from pointtinybenchmark_tpu.apis.inference import DetectorHandle
 from pointtinybenchmark_tpu.apis.inference import \
     inference_detector_tiled as jax_tiled
+from pointtinybenchmark_tpu.engine.test import \
+    DeviceTiledInference as JaxTiled
 from pointtinybenchmark_tpu.models import build_detector as jax_build
 from pointtinybenchmark_tpu.utils.config import Config as JaxConfig
 from pointtinybenchmark_tpu_torch.apis.inference import (
     inference_detector_tiled, init_detector)
 from pointtinybenchmark_tpu_torch.utils.jax_weights import load_jax_variables
 
+# JAX compiles without XLA's backend optimisations (the numbers are the
+# same computation; only the compile is cheaper)
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
 CFG_TEXT = """
 img_norm = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375])
 test_pipeline = [
@@ -209,8 +215,9 @@ def test_tiled_slice_matches_jax(tmp_path, detector):
     cfg = JaxConfig.fromfile(str(path))
     jm = jax_build(dict(cfg.model), None, cfg.test_cfg)
     # init_detector's own init, jitted (eager init of ResNet-50 is slow)
-    variables = jax.jit(lambda r, x: jm.init(r, x, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, 64, 96, 3), jnp.float32))
+    args = (jax.random.PRNGKey(0), jnp.zeros((1, 64, 96, 3), jnp.float32))
+    variables = jax.jit(lambda r, x: jm.init(r, x, train=False)).lower(
+        *args).compile(FAST_COMPILE)(*args)
     variables = jax.tree_util.tree_map(np.array, variables)
     rng = np.random.RandomState(0)
     for scope, name, scale in redraw:
@@ -228,6 +235,16 @@ def test_tiled_slice_matches_jax(tmp_path, detector):
                        variables["batch_stats"])
 
     frame = np.random.RandomState(6).randint(0, 256, (128, 192, 3), np.uint8)
+    # the engine jax_tiled builds for this frame (the config's tiles and
+    # normalisation), compiled with FAST_COMPILE; jax_tiled takes it from
+    # the handle's cache
+    tiler = cfg.data["test"]["pipeline"][1]
+    eng = JaxTiled(jm, jh.variables, frame.shape[:2], (64, 96),
+                   tuple(tiler["tile_overlap"]),
+                   img_norm={k: tiler["transforms"][2][k]
+                             for k in ("mean", "std")})
+    eng._infer = eng._infer.lower(frame[None]).compile(FAST_COMPILE)
+    jh._tiled_engines = {frame.shape[:2]: eng}
     ref = _dets(jax_tiled(jh, frame))
     assert ref[0].shape[0] > 0, detector
     _assert_dets_match(ref, _dets(inference_detector_tiled(th, frame)))
