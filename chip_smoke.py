@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the kernels of ops/csrc with nvcc (one nvcc per source, started
-together), then runs twenty-four main paths, the tiled protocol of Adap
+together), then runs twenty-eight main paths, the tiled protocol of Adap
 RetinaNet-c, Adap Faster R-CNN, COCO Mask R-CNN, Adap P2P, Adap FCOS, Adap
-ATSS, Adap RepPoints and Adap Grid R-CNN, each on two 1920x1080 uint8
-frames, the training of Adap Faster R-CNN, Adap RetinaNet-c, COCO Mask
-R-CNN, P2P, CPR, P2BNet, SSD-Det, FCOS, ATSS, RepPoints and Grid R-CNN,
+ATSS, Adap RepPoints, Adap FoveaBox, Adap FreeAnchor and Adap Grid R-CNN,
+each on two 1920x1080 uint8 frames, the training of Adap Faster R-CNN,
+Adap RetinaNet-c, COCO Mask R-CNN, P2P, CPR, P2BNet, SSD-Det, FCOS, ATSS,
+RepPoints, FoveaBox, FreeAnchor and Grid R-CNN,
 the refinement of CPR, P2BNet and SSD-Det, and Adap Faster R-CNN's train
 and test command-line tools on a TinyPerson-format dataset:
 
@@ -177,19 +178,23 @@ and test command-line tools on a TinyPerson-format dataset:
    several runs in parallel processes, held on their means: P2BNet's to
    the test's floors, SSD-Det's to JAX's own perturbed runs' mean (within
    LEARN_SE standard errors) and above the noisy boxes' IoU;
-12. the dense TinyPerson baselines, FCOS, ATSS and RepPoints (configs/
-   tinyperson/{fcos,atss,reppoints}_r50_fpns4_1x_tinyperson640.py at full
-   width: ResNet-50, FPN-256 from stride 4, GN heads) with seeded weights:
+12. the dense TinyPerson baselines, FCOS, ATSS, RepPoints, FoveaBox and
+   FreeAnchor (configs/tinyperson/{fcos,atss,reppoints,fovea,free_anchor}_
+   r50_fpns4_1x_tinyperson640.py at full width: ResNet-50, FPN-256 from
+   stride 4; GN heads, FoveaBox's biased convs without a norm, FreeAnchor's
+   RetinaNet-c head with its bag loss) with seeded weights:
    (a) `phase_dense`, the classifier's bias set to 0 (what the seeded
    weights keep before is printed): `inference_detector_tiled` on the two
    frames, launches {iou_bitmask: 2, greedy_reduce: 2}, detections equal
    to those with the plain NMS, K1 alone against its plain version on the
-   run's own two launches (per tile B=24 N=5,680, the merge B=2
-   N=12,000), the card against the CPU on one tile (head outputs, and the
+   run's own two launches (per tile B=24 N=5,680, FreeAnchor's 9 anchors
+   a cell N=8,720, the merge B=2 N=12,000), the card against the CPU on
+   one tile (head outputs, and the
    detections at tests/test_detector_golden.py:88's tolerances), protocol
    and forward-only img/s, a protocol call's peak memory; (b)
    `phase_dense_train`: `train_run` for 8 iterations (no kernel launch,
-   positives every step, frozen stem and layer1 bit-identical), FCOS's
+   positives every step, for FreeAnchor a positive bag loss above 0,
+   frozen stem and layer1 bit-identical), FCOS's
    paramwise_cfg against a hand-computed update of a conv bias and a
    GroupNorm bias, one step on the card against the CPU (losses within
    LOSS_TOL), step ms, img/s and peak memory; (c) profiles of warm
@@ -370,7 +375,16 @@ DENSE = (
      "atss_cls"),
     ("reppoints",
      REPO / "configs/tinyperson/reppoints_r50_fpns4_1x_tinyperson640.py",
-     "cls_out"))
+     "cls_out"),
+    ("fovea", REPO / "configs/tinyperson/fovea_r50_fpns4_1x_tinyperson640.py",
+     "conv_cls"),
+    ("free_anchor",
+     REPO / "configs/tinyperson/free_anchor_r50_fpns4_1x_tinyperson640.py",
+     "retina_cls"))
+# what each dense baseline's training must keep above 0 in every step: the
+# positives, or for FreeAnchor, whose num_pos counts the gts, the positive
+# bag loss
+DENSE_POSITIVES = {"free_anchor": {"loss_positive_bag": 0}}
 DENSE_STRIDES = (4, 8, 16, 32, 64)
 DENSE_TRAIN_EPOCHS = 2           # 8 iterations at samples_per_gpu=1
 # phase 13: Adap Grid R-CNN, Faster R-CNN's network with a grid head on
@@ -4079,7 +4093,7 @@ def phase_learn(card):
     return runs
 
 
-# ---------------------- phase 12: FCOS, ATSS and RepPoints (dense heads)
+# ---- phase 12: FCOS, ATSS, RepPoints, FoveaBox, FreeAnchor (dense heads)
 def dets_match(ref, got, atol_box=2e-3, atol_score=1e-4):
     """tests/test_detector_golden.py:88's tolerances: each detection of
     `ref` ((n, 5) rows, labels) matched to its own of `got` with the same
@@ -4166,9 +4180,12 @@ def phase_dense(card, frames, name, config, cls_name):
 
     eng = next(iter(handle.tiled_engines.values()))
     tiles = eng.pre(frames)
-    n_cand = sum(min(int(cfg["nms_pre"]), (h + s - 1) // s * ((w + s - 1)
-                                                               // s))
-                 for s, (h, w) in zip(DENSE_STRIDES, [eng.pre.tile_hw] * 5))
+    # a cell gives one candidate, or one an anchor (FreeAnchor's 9)
+    per_cell = getattr(head, "num_base_anchors", 1)
+    h, w = eng.pre.tile_hw
+    n_cand = sum(min(int(cfg["nms_pre"]),
+                     (h + s - 1) // s * ((w + s - 1) // s) * per_cell)
+                 for s in DENSE_STRIDES)
     rows = []
     for ((sboxes, k1_thr, n_valid), _, _), ((_, ok, order, max_out, _), _,
                                             _), what in zip(
@@ -4194,7 +4211,8 @@ def phase_dense(card, frames, name, config, cls_name):
                 for o in outs[0]).tolist()
     kept = dets.valid.sum(1).tolist()
     print(f"phase 12 {name} per-tile NMS input: {n_cand} candidates a tile "
-          f"(top {cfg['nms_pre']} a level), cells over score_thr {cands}")
+          f"(top {cfg['nms_pre']} a level of {per_cell} a cell), cells over "
+          f"score_thr {cands}")
     print(f"phase 12 {name} per-tile NMS kept: {kept}")
     if min(cands) <= 0 or min(kept) <= 0:
         raise AssertionError("NMS got no work")
@@ -4292,8 +4310,9 @@ def paramwise_check(model, init, grads, cfg, name):
 def phase_dense_train(card, name, config):
     """Phase 12 (b): the config's training at full width with seeded
     weights: `train_run` (no kernel launch, finite losses, positives in
-    every step, the frozen stem and layer1 bit-identical and the rest
-    changed); one step on the card against the CPU (losses within
+    every step (FreeAnchor: a positive bag loss above 0), the frozen stem
+    and layer1 bit-identical and the rest changed); one step on the card
+    against the CPU (losses within
     LOSS_TOL); for FCOS its paramwise_cfg against a hand-computed update;
     then train-step ms, img/s and peak memory. Returns the launches and
     the profile (c), to be run after every timing."""
@@ -4313,7 +4332,8 @@ def phase_dense_train(card, name, config):
     held = torch.cuda.memory_allocated()
     model, init, launches = train_run(card, f"12 {name}", cfg, samples,
                                       DENSE_TRAIN_EPOCHS, NO_LAUNCHES,
-                                      {"num_pos": 0})
+                                      DENSE_POSITIVES.get(name,
+                                                          {"num_pos": 0}))
     collator = DetCollator(tuple(cfg.loader["pad_shape"]),
                            max_gt=int(cfg.loader["max_gt"]),
                            max_gt_ignore=int(cfg.loader["max_gt_ignore"]))

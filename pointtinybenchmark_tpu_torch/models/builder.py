@@ -26,6 +26,8 @@ from .dense_heads.anchor_head import AnchorHead
 from .dense_heads.atss_head import ATSSHead
 from .dense_heads.cpr_head import CascadeCPRHead, CPRHead
 from .dense_heads.fcos_head import FCOSHead
+from .dense_heads.fovea_head import FoveaHead
+from .dense_heads.free_anchor_retina_head import FreeAnchorRetinaHead
 from .dense_heads.p2b_head import P2BNetHead, SSDDetHead
 from .dense_heads.p2p_head import P2PHead
 from .dense_heads.reppoints_head import RepPointsHead
@@ -63,11 +65,14 @@ MODULES = {
     "FCOSHead": FCOSHead,
     "ATSSHead": ATSSHead,
     "RepPointsHead": RepPointsHead,
+    "FoveaHead": FoveaHead,
+    "FreeAnchorRetinaHead": FreeAnchorRetinaHead,
 }
 SINGLE_STAGE = {"SingleStageDetector": SingleStageDetector,
                 "RetinaNet": SingleStageDetector, "FCOS": SingleStageDetector,
                 "ATSS": SingleStageDetector,
                 "RepPointsDetector": SingleStageDetector,
+                "FoveaBox": SingleStageDetector,
                 "BasicLocator": BasicLocator, "P2BNet": P2BNet,
                 "SSDDet": SSDDet}
 TWO_STAGE = {"TwoStageDetector": TwoStageDetector,
@@ -107,13 +112,15 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
     `test_cfg["rpn"]`, its RoI head `train_cfg["rcnn"]` and
     `test_cfg["rcnn"]` and the built bbox head and, for Mask R-CNN, mask
     head (for Grid R-CNN, grid head); the detector keeps
-    `train_cfg["rpn_proposal"]` (JAX two_stage.py:38-45). A list of necks
-    raises (see the module note)."""
+    `train_cfg["rpn_proposal"]` (JAX two_stage.py:38-45). An unported
+    detector type and a list of necks (see the module note) raise before
+    any layer is built."""
     cfg = dict(cfg)
     kind = cfg.pop("type")
+    if kind not in SINGLE_STAGE and kind not in TWO_STAGE:
+        raise KeyError(f"detector {kind} is not ported")
     train_cfg = cfg.get("train_cfg") or train_cfg
     test_cfg = cfg.get("test_cfg") or test_cfg
-    backbone = build_module(cfg["backbone"])
     if isinstance(cfg.get("neck"), (list, tuple)):
         raise NotImplementedError(
             f"a list of necks ({[n.get('type') for n in cfg['neck']]}, "
@@ -121,6 +128,7 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
             f"TwoStageDetector.setup calls build_neck(dict(neck)) on it "
             f"(models/detectors/two_stage.py:37) and raises ValueError, so "
             f"there is no JAX network to match")
+    backbone = build_module(cfg["backbone"])
     neck = build_module(cfg["neck"]) if cfg.get("neck") else None
     if kind in SINGLE_STAGE:
         head_cfg = dict(cfg["bbox_head"])
@@ -128,7 +136,7 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
         head_cfg.setdefault("test_cfg", test_cfg)
         model = SINGLE_STAGE[kind](backbone=backbone, neck=neck,
                                    bbox_head=build_module(head_cfg))
-    elif kind in TWO_STAGE:
+    else:
         rpn_cfg = dict(cfg["rpn_head"])
         rpn_cfg.setdefault("train_cfg", (train_cfg or {}).get("rpn"))
         rpn_cfg.setdefault("test_cfg", (test_cfg or {}).get("rpn"))
@@ -143,7 +151,5 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
                                 rpn_head=build_module(rpn_cfg),
                                 roi_head=build_module(roi_cfg),
                                 train_cfg=train_cfg)
-    else:
-        raise KeyError(f"detector {kind} is not ported")
     model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(device).eval()

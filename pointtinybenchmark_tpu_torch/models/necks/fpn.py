@@ -26,6 +26,8 @@ from ..utils import ConvModule, lecun_normal_
 
 __all__ = ["FPN"]
 
+EXTRA_SOURCES = (False, True, "on_input", "on_lateral", "on_output")
+
 
 class FPN(nn.Module):
 
@@ -42,18 +44,21 @@ class FPN(nn.Module):
         self.start_level = start_level
         self.end = len(in_channels) if end_level == -1 else end_level + 1
         n_used = self.end - start_level
-        if add_extra_convs and add_extra_convs not in ("on_input", True):
-            raise NotImplementedError(
-                f"add_extra_convs={add_extra_convs!r} is not ported")
-        self.extra_convs = bool(add_extra_convs)
+        if add_extra_convs not in EXTRA_SOURCES:
+            raise ValueError(f"add_extra_convs={add_extra_convs!r}: one of "
+                             f"{EXTRA_SOURCES}")
+        self.extra_source = ("on_input" if add_extra_convs is True
+                             else add_extra_convs)
         self.relu_before_extra_convs = relu_before_extra_convs
         self.lateral_convs = nn.ModuleList(
             ConvModule(self.in_channels[start_level + i], out_channels, 1,
                        padding=0, act=False) for i in range(n_used))
         convs = [ConvModule(out_channels, out_channels, 3, act=False)
                  for _ in range(min(n_used, num_outs))]
-        for k in range(num_outs - n_used if self.extra_convs else 0):
-            cin = self.in_channels[self.end - 1] if k == 0 else out_channels
+        for k in range(num_outs - n_used if self.extra_source else 0):
+            cin = (self.in_channels[self.end - 1]
+                   if k == 0 and self.extra_source == "on_input"
+                   else out_channels)
             convs.append(ConvModule(cin, out_channels, 3, stride=2, act=False))
         self.fpn_convs = nn.ModuleList(convs)
 
@@ -78,13 +83,14 @@ class FPN(nn.Module):
                 mode="nearest-exact")
         n_out = min(n_used, self.num_outs)
         outs = [self.fpn_convs[i](laterals[i]) for i in range(n_out)]
-        if not self.extra_convs:
+        if not self.extra_source:
             # nn.max_pool(x, (1, 1), strides=(2, 2)) of the JAX FPN: VALID
             # padding keeps ceil(H / 2) rows, as [::2] does
             for _ in range(self.num_outs - n_used):
                 outs.append(outs[-1][:, :, ::2, ::2])
             return tuple(outs)
-        x = inputs[self.end - 1]
+        x = {"on_input": inputs[self.end - 1], "on_lateral": laterals[-1],
+             "on_output": outs[-1]}[self.extra_source]
         for k in range(self.num_outs - n_used):
             if k > 0 and self.relu_before_extra_convs:
                 x = torch.relu(x)

@@ -8,12 +8,14 @@ bottleneck, 2 in a basic block) -> `downsample.0/1`;
 `neck_m/extra_conv{k}` -> `neck.fpn_convs.{n_lateral+k}`;
 `bbox_head_m/cls_conv{i}/Conv_0` -> `bbox_head.cls_convs.{i}.conv` and its
 `GroupNorm_0` (scale, bias) -> `bbox_head.cls_convs.{i}.gn` (weight, bias),
-likewise `reg_conv{i}`; the point heads' `cls_out`, `reg_out` (P2P's
+likewise `reg_conv{i}` (FoveaHead's, without a norm, have a biased
+`Conv_0` only); the point heads' `cls_out`, `reg_out` (P2P's
 convolutions) and `ins_out` (CPR's dense layers) keep their names;
 P2BNet's `bbox_head_m/stage{s}_shared_fc{i}`, `stage{s}_cls` and
 `stage{s}_ins` -> `bbox_head.stages.{s}.shared_fcs.{i}`, `.cls`, `.ins`;
-the dense heads' output convs keep their names (FCOS's `conv_cls`,
-`conv_reg`, `conv_centerness`; ATSS's `atss_cls`, `atss_reg`,
+the dense heads' output convs keep their names (FCOS's and FoveaHead's
+`conv_cls`, `conv_reg`, FCOS's `conv_centerness`; RetinaHead's and
+FreeAnchor's `retina_cls`, `retina_reg`; ATSS's `atss_cls`, `atss_reg`,
 `atss_centerness`; RepPoints' `pts_init_conv`, `pts_init_out`, `cls_dcn`,
 `cls_out`, `refine_dcn`, `pts_refine_out`, whose 1x1 `cls_dcn` /
 `refine_dcn` kernels (1, 1, 9 C, out) read the gathered taps tap-major,
