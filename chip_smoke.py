@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Builds the kernels of ops/csrc with nvcc (one nvcc per source, started
-together), then runs twenty-eight main paths, the tiled protocol of Adap
+together), then runs thirty-two main paths, the tiled protocol of Adap
 RetinaNet-c, Adap Faster R-CNN, COCO Mask R-CNN, Adap P2P, Adap FCOS, Adap
-ATSS, Adap RepPoints, Adap FoveaBox, Adap FreeAnchor and Adap Grid R-CNN,
-each on two 1920x1080 uint8 frames, the training of Adap Faster R-CNN,
-Adap RetinaNet-c, COCO Mask R-CNN, P2P, CPR, P2BNet, SSD-Det, FCOS, ATSS,
-RepPoints, FoveaBox, FreeAnchor and Grid R-CNN,
-the refinement of CPR, P2BNet and SSD-Det, and Adap Faster R-CNN's train
-and test command-line tools on a TinyPerson-format dataset:
+ATSS, Adap RepPoints, Adap FoveaBox, Adap FreeAnchor, Adap VFNet and Adap
+Grid R-CNN, each on two 1920x1080 uint8 frames, the training of Adap
+Faster R-CNN, Adap RetinaNet-c, COCO Mask R-CNN, P2P, CPR, P2BNet, SSD-Det,
+FCOS, ATSS, RepPoints, FoveaBox, FreeAnchor, VFNet and Grid R-CNN,
+the refinement of CPR, P2BNet and SSD-Det, Adap Faster R-CNN's train
+and test command-line tools on a TinyPerson-format dataset, and the Scale
+Match pretraining of Faster R-CNN and RetinaNet through the train CLI:
 
 1. kernel vs plain, NMS: the IoU-bitmask and greedy-reduce kernels against
    their plain PyTorch version on the card, on synthetic TinyPerson-like
@@ -178,28 +179,32 @@ and test command-line tools on a TinyPerson-format dataset:
    several runs in parallel processes, held on their means: P2BNet's to
    the test's floors, SSD-Det's to JAX's own perturbed runs' mean (within
    LEARN_SE standard errors) and above the noisy boxes' IoU;
-12. the dense TinyPerson baselines, FCOS, ATSS, RepPoints, FoveaBox and
-   FreeAnchor (configs/tinyperson/{fcos,atss,reppoints,fovea,free_anchor}_
-   r50_fpns4_1x_tinyperson640.py at full width: ResNet-50, FPN-256 from
-   stride 4; GN heads, FoveaBox's biased convs without a norm, FreeAnchor's
-   RetinaNet-c head with its bag loss) with seeded weights:
+12. the dense TinyPerson baselines, FCOS, ATSS, RepPoints, FoveaBox,
+   FreeAnchor and VFNet (configs/tinyperson/{fcos,atss,reppoints,fovea,
+   free_anchor,vfnet}_r50_fpns4_1x_tinyperson640.py at full width:
+   ResNet-50, FPN-256 from stride 4; GN heads, FoveaBox's biased convs
+   without a norm, FreeAnchor's RetinaNet-c head with its bag loss,
+   VFNet's star gathers and varifocal loss) with seeded weights:
    (a) `phase_dense`, the classifier's bias set to 0 (what the seeded
    weights keep before is printed): `inference_detector_tiled` on the two
    frames, launches {iou_bitmask: 2, greedy_reduce: 2}, detections equal
    to those with the plain NMS, K1 alone against its plain version on the
-   run's own two launches (per tile B=24 N=5,680, FreeAnchor's 9 anchors
-   a cell N=8,720, the merge B=2 N=12,000), the card against the CPU on
+   run's own two launches (per tile B=24 N=5,680, VFNet's at thr 0.6,
+   FreeAnchor's 9 anchors a cell N=8,720, the merge B=2 N=12,000), the
+   card against the CPU on
    one tile (head outputs, and the
    detections at tests/test_detector_golden.py:88's tolerances), protocol
    and forward-only img/s, a protocol call's peak memory; (b)
    `phase_dense_train`: `train_run` for 8 iterations (no kernel launch,
-   positives every step, for FreeAnchor a positive bag loss above 0,
-   frozen stem and layer1 bit-identical), FCOS's
-   paramwise_cfg against a hand-computed update of a conv bias and a
-   GroupNorm bias, one step on the card against the CPU (losses within
-   LOSS_TOL), step ms, img/s and peak memory; (c) profiles of warm
-   protocol calls and steps with the others at the end (the gather and
-   the index_add_ scatter of RepPoints' sampling as families).
+   positives every step, for FreeAnchor a positive bag loss above 0, for
+   VFNet a refined-box loss above 0, frozen stem and layer1
+   bit-identical), FCOS's and VFNet's paramwise_cfg against a
+   hand-computed update of a conv bias and a GroupNorm bias, one step on
+   the card against the CPU (losses within LOSS_TOL), step ms, img/s and
+   peak memory; RepPoints' and VFNet's gathers timed alone against the
+   forward (`gather_share`); (c) profiles of warm protocol calls and steps
+   with the others at the end (the gather and the index_add_ scatter of
+   the deformable heads' sampling as families).
 13. Adap Grid R-CNN (configs/tinyperson/grid_rcnn_r50_fpn_1x_
    tinyperson640.py at full width: Faster R-CNN's network and a grid head
    of 8 GN(36) 3x3 convs at 576, 9 point branches with first-order fusion
@@ -242,6 +247,24 @@ and test command-line tools on a TinyPerson-format dataset:
    same frames; (d) the evaluation's native and Python loops (equal stats,
    seconds each), and the gts as detections at score 1 (every AP*_all and
    AP*_tiny 1.0).
+15. Scale Match pretraining (`phase_scale_match`): a synthetic
+   COCO-format set (SM_TRAIN_IMAGES + SM_VAL_IMAGES JPEGs of 640x480 and
+   480x640, 2-15 objects of 32-256 px of the 80 categories) and TinyPerson
+   frames (the target distribution's json, and the tiled validation),
+   laid out in a temporary folder under build/ where the configs name
+   them (data/coco/..., data/tiny_set/...); from that folder the train CLI
+   runs configs/tinyperson/scale_match/faster_rcnn_r50_fpn_1x_coco_msm_
+   tinyperson.py (MonotonicityScaleMatch, 8 images a step: K1 1 + 1, K2
+   and its backward 1 a step; validation by the tiled protocol, {3, 3, 1,
+   0} a frame) and retinanet_r50_fpns4_1x_coco_sm_tinyperson.py
+   (ScaleMatch, 4 images a step, no launch; validation by `run_test` at
+   (333, 200), K1 1 + 1 an image), as written, for SM_ITERS iterations of
+   an IterBasedRunner: launches, finite losses at every step, it/s from
+   the loader, the validation's metrics; K1 and K2 (forward and backward)
+   against their plain versions at the Faster R-CNN step's first launches;
+   ScaleMatchResize's host ms a sample, the matched images'
+   geometric-mean box sizes beside the target's, and the share of scales
+   at a bound of scale_range.
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
@@ -249,11 +272,11 @@ in TF32). Every failure raises; there is no CPU mode. The last line is
 power limit, and the line before that lists each kernel with its launches on
 the main paths, its error against the plain version, its time, the plain
 version's time and its bound (`by_shape`: K1 at every launch shape, the
-Mask R-CNN train step's RPN NMS and the two protocol launches of P2P,
-FCOS, ATSS and RepPoints; for
+Mask R-CNN train step's RPN NMS, the two protocol launches of P2P and of
+the dense baselines, and phase 15's first launches; for
 RoIAlign the phase-2 shapes, the slices' rois (Grid R-CNN's grid rois
-included) and the train steps' rois; for its backward the phase-6 shapes
-and the train steps' rois; for the
+included) and the train steps' rois (phase 15's too); for its backward
+the phase-6 shapes and the train steps' rois; for the
 roi-coordinate kernel phase 11 (a)'s shapes and the P2BNet step's two
 launches; `ms` is whole wrapper calls
 between CUDA events, as for every kernel, and the backward adds
@@ -380,11 +403,18 @@ DENSE = (
      "conv_cls"),
     ("free_anchor",
      REPO / "configs/tinyperson/free_anchor_r50_fpns4_1x_tinyperson640.py",
-     "retina_cls"))
+     "retina_cls"),
+    ("vfnet", REPO / "configs/tinyperson/vfnet_r50_fpns4_1x_tinyperson640.py",
+     "vfnet_cls"))
 # what each dense baseline's training must keep above 0 in every step: the
 # positives, or for FreeAnchor, whose num_pos counts the gts, the positive
-# bag loss
-DENSE_POSITIVES = {"free_anchor": {"loss_positive_bag": 0}}
+# bag loss, and for VFNet, whose num_pos is at least 1 by its clamp, the
+# refined boxes' GIoU loss (0 without a positive)
+DENSE_POSITIVES = {"free_anchor": {"loss_positive_bag": 0},
+                   "vfnet": {"loss_bbox_rf": 0}}
+# the head's sampling methods of the deformable heads: RepPoints' 9 taps
+# at its initial points, VFNet's star at its initial box
+GATHERS = ("deform_gather", "star_gather")
 DENSE_STRIDES = (4, 8, 16, 32, 64)
 DENSE_TRAIN_EPOCHS = 2           # 8 iterations at samples_per_gpu=1
 # phase 13: Adap Grid R-CNN, Faster R-CNN's network with a grid head on
@@ -426,6 +456,31 @@ DATASET_ITERS = 40               # an IterBasedRunner at samples_per_gpu=1
 DATASET_FRAME_LAUNCHES = {"iou_bitmask": 3, "greedy_reduce": 3,
                           "roi_align": 1, "roi_align_backward": 0,
                           "roi_align_rois_backward": 0}
+# phase 15: Scale Match pretraining through the train CLI, each config as
+# written, run from a folder that holds its `data/` files: a synthetic
+# COCO-format set (SM_TRAIN_IMAGES + SM_VAL_IMAGES JPEGs of 640x480 and
+# 480x640, 2-15 objects of 32-256 px of the 80 categories) and TinyPerson
+# frames (the target distribution's json, and Faster R-CNN's tiled
+# validation); (name, config, launches a step, launches a validation
+# image, validation images)
+SM_DIR = REPO / "configs/tinyperson/scale_match"
+SM_TRAIN_IMAGES = 32
+SM_VAL_IMAGES = 4
+SM_TARGET_FRAMES = 3
+SM_TINY_VAL_FRAMES = 2
+SM_OBJECTS = (2, 16)
+SM_SIDES = (32.0, 256.0)
+SM_ITERS = 20                    # an IterBasedRunner
+SM_RUNS = (
+    ("faster_rcnn_msm", SM_DIR / "faster_rcnn_r50_fpn_1x_coco_msm_tinyperson.py",
+     TRAIN_LAUNCHES, DATASET_FRAME_LAUNCHES, SM_TINY_VAL_FRAMES),
+    # run_test: one multiclass_nms an image
+    ("retinanet_sm", SM_DIR / "retinanet_r50_fpns4_1x_coco_sm_tinyperson.py",
+     NO_LAUNCHES, dict(NO_LAUNCHES, iou_bitmask=1, greedy_reduce=1),
+     SM_VAL_IMAGES))
+# COCO's 80 category ids
+COCO_IDS = tuple(i for i in range(1, 91) if i not in
+                 (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
 P2B_CONFIG = REPO / "configs/p2b/p2bnet_r50_fpn_1x_coco.py"
 SSD_CONFIG = REPO / "configs/ssd_det/ssd_det_r50_fpn_1x_coco.py"
 P2B_TRAIN_LAUNCHES = {"iou_bitmask": 0, "greedy_reduce": 0, "roi_align": 3,
@@ -4231,7 +4286,7 @@ def phase_dense(card, frames, name, config, cls_name):
         raise AssertionError(f"card forward differs from CPU: {err}")
     del cpu_model, ref, outs
 
-    if hasattr(head, "deform_gather"):
+    if any(hasattr(head, a) for a in GATHERS):
         gather_share(card, name, model, head, tiles)
     protocol, forward = throughput(handle, frames, tiles)
     torch.cuda.synchronize()
@@ -4249,26 +4304,29 @@ def phase_dense(card, frames, name, config, cls_name):
 
 
 def gather_share(card, name, model, head, tiles):
-    """RepPoints' deformable gathers (`deform_gather`: 9 taps bilinear from
-    the map, per branch and level) on the forward's own inputs, timed
-    alone by CUDA events, against the whole forward's time."""
+    """A deformable head's gathers (RepPoints' `deform_gather`, VFNet's
+    `star_gather`: 9 taps bilinear from the map, per branch and level) on
+    the forward's own inputs, timed alone by CUDA events, against the
+    whole forward's time."""
     calls = []
-    gather = head.deform_gather
+    attr = next(a for a in GATHERS if hasattr(head, a))
+    gather = getattr(head, attr)
 
     def record(feat, offsets):
         calls.append((feat, offsets))
         return gather(feat, offsets)
-    head.deform_gather = record
+    setattr(head, attr, record)
     try:
         with torch.no_grad():
             model(tiles)
     finally:
-        del head.deform_gather
+        delattr(head, attr)
     with torch.no_grad():
         gather_ms = time_ms(lambda: [gather(f, o) for f, o in calls], ITERS)
         forward_ms = time_ms(lambda: model(tiles), ITERS)
     out_gb = sum(f.numel() * 9 * 4 for f, _ in calls) / 1e9
-    print(f"phase 12 {name} deformable gathers: {len(calls)} a forward "
+    print(f"phase 12 {name} deformable gathers ({attr}): {len(calls)} a "
+          f"forward "
           f"(2 branches x {len(calls) // 2} levels, {tiles.shape[0]} tiles, "
           f"{out_gb:.2f} GB of taps written), {gather_ms:.4f} ms alone, "
           f"{gather_ms / forward_ms:.4f} of the forward's {forward_ms:.4f} ms "
@@ -4277,10 +4335,11 @@ def gather_share(card, name, model, head, tiles):
 
 
 def paramwise_check(model, init, grads, cfg, name):
-    """FCOS's paramwise_cfg on the first step from `init`: a conv bias
-    moves by 2 lr times its clipped gradient with no decay, a GroupNorm
-    bias (a norm leaf) by lr times its clipped gradient plus the decay;
-    the clip factor from the global norm of every gradient."""
+    """FCOS's and VFNet's paramwise_cfg on the first step from `init`: a
+    conv bias (the regression conv's) moves by 2 lr times its clipped
+    gradient with no decay, a GroupNorm bias (a norm leaf) by lr times its
+    clipped gradient plus the decay; the clip factor from the global norm
+    of every gradient."""
     from pointtinybenchmark_tpu_torch.engine.optimizer import \
         build_lr_schedule
 
@@ -4293,7 +4352,9 @@ def paramwise_check(model, init, grads, cfg, name):
     clip = 1.0 if norm < max_norm else max_norm / norm
     after = model.state_dict()
     errs = {}
-    for leaf, lr_mult, decay in (("bbox_head.conv_reg.bias", 2.0, 0.0),
+    reg = ("bbox_head.vfnet_reg.bias" if "bbox_head.vfnet_reg.bias" in grads
+           else "bbox_head.conv_reg.bias")
+    for leaf, lr_mult, decay in ((reg, 2.0, 0.0),
                                  ("bbox_head.cls_convs.0.gn.bias", 1.0, wd)):
         p0 = init[leaf].double()
         want = p0 - lr * lr_mult * (grads[leaf].double() * clip + decay * p0)
@@ -5004,6 +5065,236 @@ def phase_dataset(card):
             "faster_rcnn_dataset_test_cli": test_launches}
 
 
+# ------------------------------- phase 15: Scale Match pretraining
+def write_coco_set(img_dir, path, n, rng):
+    """`n` JPEG images in `img_dir`, 640x480 and 480x640 in turn, each
+    with SM_OBJECTS boxes of SM_SIDES px (log-uniform, bright blocks on a
+    dark noisy ground) of the 80 COCO categories, ~5% iscrowd; their COCO
+    json at `path`, the file names prefixed by its stem."""
+    from PIL import Image
+
+    img_dir.mkdir(parents=True, exist_ok=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    for i in range(n):
+        h, w = ((480, 640), (640, 480))[i % 2]
+        img = rng.randint(0, 70, (h, w, 3)).astype(np.uint8)
+        for _ in range(rng.randint(*SM_OBJECTS)):
+            bw, bh = np.minimum(np.exp(rng.uniform(*np.log(SM_SIDES), 2)),
+                                [w, h])
+            x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            img[int(y):int(y + bh), int(x):int(x + bw)] = rng.randint(
+                120, 256, 3)
+            anns.append(dict(id=len(anns) + 1, image_id=i + 1,
+                             category_id=int(rng.choice(COCO_IDS)),
+                             bbox=[round(float(v), 2) for v in (x, y, bw, bh)],
+                             area=float(bw * bh),
+                             iscrowd=int(rng.rand() < 0.05)))
+        fn = f"{path.stem}_{i}.jpg"
+        Image.fromarray(img).save(img_dir / fn, quality=90)
+        images.append(dict(id=i + 1, file_name=fn, width=w, height=h))
+    path.write_text(json.dumps(dict(
+        images=images, annotations=anns,
+        categories=[dict(id=c, name=f"class{c}") for c in COCO_IDS])))
+    return len(anns)
+
+
+class FirstCalls(list):
+    """A list that keeps only the first `n` items appended (`recorded`
+    then holds a run's first launches, not every step's tensors)."""
+
+    def __init__(self, n=1):
+        super().__init__()
+        self.n = n
+
+    def append(self, item):
+        if len(self) < self.n:
+            super().append(item)
+
+
+def matched_sizes(cfg):
+    """The train pipeline once over the dataset, host only: the
+    ScaleMatchResize transform's ms a sample, each matched image's
+    geometric-mean box size, and the share of its scales at a bound of
+    the config's scale_range."""
+    from pointtinybenchmark_tpu_torch.data import build_dataset
+
+    ds = build_dataset(dict(cfg.data["train"]))
+    smr = next(t for t in ds.pipeline.transforms
+               if type(t).__name__ == "ScaleMatchResize")
+    lo, hi = smr.scale_match.scale_range
+    call, seconds, at_bound = smr.__call__, [0.0], []
+
+    def timed(results):
+        t0 = time.perf_counter()
+        h = results["img"].shape[0]
+        out = call(results)
+        seconds[0] += time.perf_counter() - t0
+        scale = out["img"].shape[0] / h
+        at_bound.append(min(abs(scale - lo), abs(scale - hi)) <= 1.0 / h)
+        return out
+    ds.pipeline.transforms[ds.pipeline.transforms.index(smr)] = timed
+    sizes = []
+    for i in range(len(ds)):
+        b = ds[i]["gt_bboxes"]
+        wh = np.clip(b[:, 2:] - b[:, :2], 1e-3, None)
+        if len(b):
+            sizes.append(float(np.exp(np.log(np.sqrt(wh.prod(1))).mean())))
+    return seconds[0] * 1e3 / len(ds), np.asarray(sizes), np.mean(at_bound)
+
+
+def phase_scale_match(card):
+    """Phase 15: Scale Match pretraining (COCO resized so that its object
+    sizes follow TinyPerson's) through the port's train CLI at full width,
+    the two configs of SM_RUNS as written, from a folder holding their
+    `data/` files: SM_ITERS iterations of an IterBasedRunner at the
+    configs' samples_per_gpu, launches per step and per validation image,
+    the loss finite at every logged step, it/s from the loader, the
+    validation at the end (Faster R-CNN msm: the TinyPerson tiled protocol
+    and the tiny evaluation; RetinaNet sm: `run_test` at (333, 200) and the
+    COCO evaluation); K1 and K2 (forward and backward) held to their plain
+    versions at the Faster R-CNN step's first launches (the RetinaNet
+    step launches none); ScaleMatchResize's host ms a
+    sample, the matched images' geometric-mean box sizes beside the
+    target's, and the share of scales at a bound. Returns the launches by
+    path and the kernel rows."""
+    import os
+    import tempfile
+
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda, roi_align_cuda
+    from pointtinybenchmark_tpu_torch.tools import train as train_cli
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build, prefix="scale_match_")
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(15)
+    coco = root / "data/coco"
+    n_train = write_coco_set(coco / "images", coco / "annotations/"
+                             "instances_train2017.json", SM_TRAIN_IMAGES, rng)
+    n_val = write_coco_set(coco / "images", coco / "annotations/"
+                           "instances_val2017.json", SM_VAL_IMAGES, rng)
+    tiny = root / "data/tiny_set"
+    tiny.mkdir(parents=True)
+    (tiny / "mini_annotations").mkdir()
+    target = tiny / "mini_annotations/tiny_set_train_all_erase.json"
+    write_tinyperson_set(tiny, "erase", SM_TARGET_FRAMES, rng).rename(target)
+    write_tinyperson_set(tiny, "test", SM_TINY_VAL_FRAMES, rng).rename(
+        tiny / "mini_annotations/tiny_set_test_all.json")
+    want_sizes = np.asarray([np.sqrt(a["bbox"][2] * a["bbox"][3]) for a in
+                             json.loads(target.read_text())["annotations"]
+                             if not a.get("ignore")])
+    print(f"phase 15: synthetic sets written in {time.perf_counter() - t0:.2f}"
+          f" s: COCO-format {SM_TRAIN_IMAGES} train images ({n_train} "
+          f"objects) and {SM_VAL_IMAGES} val ({n_val}), 640x480 and 480x640 "
+          f"JPEGs with {SM_OBJECTS[0]}-{SM_OBJECTS[1] - 1} objects of "
+          f"{SM_SIDES[0]:.0f}-{SM_SIDES[1]:.0f} px of 80 classes; the target "
+          f"json of {len(want_sizes)} TinyPerson persons (not ignored) on "
+          f"{SM_TARGET_FRAMES} frames; {SM_TINY_VAL_FRAMES} TinyPerson "
+          f"frames for the tiled validation [{card}]")
+    q = (10, 50, 90)
+    by_path, k1_rows, f_rows, b_rows = {}, [], [], []
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        for name, config, step, val, n_val_images in SM_RUNS:
+            cfg = Config.fromfile(str(config))
+            spg = int(cfg.data["samples_per_gpu"])
+            work = root / f"work_{name}"
+            bits, walks, fwd, bwd = (FirstCalls() for _ in range(4))
+            torch.backends.cudnn.deterministic = True
+            reset_launches()
+            t0 = time.perf_counter()
+            with recorded(nms_cuda, "iou_bitmask", bits), \
+                    recorded(nms_cuda, "greedy_reduce", walks), \
+                    recorded(roi_align_cuda, "roi_align_forward", fwd), \
+                    recorded(roi_align_cuda, "roi_align_backward", bwd):
+                metrics = train_cli.main([
+                    str(config), "--work-dir", str(work), "--seed", "0",
+                    "--device", DEVICE, "--cfg-options",
+                    "runner.type=IterBasedRunner",
+                    f"runner.max_iters={SM_ITERS}",
+                    f"checkpoint_config.interval={SM_ITERS}",
+                    f"evaluation.interval={SM_ITERS}",
+                    "log_config.interval=1"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            torch.backends.cudnn.deterministic = False
+            launches = read_launches()
+            want = {k: SM_ITERS * step[k] + n_val_images * val[k]
+                    for k in step}
+            head = (cfg.model.get("bbox_head")
+                    or cfg.model["roi_head"]["bbox_head"])
+            print(f"phase 15 {name} train CLI ({config.name} as written, "
+                  f"samples_per_gpu {spg}, pad shape "
+                  f"{tuple(cfg.loader['pad_shape'])}, "
+                  f"{head['num_classes']} classes in the head): {wall:.1f} s "
+                  f"(host clock) [{card}]; "
+                  f"launches {launches} ({SM_ITERS} steps x {step} + "
+                  f"{n_val_images} validation images x {val})")
+            if launches != want:
+                raise AssertionError(f"expected {want}")
+            log = [json.loads(line) for line in open(work / "log.json")]
+            losses = [e["loss"] for e in log]
+            if ([e["step"] for e in log] != list(range(1, SM_ITERS + 1))
+                    or not np.isfinite(losses).all()):
+                raise AssertionError(f"logged steps "
+                                     f"{[e['step'] for e in log]}, losses "
+                                     f"{losses}")
+            half = SM_ITERS // 2
+            late_ms = (log[-1]["iter_time"] * SM_ITERS - log[half - 1][
+                "iter_time"] * half) / (SM_ITERS - half) * 1e3
+            print(f"phase 15 {name}: loss finite at every step, first "
+                  f"{losses[0]:.4f}, last {losses[-1]:.4f}; loader + step "
+                  f"{1 / log[-1]['iter_time']:.3f} it/s over the {SM_ITERS} "
+                  f"iterations ({spg * 1 / log[-1]['iter_time']:.2f} img/s), "
+                  f"{1e3 / late_ms:.3f} it/s over the last "
+                  f"{SM_ITERS - half} ({late_ms:.2f} ms; host clock, a host "
+                  f"sync a step for the log, cudnn deterministic); "
+                  f"validation metrics {metrics} (random weights after "
+                  f"{SM_ITERS} steps, not a quality number) [{card}]")
+            if metrics is None:
+                raise AssertionError("no validation ran")
+            sm_ms, sizes, bound_share = matched_sizes(cfg)
+            print(f"phase 15 {name} ScaleMatchResize "
+                  f"({cfg.data['train']['pipeline'][2]['scale_match_type']}): "
+                  f"{sm_ms:.2f} ms a sample on the host (PIL bilinear resize "
+                  f"included), scales at a bound of scale_range "
+                  f"{bound_share:.3f}; matched images' geometric-mean box "
+                  f"size p{q} {np.percentile(sizes, q).round(2).tolist()} px, "
+                  f"the target's boxes p{q} "
+                  f"{np.percentile(want_sizes, q).round(2).tolist()} px "
+                  f"[{card}]")
+            (sboxes, thr, n_valid), _, _ = bits[0]
+            (_, ok, order, _, _), _, _ = walks[0]
+            if step["iou_bitmask"]:
+                k1_rows.append(k1_row(card, f"{name} train RPN", sboxes, ok,
+                                      order, n_valid, thr, phase="15"))
+            else:
+                # the step launches no kernel; the validation's NMS gets
+                # no candidate from random weights under the focal prior
+                print(f"phase 15 {name}: no launch in a step; the first "
+                      f"validation image's K1 launch B={sboxes.shape[0]} "
+                      f"N={sboxes.shape[1]}, {n_valid.tolist()} valid "
+                      f"candidates (the classifier's 0.01 prior keeps every "
+                      f"score under score_thr)")
+            if step["roi_align"]:
+                f, b, _ = step_rois(card, fwd, bwd, phase="15",
+                                    label=f"{name} train step",
+                                    kinds=((7, "bbox"),))
+                f_rows += f
+                b_rows += b
+            del bits, walks, fwd, bwd
+            by_path[f"{name}_train_cli"] = launches
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+        torch.cuda.empty_cache()
+    return by_path, k1_rows, f_rows, b_rows
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -5073,6 +5364,8 @@ def main():
     lap("phase 13 (a), (b)")
     dataset_launches = phase_dataset(card)
     lap("phase 14")
+    sm_by_path, sm_k1, sm_fwd, sm_bwd = phase_scale_match(card)
+    lap("phase 15")
     # the profiles last: once torch.profiler has traced the card, later
     # launches of the process can cost more host time (phase 6 times the
     # train step before and after them)
@@ -5101,13 +5394,14 @@ def main():
         records[k]["by_shape"] += [row[k] for row in p2p_k1]
         records[k]["by_shape"] += [row[k] for name, _, _ in DENSE
                                    for row in dense[name][2]]
+        records[k]["by_shape"] += [row[k] for row in sm_k1]
     records["roi_align"] = dict(
         slice_record, by_shape=roi_shapes + [slice_record] + mask_records
         + [train_fwd] + mask_train_fwd + p2b_rows[0] + [grid_record]
-        + grid_train_fwd)
+        + grid_train_fwd + sm_fwd)
     records["roi_align_backward"] = dict(
         train_bwd, by_shape=bwd_shapes + [train_bwd] + mask_train_bwd
-        + p2b_rows[1] + grid_train_bwd)
+        + p2b_rows[1] + grid_train_bwd + sm_bwd)
     # the P2BNet step's negatives, its largest launch
     records["roi_align_rois_backward"] = dict(
         p2b_rows[2][1], by_shape=rois_rows + p2b_rows[2])
@@ -5123,7 +5417,7 @@ def main():
                **{k: v[0] for k, v in dense.items()},
                "grid_rcnn": grid_launches,
                "grid_rcnn_train": grid_train_launches,
-               **dataset_launches}
+               **dataset_launches, **sm_by_path}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],

@@ -1,10 +1,12 @@
 """On-device preprocessing, the protocol tile grid, batching (loader:
 collation, samplers, the training DataLoader), the point workflow's
 pseudo boxes (noise) and the dataset path: the COCO API, the host
-pipeline transforms, the corner dataset and test-time tilers, and
-CocoFmtDataset, built from a config by `build_dataset`."""
+pipeline transforms, Scale Match's resizing, the corner dataset and
+test-time tilers, and CocoFmtDataset, built from a config by
+`build_dataset`."""
 from ..utils.registry import DATASETS
-from . import tiling  # noqa: F401  (registers the test-time tilers)
+# registers Scale Match's transforms and the test-time tilers
+from . import scale_match, tiling  # noqa: F401
 from .cocofmt import CocoFmtDataset
 
 __all__ = ["build_dataset", "CocoFmtDataset"]

@@ -33,6 +33,7 @@ from .dense_heads.p2p_head import P2PHead
 from .dense_heads.reppoints_head import RepPointsHead
 from .dense_heads.retina_head import RetinaHead
 from .dense_heads.rpn_head import RPNHead
+from .dense_heads.vfnet_head import VFNetHead
 from .detectors.single_stage import (BasicLocator, P2BNet, SSDDet,
                                      SingleStageDetector)
 from .detectors.two_stage import GridRCNN, MaskRCNN, TwoStageDetector
@@ -67,12 +68,13 @@ MODULES = {
     "RepPointsHead": RepPointsHead,
     "FoveaHead": FoveaHead,
     "FreeAnchorRetinaHead": FreeAnchorRetinaHead,
+    "VFNetHead": VFNetHead,
 }
 SINGLE_STAGE = {"SingleStageDetector": SingleStageDetector,
                 "RetinaNet": SingleStageDetector, "FCOS": SingleStageDetector,
                 "ATSS": SingleStageDetector,
                 "RepPointsDetector": SingleStageDetector,
-                "FoveaBox": SingleStageDetector,
+                "FoveaBox": SingleStageDetector, "VFNet": SingleStageDetector,
                 "BasicLocator": BasicLocator, "P2BNet": P2BNet,
                 "SSDDet": SSDDet}
 TWO_STAGE = {"TwoStageDetector": TwoStageDetector,

@@ -37,6 +37,7 @@ from torch import nn
 from ...core.bbox import distance2bbox
 from ...core.post_processing import DetResult
 from ..losses import build_loss
+from ..losses.cross_entropy_loss import binary_cross_entropy_with_logits
 from ..utils import (ConvModule, bias_init_with_prob, lecun_normal_,
                      normal_init)
 from .anchor_head import (clip_to_image, nms_of_config, top_indices,
@@ -87,9 +88,8 @@ def check_centerness_loss(cfg: Optional[dict]) -> None:
 def centerness_bce(logits: torch.Tensor, targets: torch.Tensor,
                    pos: torch.Tensor, num_pos: torch.Tensor) -> torch.Tensor:
     """The JAX heads' sigmoid BCE on the positives, over num_pos."""
-    bce = (logits.clamp(min=0) - logits * targets
-           + torch.log1p(torch.exp(-logits.abs())))
-    return (bce * pos).sum() / num_pos
+    return (binary_cross_entropy_with_logits(logits, targets)
+            * pos).sum() / num_pos
 
 
 def center_points(featmap_sizes: Sequence[Tuple[int, int]],

@@ -4,8 +4,11 @@ Counterpart of pointtinybenchmark_tpu/models/losses/cross_entropy_loss.py::
 CrossEntropyLoss. Softmax: -log_softmax at the label (clipped into range).
 Sigmoid: binary cross-entropy with logits, max(x, 0) - x t + log1p(exp(-|x|)),
 against the one-hot of the label, where label C (background) is the
-all-zero row, summed over the classes. Class weights, the mask form and
-soft targets are not ported.
+all-zero row, summed over the classes. At the kink x = 0 the gradient is
+JAX's: max is `torch.maximum`, which splits a tie in half as jnp.maximum
+does, and |x| is `jax_abs`, whose derivative at 0 is 1 as jnp.abs's
+(torch's clamp would give 1 and its abs 0 there). Class weights, the mask
+form and soft targets are not ported.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch.nn.functional as F
 from .utils import weight_reduce_loss
 
 __all__ = ["CrossEntropyLoss", "softmax_cross_entropy",
-           "binary_cross_entropy_with_logits"]
+           "binary_cross_entropy_with_logits", "jax_abs"]
 
 
 def softmax_cross_entropy(pred: torch.Tensor,
@@ -27,10 +30,15 @@ def softmax_cross_entropy(pred: torch.Tensor,
     return -logp.gather(-1, safe[..., None])[..., 0]
 
 
+def jax_abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| whose derivative at 0 is 1, as jnp.abs's."""
+    return torch.where(x >= 0, x, -x)
+
+
 def binary_cross_entropy_with_logits(pred: torch.Tensor,
                                      target: torch.Tensor) -> torch.Tensor:
-    return (pred.clamp(min=0) - pred * target
-            + torch.log1p(torch.exp(-pred.abs())))
+    return (torch.maximum(pred, pred.new_zeros(())) - pred * target
+            + torch.log1p(torch.exp(-jax_abs(pred))))
 
 
 class CrossEntropyLoss:

@@ -19,8 +19,11 @@ FreeAnchor's `retina_cls`, `retina_reg`; ATSS's `atss_cls`, `atss_reg`,
 `atss_centerness`; RepPoints' `pts_init_conv`, `pts_init_out`, `cls_dcn`,
 `cls_out`, `refine_dcn`, `pts_refine_out`, whose 1x1 `cls_dcn` /
 `refine_dcn` kernels (1, 1, 9 C, out) read the gathered taps tap-major,
-channel-minor, the port's order too), FCOS's `scale{i}/scale` ->
-`bbox_head.scales.{i}.scale` and RepPoints' `moment_transfer` ->
+channel-minor, the port's order too; VFNet's `vfnet_reg`,
+`reg_refine_dcn`, `vfnet_reg_refine`, `cls_dcn`, `vfnet_cls`, its 1x1
+kernels in the same tap order), FCOS's `scale{i}/scale` ->
+`bbox_head.scales.{i}.scale`, VFNet's `scale_refine{i}/scale` ->
+`bbox_head.scales_refine.{i}.scale` and RepPoints' `moment_transfer` ->
 `bbox_head.moment_transfer`;
 `rpn_head_m/rpn_conv` -> `rpn_head.rpn_conv`; `roi_head_m/bbox_head_m/
 shared_fc{i}` -> `roi_head.bbox_head.shared_fcs.{i}`; `roi_head_m/
@@ -106,8 +109,9 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int,
     if top == "bbox_head_m" and not scope and leaf == "moment_transfer":
         return "bbox_head.moment_transfer"
     if top == "bbox_head_m" and len(scope) == 1 and leaf == "scale":
-        m = re.fullmatch(r"scale(\d+)", scope[0])
-        return None if m is None else f"bbox_head.scales.{m[1]}.scale"
+        m = re.fullmatch(r"scale(_refine)?(\d+)", scope[0])
+        return None if m is None else \
+            f"bbox_head.scales{m[1] or ''}.{m[2]}.scale"
     name = {"kernel": "weight", "bias": "bias", "scale": "weight"}.get(leaf)
     if name is None:
         return None
@@ -163,7 +167,8 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int,
             "retina_cls", "retina_reg", "conv_cls", "conv_reg", "cls_out",
             "reg_out", "ins_out", "conv_centerness", "atss_cls", "atss_reg",
             "atss_centerness", "pts_init_conv", "pts_init_out", "cls_dcn",
-            "refine_dcn", "pts_refine_out"):
+            "refine_dcn", "pts_refine_out", "vfnet_reg", "reg_refine_dcn",
+            "vfnet_reg_refine", "vfnet_cls"):
         return f"bbox_head.{scope[0]}.{name}"
     return None
 
@@ -198,8 +203,8 @@ def _jax_module(parts: List[str], n_lateral: int,
         if len(rest) == 3 and rest[0] in ("cls_convs", "reg_convs"):
             return ("bbox_head_m", f"{rest[0][:3]}_conv{rest[1]}",
                     "Conv_0" if rest[2] == "conv" else "GroupNorm_0")
-        if len(rest) == 2 and rest[0] == "scales":
-            return ("bbox_head_m", f"scale{rest[1]}")
+        if len(rest) == 2 and rest[0] in ("scales", "scales_refine"):
+            return ("bbox_head_m", f"scale{rest[0][6:]}{rest[1]}")
         if len(rest) >= 3 and rest[0] == "stages":
             sub = (f"shared_fc{rest[3]}" if rest[2] == "shared_fcs"
                    else rest[2])

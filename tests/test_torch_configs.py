@@ -7,7 +7,7 @@ base 8, necks and heads at 16 or 32 channels). It cannot shrink the
 configs without a neck, with a list of necks (Libra R-CNN) or with a list
 of RoI bbox heads (the cascades): those (FULL) go to `build_detector` at
 full width, which refuses them before it builds a layer (an unported
-detector type or backbone, a list of necks). 56 of the 118 configs build.
+detector type or backbone, a list of necks). 58 of the 118 configs build.
 """
 import copy
 import glob
@@ -22,7 +22,7 @@ from test_torch_init import toy
 
 BUILDS = "builds"
 FULL = "full width"
-N_BUILD = 56
+N_BUILD = 58
 TABLE = {
     "albu_example/mask_rcnn_r50_fpn_albu_1x_coco.py": BUILDS,
     "cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py": BUILDS,
@@ -131,8 +131,7 @@ TABLE = {
     "coco/ssd300_coco.py": (FULL, KeyError, "detector SSD is not ported"),
     "coco/tridentnet_r50_caffe_1x_coco.py":
         (FULL, KeyError, "detector TridentFasterRCNN is not ported"),
-    "coco/vfnet_r50_fpn_1x_coco.py":
-        (KeyError, "detector VFNet is not ported"),
+    "coco/vfnet_r50_fpn_1x_coco.py": BUILDS,
     "coco/yolact_r50_1x8_coco.py": (KeyError, "detector YOLACT is not ported"),
     "coco/yolof_r50_c5_8x8_1x_coco.py":
         (KeyError, "detector YOLOF is not ported"),
@@ -193,8 +192,7 @@ TABLE = {
         BUILDS,
     "tinyperson/scale_match/retinanet_r50_fpns4_1x_coco_sm_tinyperson.py":
         BUILDS,
-    "tinyperson/vfnet_r50_fpns4_1x_tinyperson640.py":
-        (KeyError, "detector VFNet is not ported"),
+    "tinyperson/vfnet_r50_fpns4_1x_tinyperson640.py": BUILDS,
     "tinypersonv2/cpr/coarse_point_refine_r50_fpns4_0.5x_tinypersonv2_640.py":
         BUILDS,
     "tinypersonv2/cpr/coarse_point_refine_r50_fpns4_1x_tinypersonv2_640.py":

@@ -1,6 +1,6 @@
 """The port's seeded weights against the JAX package's initialisers.
 
-For each of the thirteen configurations the port runs (PERF.md section 4),
+For each of the fourteen configurations the port runs (PERF.md section 4),
 cut to toy width (ResNet-18 at base_channels=8, FPN and heads at 16
 channels, GroupNorm of 4 groups, FCs of 32; 32 channels where a head's
 `norm_cfg=None` builds GroupNorm of 32 groups), `build_detector(seed=0)`
@@ -46,11 +46,12 @@ CONFIGS = (
     "tinyperson/grid_rcnn_r50_fpn_1x_tinyperson640.py",
     "tinyperson/fovea_r50_fpns4_1x_tinyperson640.py",
     "tinyperson/free_anchor_r50_fpns4_1x_tinyperson640.py",
+    "tinyperson/vfnet_r50_fpns4_1x_tinyperson640.py",
 )
 WIDTH, GROUPS, FC = 16, 4, 32
 # heads whose `norm_cfg=None` builds GroupNorm of 32 groups (in both
 # packages): at toy width they get 32 channels
-GN32_HEADS = ("FCOSHead", "ATSSHead", "RepPointsHead")
+GN32_HEADS = ("FCOSHead", "ATSSHead", "RepPointsHead", "VFNetHead")
 TRUNC = 0.87962566103423978       # std of a standard normal cut at +-2
 
 

@@ -206,7 +206,13 @@ DETECTORS = {
                                       "mask_rcnn", "fcos", "atss",
                                       "reppoints"])
 def test_tiled_slice_matches_jax(tmp_path, detector):
-    model_text, redraw = DETECTORS[detector]
+    tiled_slice_matches_jax(tmp_path, detector, *DETECTORS[detector])
+
+
+def tiled_slice_matches_jax(tmp_path, detector, model_text, redraw):
+    """Both packages' tiled protocol on one frame, `model_text` in place of
+    CFG_TEXT's model part (None keeps the RetinaNet), the `redraw`
+    classifiers spread alike on both sides."""
     text = CFG_TEXT
     if model_text is not None:
         text = text[:text.index("model = dict(")] + model_text

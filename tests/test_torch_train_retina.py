@@ -35,12 +35,15 @@ from pointtinybenchmark_tpu_torch.engine.optimizer import build_optimizer
 from pointtinybenchmark_tpu_torch.engine.train import (init_train_state,
                                                        make_train_step)
 from pointtinybenchmark_tpu_torch.models import build_detector
-from pointtinybenchmark_tpu_torch.models.losses import FocalLoss
+from pointtinybenchmark_tpu_torch.models.losses import (CrossEntropyLoss,
+                                                       FocalLoss)
 from pointtinybenchmark_tpu_torch.utils.jax_weights import (
     jax_to_state_dict, load_jax_variables)
 
 jfocal = importlib.import_module(
     "pointtinybenchmark_tpu.models.losses.focal_loss")
+jce = importlib.import_module(
+    "pointtinybenchmark_tpu.models.losses.cross_entropy_loss")
 jretina = importlib.import_module(
     "pointtinybenchmark_tpu.models.dense_heads.retina_head")
 jopt = importlib.import_module("pointtinybenchmark_tpu.engine.optimizer")
@@ -97,6 +100,31 @@ def test_focal_loss_matches_jax(reduction, weighted, avg_factor):
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-6,
                                atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("loss", ["focal", "sigmoid_cross_entropy"])
+def test_bce_gradient_at_zero_logits_matches_jax(loss):
+    """Logits of exactly 0 sit on the BCE's kinks, max(x, 0) and |x|: JAX's
+    jnp.maximum splits the tie in half and jnp.abs has derivative 1 there,
+    and the port's losses take the same gradient (torch's clamp and abs
+    would move it by 1 a logit)."""
+    rng = np.random.RandomState(1)
+    pred = (rng.randn(40, 3) * 2).astype(np.float32)
+    pred[:12] = 0.0
+    label = rng.randint(0, 4, 40)
+    if loss == "focal":
+        args = dict(gamma=2.0, alpha=0.25)
+        jloss, tloss = jfocal.FocalLoss(**args), FocalLoss(**args)
+    else:
+        jloss = jce.CrossEntropyLoss(use_sigmoid=True)
+        tloss = CrossEntropyLoss(use_sigmoid=True)
+    want = np.asarray(jax.grad(lambda p: jloss(p, jnp.asarray(label)))(
+        jnp.asarray(pred)))
+    p = torch.from_numpy(pred).requires_grad_()
+    tloss(p, torch.from_numpy(label)).backward()
+    np.testing.assert_allclose(p.grad.numpy(), want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())
+    assert (want[:12] != 0).any()
 
 
 def test_retina_head_loss_matches_jax():
