@@ -4,15 +4,18 @@
     python3 chip_smoke.py
 
 Builds the kernels of ops/csrc with nvcc (one nvcc per source, started
-together), then runs thirty-two main paths, the tiled protocol of Adap
+together), then runs forty main paths, the tiled protocol of Adap
 RetinaNet-c, Adap Faster R-CNN, COCO Mask R-CNN, Adap P2P, Adap FCOS, Adap
 ATSS, Adap RepPoints, Adap FoveaBox, Adap FreeAnchor, Adap VFNet and Adap
 Grid R-CNN, each on two 1920x1080 uint8 frames, the training of Adap
 Faster R-CNN, Adap RetinaNet-c, COCO Mask R-CNN, P2P, CPR, P2BNet, SSD-Det,
 FCOS, ATSS, RepPoints, FoveaBox, FreeAnchor, VFNet and Grid R-CNN,
 the refinement of CPR, P2BNet and SSD-Det, Adap Faster R-CNN's train
-and test command-line tools on a TinyPerson-format dataset, and the Scale
-Match pretraining of Faster R-CNN and RetinaNet through the train CLI:
+and test command-line tools on a TinyPerson-format dataset, the Scale
+Match pretraining of Faster R-CNN and RetinaNet through the train CLI,
+and the workflow tools (CPR -> result2ann -> P2P with a resumed run, VOC
+Faster R-CNN, the standalone RPN, whole-image and TTA inference, the
+offline tile merge):
 
 1. kernel vs plain, NMS: the IoU-bitmask and greedy-reduce kernels against
    their plain PyTorch version on the card, on synthetic TinyPerson-like
@@ -265,6 +268,34 @@ Match pretraining of Faster R-CNN and RetinaNet through the train CLI:
    ScaleMatchResize's host ms a sample, the matched images'
    geometric-mean box sizes beside the target's, and the share of scales
    at a bound of scale_range.
+16. The workflow tools (`phase_workflow`, in a temporary folder under
+   build/): (a) CPR -> result2ann -> P2P through the port's CLIs on a
+   synthetic TinyPersonV2-format point set (WF_TRAIN_FRAMES frames cut by
+   `generate_corner_dataset` into 640x640 corners, 16x16 pseudo boxes
+   round points drawn in each box's central quarter): the CPR config
+   trained WF_CPR_ITERS iterations, its refinement by the test CLI
+   (`--split val --out`), `tools.result2ann --wh 16`, the P2P config
+   trained 2k iterations (k an epoch) on the refined json straight and
+   stopped at k and continued with `--resume-from iter_k.pth` (last
+   losses and weights of the two printed), the P2P tested by the test CLI
+   on the test frames' corners with its cls_out.bias set to 0 as in
+   phase 9 (K1 1 + 1 a corner, a point in every row of `--out`); K1 and
+   K2 held to their plain versions at the first launch of each new
+   launch shape of (a)-(e); (b) VOC Faster R-CNN
+   (configs/voc/) through the train CLI on a synthetic VOC set (XML and
+   JPEG, some `difficult`), its train set the two splits as a list of
+   dataset configs (ConcatDataset), launches a step and a test image, step
+   ms, the VOC07 mAP of random weights, K1 and K2 (forward and backward)
+   against their plain versions at the step's first launches; (c) the
+   standalone RPN (configs/coco/rpn_r50_fpn_1x_coco.py) through `run_test`
+   on phase 15's COCO-format images, proposals equal to the plain NMS's,
+   `proposal_fast`, K1 against its plain version at its first launch; (d)
+   COCO Faster R-CNN on two 800x1333 images by `inference_detector` and
+   by `run_tta_test` with a flip MultiScaleFlipAug, each equal to the
+   all-plain run, the card against the CPU on one image; (e) phase 14's
+   test set cut into its corners, `run_test` on every corner and the
+   evaluation with `merge_after_infer_kwargs` (the host merge): the
+   detections before and after the merge.
 
 Float32 throughout with TF32 off (cuDNN would otherwise run the convolutions
 in TF32). Every failure raises; there is no CPU mode. The last line is
@@ -481,6 +512,40 @@ SM_RUNS = (
 # COCO's 80 category ids
 COCO_IDS = tuple(i for i in range(1, 91) if i not in
                  (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+# phase 16: the workflow tools. (a) CPR -> result2ann -> P2P through the
+# CLIs on TinyPersonV2-format corner tiles of WF_TRAIN_FRAMES frames (640x640
+# with 100 px overlap, 16x16 pseudo boxes round points drawn in the central
+# quarter of each box), CPR trained WF_CPR_ITERS iterations, P2P 2k
+# iterations (k an epoch) straight and stopped at k and resumed
+WF_P2P_CONFIG = REPO / ("configs/tinypersonv2/p2p/"
+                        "p2p_r50_fpns4_1x_fl_sl1_tinypersonv2_640.py")
+WF_TRAIN_FRAMES = 2
+WF_TEST_FRAMES = 2
+WF_CORNER = dict(sub_img_w=640, sub_img_h=640, overlap_w=100, overlap_h=100)
+WF_CPR_ITERS = 4
+# P2P's get_bboxes: one pseudo-box NMS an image (run_test, batches of 1)
+WF_P2P_TEST_LAUNCHES = dict(NO_LAUNCHES, iou_bitmask=1, greedy_reduce=1)
+# (b) VOC Faster R-CNN: VOC07 and VOC12 trainval (the list form of
+# voc0712.py, as ConcatDataset) and VOC07 test, JPEGs of 500x375 and
+# 375x500 with 2-6 objects of the 20 classes, ~20% difficult
+VOC_CONFIG = REPO / "configs/voc/faster_rcnn_r50_fpn_1x_voc0712.py"
+VOC_TRAIN_IMAGES = 6             # a split
+VOC_TEST_IMAGES = 4
+VOC_ITERS = 8
+# run_test of a two-stage detector: the RPN's and the RoI head's NMS and
+# one RoIAlign an image
+TWO_STAGE_IMAGE_LAUNCHES = dict(NO_LAUNCHES, iou_bitmask=2, greedy_reduce=2,
+                                roi_align=1)
+# (c) the standalone RPN on phase 15's COCO-format images
+RPN_CONFIG = REPO / "configs/coco/rpn_r50_fpn_1x_coco.py"
+RPN_IMAGES = 4
+# (d) COCO Faster R-CNN, whole images and flip TTA
+COCO_FRCNN_CONFIG = REPO / "configs/coco/faster_rcnn_r50_fpn_1x_coco.py"
+TTA_IMAGE_LAUNCHES = dict(NO_LAUNCHES, iou_bitmask=3, greedy_reduce=3,
+                          roi_align=1)
+# (d)'s classifier fix: e^4 / (8 e^4 + 73) ~ 0.107 for each lifted class
+LIFT_CLASSES = 8
+LIFT_BIAS = 4.0
 P2B_CONFIG = REPO / "configs/p2b/p2bnet_r50_fpn_1x_coco.py"
 SSD_CONFIG = REPO / "configs/ssd_det/ssd_det_r50_fpn_1x_coco.py"
 P2B_TRAIN_LAUNCHES = {"iou_bitmask": 0, "greedy_reduce": 0, "roi_align": 3,
@@ -5295,6 +5360,625 @@ def phase_scale_match(card):
     return by_path, k1_rows, f_rows, b_rows
 
 
+# ------------------------------------ phase 16: the workflow tools
+def log_steps(work, iters):
+    """log.json's entries of an IterBasedRunner run: their steps must be
+    1..iters (or the resumed tail) and the losses finite."""
+    log = [json.loads(line) for line in open(work / "log.json")]
+    losses = [e["loss"] for e in log]
+    if not np.isfinite(losses).all() or [e["step"] for e in log] != iters:
+        raise AssertionError(f"{work.name}: logged steps "
+                             f"{[e['step'] for e in log]}, losses {losses}")
+    return log
+
+
+def late_ms(log):
+    """The mean step ms over the second half of a run's log (log.json's
+    iter_time is the mean since the epoch began)."""
+    n, half = len(log), len(log) // 2
+    return (log[-1]["iter_time"] * n - log[half - 1]["iter_time"] * half) \
+        / (n - half) * 1e3
+
+
+def expect(launches, want, what):
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+
+
+def first_k1_rows(card, labels, bits, walks):
+    """K1 alone against its plain version at a run's first launches, one
+    row a label (launch order); a launch with no valid candidate (random
+    weights whose scores all fall under score_thr) is printed, not held."""
+    rows = []
+    for label, ((sboxes, thr, n_valid), _, _), ((_, ok, order, _, _), _, _) \
+            in zip(labels, bits, walks):
+        if int(n_valid.max()) == 0:
+            print(f"phase 16 {label}: K1 launch B={sboxes.shape[0]} "
+                  f"N={sboxes.shape[1]} with no valid candidate (every "
+                  f"score under score_thr)")
+            continue
+        rows.append(k1_row(card, label, sboxes, ok, order, n_valid, thr,
+                           phase="16"))
+    return rows
+
+
+def k2_forward_row(card, label, call):
+    """K2's forward (torch.equal) against its plain version on one recorded
+    inference launch, with the rois on each path, times and bound."""
+    (feats, rois, lvls, _, out, sr, *_), _, _ = call
+    per_level = torch.bincount(lvls, minlength=len(ROI_LEVELS)).tolist()
+    _, err = compare_roi_align(feats, rois, lvls, out, sr)
+    paths = roi_paths(feats, rois, lvls, out, sr)
+    ms, plain_ms = time_roi_align(feats, rois, lvls, out, sr)
+    bms, by = roi_align_bound(feats, rois, lvls, out, sr)
+    r = rois.shape[0]
+    print(f"phase 16 {label} (R={r}, S={out}, sr={sr}, per level "
+          f"{per_level}): forward kernel == plain (torch.equal), paths "
+          f"{shares(paths)}; kernel {ms:.4f} ms (plain {plain_ms:.4f}, "
+          f"bound {bms:.4f} {by}) [{card}]")
+    return dict(shape=label, R=r, S=out, sr=sr, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                per_level=per_level, paths=paths)
+
+
+def phase_point_workflow(card, root):
+    """Phase 16 (a): the CPR -> result2ann -> P2P workflow of README.md
+    through the port's CLIs at full width."""
+    from pointtinybenchmark_tpu_torch.data import build_dataset
+    from pointtinybenchmark_tpu_torch.data.noise import \
+        generate_pseudo_bbox_for_point
+    from pointtinybenchmark_tpu_torch.data.tiling import \
+        generate_corner_dataset
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda
+    from pointtinybenchmark_tpu_torch.tools import result2ann
+    from pointtinybenchmark_tpu_torch.tools import test as test_cli
+    from pointtinybenchmark_tpu_torch.tools import train as train_cli
+
+    rng = np.random.RandomState(16)
+    v2 = root / "data/tiny_set_v2"
+    v2.mkdir(parents=True)
+    train_json = write_tinyperson_set(v2, "train", WF_TRAIN_FRAMES, rng)
+    test_json = write_tinyperson_set(v2, "test", WF_TEST_FRAMES, rng)
+    coarse = generate_pseudo_bbox_for_point(
+        generate_corner_dataset(str(train_json), WF_CORNER), (16, 16),
+        noise_rg=0.25, seed=16)
+    coarse_json = v2 / "train_corner_coarse.json"
+    coarse_json.write_text(json.dumps(coarse))
+    # the loader's pad shape is 640x640: the test frames too go in corners
+    test_tiles = generate_corner_dataset(str(test_json), WF_CORNER)
+    test_corner_json = v2 / "test_corner.json"
+    test_corner_json.write_text(json.dumps(test_tiles))
+    n_test = len(test_tiles["images"])
+    data = [f"data.test.ann_file={test_corner_json}",
+            f"data.test.img_prefix={v2 / 'test'}"]
+    for split in ("train", "val"):
+        data += [f"data.{split}.ann_file={coarse_json}",
+                 f"data.{split}.img_prefix={v2 / 'train'}"]
+    iters = ["runner.type=IterBasedRunner", "log_config.interval=1"]
+    print(f"phase 16 (a): {WF_TRAIN_FRAMES} train frames of "
+          f"{FRAME_HW[1]}x{FRAME_HW[0]} cut into {len(coarse['images'])} "
+          f"corners of 640x640 with {len(coarse['annotations'])} coarse "
+          f"points (16x16 pseudo boxes), {WF_TEST_FRAMES} test frames in "
+          f"{n_test} corners")
+
+    t0 = time.perf_counter()
+    cpr_work = root / "cpr"
+    reset_launches()
+    train_cli.main([str(CPR_CONFIG), "--work-dir", str(cpr_work), "--seed",
+                    "0", "--device", DEVICE, "--no-validate",
+                    "--cfg-options", *data, *iters,
+                    f"runner.max_iters={WF_CPR_ITERS}",
+                    f"checkpoint_config.interval={WF_CPR_ITERS}"])
+    cpr_train = read_launches()
+    expect(cpr_train, NO_LAUNCHES, "CPR train CLI")
+    log = log_steps(cpr_work, list(range(1, WF_CPR_ITERS + 1)))
+    print(f"phase 16 (a) CPR train CLI: {WF_CPR_ITERS} iterations in "
+          f"{time.perf_counter() - t0:.1f} s (host clock), losses "
+          f"{[round(e['loss'], 4) for e in log]}, launches {cpr_train}")
+
+    dets_json = root / "cpr_refined_dets.json"
+    reset_launches()
+    refine_metrics = test_cli.main([
+        str(CPR_CONFIG), str(cpr_work / f"iter_{WF_CPR_ITERS}.pth"),
+        "--split", "val", "--out", str(dets_json), "--device", DEVICE,
+        "--cfg-options", *data])
+    cpr_refine = read_launches()
+    expect(cpr_refine, NO_LAUNCHES, "CPR refine (test CLI)")
+    dets = json.loads(dets_json.read_text())
+    coarse_pts = {a["id"]: a["point"] for a in coarse["annotations"]}
+    moved = sum(1 for d in dets if np.hypot(
+        d["point"][0] - coarse_pts[d["ann_id"]][0],
+        d["point"][1] - coarse_pts[d["ann_id"]][1]) > 1e-3)
+    refined_json = v2 / "train_corner_refined.json"
+    n_updated = result2ann.main([
+        "--ori_ann", str(coarse_json), "--det_file", str(dets_json),
+        "--save_ann", str(refined_json), "--wh", "16"])
+    kept = sum(1 for a in coarse["annotations"] if not a.get("ignore"))
+    print(f"phase 16 (a) CPR refine (test CLI --split val --out): "
+          f"{len(dets)} rows with ann_id, metrics {refine_metrics}; "
+          f"result2ann --wh 16 updated {n_updated} of "
+          f"{len(coarse['annotations'])} annotations ({kept} not ignored)")
+    if not (0 < n_updated == len(dets) <= kept):
+        raise AssertionError("result2ann: every refined row must update one "
+                             "annotation")
+    refined = json.loads(refined_json.read_text())
+    if any(a["bbox"][2:] != [16, 16] for a in refined["annotations"]
+           if not a.get("ignore") and "point" in a):
+        raise AssertionError("refined boxes are not 16x16")
+
+    p2p_data = [f"data.train.ann_file={refined_json}",
+                f"data.train.img_prefix={v2 / 'train'}", *data[:2]]
+    cfg = test_cli.load_config(str(WF_P2P_CONFIG), p2p_data)
+    k = len(build_dataset(dict(cfg.data["train"]))) // int(
+        cfg.data["samples_per_gpu"])
+    runs = {}
+    for name, extra, steps in (
+            ("straight", [], list(range(1, 2 * k + 1))),
+            ("resumed", ["--resume-from",
+                         str(root / "p2p_straight" / f"iter_{k}.pth")],
+             list(range(k + 1, 2 * k + 1)))):
+        work = root / f"p2p_{name}"
+        t0 = time.perf_counter()
+        reset_launches()
+        train_cli.main([str(WF_P2P_CONFIG), "--work-dir", str(work),
+                        "--seed", "0", "--device", DEVICE, "--no-validate",
+                        *extra, "--cfg-options", *p2p_data, *iters,
+                        f"runner.max_iters={2 * k}",
+                        f"checkpoint_config.interval={k}"])
+        launches = read_launches()
+        expect(launches, NO_LAUNCHES, f"P2P train CLI {name}")
+        log = log_steps(work, steps)
+        runs[name] = (log, torch.load(work / f"iter_{2 * k}.pth",
+                                      map_location="cpu",
+                                      weights_only=True)["state_dict"])
+        print(f"phase 16 (a) P2P train CLI {name}: steps {steps[0]}.."
+              f"{steps[-1]} in {time.perf_counter() - t0:.1f} s (host "
+              f"clock), {late_ms(log):.1f} ms a step over the second half, "
+              f"last loss {log[-1]['loss']:.6f}, launches {launches} [{card}]")
+    (log_a, sd_a), (log_b, sd_b) = runs["straight"], runs["resumed"]
+    floats = [n for n in sd_a if sd_a[n].is_floating_point()]
+    diff = max(float((sd_a[n] - sd_b[n]).abs().max())
+               / max(float(sd_a[n].abs().max()), 1e-30) for n in floats)
+    abs_diff = max(float((sd_a[n] - sd_b[n]).abs().max()) for n in floats)
+    loss_a, loss_b = log_a[-1]["loss"], log_b[-1]["loss"]
+    print(f"phase 16 (a) P2P straight vs stopped at iter {k} and resumed "
+          f"(--resume-from iter_{k}.pth): last losses {loss_a:.6f} vs "
+          f"{loss_b:.6f} (relative {abs(loss_a - loss_b) / abs(loss_a):.3e}"
+          f"), weights at most {abs_diff:.3e} apart, {diff:.3e} of a "
+          f"tensor's max (the card's convolution backward sums in no fixed "
+          f"order; Adam moves each weight by ~lr a step, {log_a[-1]['lr']:.3e}"
+          f" at the last)")
+
+    # as phase 9: the classifier's focal prior keeps every score under
+    # score_thr, so its bias is set to 0 in a copy of the checkpoint
+    ck = torch.load(root / "p2p_straight" / f"iter_{2 * k}.pth",
+                    map_location="cpu", weights_only=True)
+    ck["state_dict"]["bbox_head.cls_out.bias"].zero_()
+    lifted = root / "p2p_cls_bias_0.pth"
+    torch.save(ck, lifted)
+    results_json = root / "p2p_results.json"
+    bits, walks = FirstCalls(), FirstCalls()
+    reset_launches()
+    with recorded(nms_cuda, "iou_bitmask", bits), \
+            recorded(nms_cuda, "greedy_reduce", walks):
+        p2p_metrics = test_cli.main([
+            str(WF_P2P_CONFIG), str(lifted), "--out", str(results_json),
+            "--device", DEVICE, "--cfg-options", *p2p_data])
+    p2p_test = read_launches()
+    rows = json.loads(results_json.read_text())
+    if not rows or any(len(r.get("point", ())) != 2 for r in rows):
+        raise AssertionError("the P2P results json must hold a point a row")
+    expect(p2p_test, {n: n_test * v for n, v in
+                      WF_P2P_TEST_LAUNCHES.items()}, "P2P test CLI")
+    print(f"phase 16 (a) P2P test CLI on the {n_test} test corners "
+          f"(cls_out.bias 0): launches {p2p_test}, {len(rows)} rows with a "
+          f"point in --out, metrics {p2p_metrics} (random weights after "
+          f"{2 * k} steps, not a quality number) [{card}]")
+    k1 = first_k1_rows(card, ["P2P test corner"], bits, walks)
+    return {"cpr_train_cli": cpr_train, "cpr_refine_cli": cpr_refine,
+            "p2p_test_cli": p2p_test}, moved, k1
+
+
+def write_voc_split(base, name, n, rng):
+    """`n` JPEGs of 500x375 / 375x500 under base/JPEGImages, their XML
+    under base/Annotations (2-6 objects of the 20 classes, ~20%
+    `difficult`) and base/ImageSets/Main/<name>.txt. Returns the ids
+    file."""
+    from PIL import Image
+
+    from pointtinybenchmark_tpu_torch.data.voc import VOC_CLASSES
+
+    for d in ("JPEGImages", "Annotations", "ImageSets/Main"):
+        (base / d).mkdir(parents=True, exist_ok=True)
+    ids = []
+    for i in range(n):
+        img_id = f"{name}_{i:06d}"
+        h, w = ((375, 500), (500, 375))[i % 2]
+        img = rng.randint(0, 70, (h, w, 3)).astype(np.uint8)
+        objs = []
+        for b in coco_objects(rng, (h, w))[:rng.randint(2, 7)]:
+            x1, y1, x2, y2 = (int(v) + 1 for v in b)
+            img[y1:y2, x1:x2] = rng.randint(120, 256, 3)
+            objs.append(
+                f"<object><name>{VOC_CLASSES[rng.randint(20)]}</name>"
+                f"<difficult>{int(rng.rand() < 0.2)}</difficult><bndbox>"
+                f"<xmin>{x1}</xmin><ymin>{y1}</ymin><xmax>{x2}</xmax>"
+                f"<ymax>{y2}</ymax></bndbox></object>")
+        Image.fromarray(img).save(base / "JPEGImages" / f"{img_id}.jpg",
+                                  quality=90)
+        (base / "Annotations" / f"{img_id}.xml").write_text(
+            f"<annotation><size><width>{w}</width><height>{h}</height>"
+            f"<depth>3</depth></size>{''.join(objs)}</annotation>")
+        ids.append(img_id)
+    path = base / "ImageSets/Main" / f"{name}.txt"
+    path.write_text("\n".join(ids) + "\n")
+    return path
+
+
+def phase_voc(card, root):
+    """Phase 16 (b): VOC Faster R-CNN through the train CLI, its train set
+    the two VOC splits as a list of dataset configs (ConcatDataset), its
+    validation the mAP on VOC2007 test."""
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda, roi_align_cuda
+    from pointtinybenchmark_tpu_torch.tools import train as train_cli
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    rng = np.random.RandomState(161)
+    voc = root / "data/VOCdevkit"
+    pipeline = Config.fromfile(str(VOC_CONFIG)).to_dict()["data"]["train"][
+        "pipeline"]
+    splits = [dict(type="VOCDataset", ann_file=str(write_voc_split(
+        voc / f"VOC{year}", "trainval", VOC_TRAIN_IMAGES, rng)),
+        img_prefix=str(voc / f"VOC{year}") + "/", pipeline=pipeline)
+        for year in (2007, 2012)]
+    test = dict(ann_file=str(write_voc_split(voc / "VOC2007", "test",
+                                             VOC_TEST_IMAGES, rng)),
+                img_prefix=str(voc / "VOC2007") + "/")
+    cfg_path = root / "faster_rcnn_r50_fpn_1x_voc0712_synthetic.py"
+    cfg_path.write_text(f"_base_ = [{str(VOC_CONFIG)!r}]\n"
+                        f"data = dict(train={splits!r}, val={test!r}, "
+                        f"test={test!r})\n")
+    work = root / "voc"
+    bits, walks, fwd, bwd = (FirstCalls() for _ in range(4))
+    torch.backends.cudnn.deterministic = True
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded(nms_cuda, "iou_bitmask", bits), \
+            recorded(nms_cuda, "greedy_reduce", walks), \
+            recorded(roi_align_cuda, "roi_align_forward", fwd), \
+            recorded(roi_align_cuda, "roi_align_backward", bwd):
+        metrics = train_cli.main([
+            str(cfg_path), "--work-dir", str(work), "--seed", "0",
+            "--device", DEVICE, "--cfg-options",
+            "runner.type=IterBasedRunner", f"runner.max_iters={VOC_ITERS}",
+            f"checkpoint_config.interval={VOC_ITERS}",
+            f"evaluation.interval={VOC_ITERS}", "log_config.interval=1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = False
+    launches = read_launches()
+    expect(launches, {k: VOC_ITERS * TRAIN_LAUNCHES[k] + VOC_TEST_IMAGES
+                      * TWO_STAGE_IMAGE_LAUNCHES[k] for k in TRAIN_LAUNCHES},
+           "VOC train CLI")
+    log = log_steps(work, list(range(1, VOC_ITERS + 1)))
+    if metrics is None or not 0.0 <= metrics["mAP"] <= 1.0:
+        raise AssertionError(f"VOC validation: {metrics}")
+    print(f"phase 16 (b) VOC Faster R-CNN train CLI (ConcatDataset of VOC2007"
+          f" and VOC2012 trainval, {VOC_TRAIN_IMAGES} images each; "
+          f"aspect-grouped batches of 2): {wall:.1f} s (host clock); "
+          f"launches {launches} = {VOC_ITERS} steps x {TRAIN_LAUNCHES} + "
+          f"{VOC_TEST_IMAGES} test images x {TWO_STAGE_IMAGE_LAUNCHES}; "
+          f"losses first {log[0]['loss']:.4f} last {log[-1]['loss']:.4f}; "
+          f"{late_ms(log):.1f} ms a step over the second half (host clock, "
+          f"loader included, cudnn deterministic); VOC07 11-point mAP "
+          f"{metrics['mAP']:.6f} from random weights after {VOC_ITERS} steps "
+          f"[{card}]")
+    (sboxes, thr, n_valid), _, _ = bits[0]
+    (_, ok, order, _, _), _, _ = walks[0]
+    k1 = k1_row(card, "VOC train RPN", sboxes, ok, order, n_valid, thr,
+                phase="16 (b)")
+    f_rows, b_rows, _ = step_rois(card, fwd, bwd, phase="16 (b)",
+                                  label="VOC train step",
+                                  kinds=((7, "bbox"),))
+    return {"voc_train_cli": launches}, k1, f_rows, b_rows
+
+
+def phase_rpn(card, root):
+    """Phase 16 (c): the standalone RPN through `run_test` on phase 15's
+    COCO-format images, proposal_fast."""
+    from pointtinybenchmark_tpu_torch.apis.inference import init_detector
+    from pointtinybenchmark_tpu_torch.data import build_dataset
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.test import run_test
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    coco = root / "data/coco"
+    n_obj = write_coco_set(coco / "images", coco / "annotations/"
+                           "instances_val2017.json", RPN_IMAGES,
+                           np.random.RandomState(15))
+    cfg = Config.fromfile(str(RPN_CONFIG))
+    ds = build_dataset(dict(cfg.data["test"], test_mode=True,
+                            ann_file=str(coco / "annotations/"
+                                         "instances_val2017.json"),
+                            img_prefix=str(coco / "images")))
+    model = init_detector(cfg, device=DEVICE).model.eval()
+    collator = DetCollator(size_divisor=32)
+    bits, walks = FirstCalls(), FirstCalls()
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded(nms_cuda, "iou_bitmask", bits), \
+            recorded(nms_cuda, "greedy_reduce", walks):
+        results = run_test(model, ds, collator)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    expect(launches, dict(NO_LAUNCHES, iou_bitmask=RPN_IMAGES,
+                          greedy_reduce=RPN_IMAGES), "RPN run_test")
+    with plain_nms():
+        plain = run_test(model, ds, collator)
+    for i, (r, p) in enumerate(zip(results, plain)):
+        if not (np.array_equal(r["bboxes"], p["bboxes"])
+                and not r["labels"].any() and len(r["bboxes"])):
+            raise AssertionError(f"RPN image {i}: proposals with the kernels "
+                                 f"differ from the plain NMS's, or labels")
+    metrics = ds.evaluate(results, metric="proposal_fast")
+    print(f"phase 16 (c) standalone RPN (rpn_r50_fpn_1x_coco.py, seeded "
+          f"weights) run_test on {RPN_IMAGES} COCO-format images of 640x480 "
+          f"and 480x640 ({n_obj} objects): launches {launches}, "
+          f"{[len(r['bboxes']) for r in results]} proposals an image, equal "
+          f"to the plain NMS's; {wall:.2f} s (host clock, first call); "
+          f"proposal_fast {dict(metrics)} [{card}]")
+    (sboxes, thr, n_valid), _, _ = bits[0]
+    (_, ok, order, _, _), _, _ = walks[0]
+    k1 = k1_row(card, "standalone RPN", sboxes, ok, order, n_valid, thr,
+                phase="16 (c)")
+    return {"rpn_run_test": launches}, k1
+
+
+def lift_classes(model):
+    """A random 81-way softmax scores every class near 1/81, under the
+    config's score_thr of 0.05: raise the first LIFT_CLASSES classes'
+    logits so that the RoI head detects."""
+    with torch.no_grad():
+        model.roi_head.bbox_head.fc_cls.bias[:LIFT_CLASSES] += LIFT_BIAS
+
+
+def phase_whole_image(card, root):
+    """Phase 16 (d): COCO Faster R-CNN on two 800x1333 images, whole
+    (`inference_detector`) and by flip TTA (`run_tta_test`): launches, the
+    kernels against the plain versions, the card against the CPU."""
+    from PIL import Image
+
+    from pointtinybenchmark_tpu_torch.apis.inference import (
+        inference_detector, init_detector)
+    from pointtinybenchmark_tpu_torch.data import build_dataset
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.test import run_tta_test
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda, roi_align_cuda
+
+    rng = np.random.RandomState(164)
+    h, w = COCO_HW
+    img_dir = root / "tta"
+    img_dir.mkdir()
+    imgs, images = [], []
+    for i in range(2):
+        img = rng.randint(0, 70, (h, w, 3)).astype(np.uint8)
+        for x1, y1, x2, y2 in coco_objects(rng, (h, w)).astype(int):
+            img[y1:y2, x1:x2] = rng.randint(120, 256, 3)
+        Image.fromarray(img).save(img_dir / f"{i}.png")
+        imgs.append(img.astype(np.float32))
+        images.append(dict(id=i + 1, file_name=f"{i}.png", width=w,
+                           height=h))
+    ann = root / "tta.json"
+    ann.write_text(json.dumps(dict(images=images, annotations=[],
+                                   categories=[dict(id=c, name=f"class{c}")
+                                               for c in COCO_IDS])))
+    handle = init_detector(str(COCO_FRCNN_CONFIG), device=DEVICE)
+    seeded = [len(r["bboxes"]) for r in inference_detector(handle, imgs)]
+    lift_classes(handle.model)
+    bits, walks, fwd = FirstCalls(2), FirstCalls(2), FirstCalls()
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded(nms_cuda, "iou_bitmask", bits), \
+            recorded(nms_cuda, "greedy_reduce", walks), \
+            recorded(roi_align_cuda, "roi_align_forward", fwd):
+        dets = inference_detector(handle, imgs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = infer_launches = read_launches()
+    expect(launches, {k: 2 * v for k, v in TWO_STAGE_IMAGE_LAUNCHES.items()},
+           "inference_detector")
+    with plain_nms(), plain_roi_align():
+        plain = inference_detector(handle, imgs)
+    for i, (r, p) in enumerate(zip(dets, plain)):
+        if not len(r["bboxes"]) or not (
+                np.array_equal(r["bboxes"], p["bboxes"])
+                and np.array_equal(r["labels"], p["labels"])):
+            raise AssertionError(f"inference_detector image {i}: no "
+                                 f"detection, or kernels vs plain differ")
+    cpu = init_detector(str(COCO_FRCNN_CONFIG), device="cpu")
+    lift_classes(cpu.model)
+    ref = inference_detector(cpu, imgs[0])
+    order = np.argsort(-dets[0]["bboxes"][:, 4], kind="stable")
+    ref_order = np.argsort(-ref["bboxes"][:, 4], kind="stable")
+    n = dets_match((ref["bboxes"][ref_order], ref["labels"][ref_order]),
+                   (dets[0]["bboxes"][order], dets[0]["labels"][order]))
+    print(f"phase 16 (d) inference_detector (coco faster_rcnn, seeded "
+          f"weights: {seeded} detections; then fc_cls's bias raised by "
+          f"{LIFT_BIAS} on its first {LIFT_CLASSES} classes) on two {w}x{h} "
+          f"images: launches {launches}, "
+          f"{[len(r['bboxes']) for r in dets]} detections, equal to the "
+          f"all-plain run's; {wall:.2f} s (host clock, first call); the CPU's "
+          f"{n} detections of image 0 matched at tests/test_detector_golden."
+          f"py:88's tolerances [{card}]")
+
+    ds = build_dataset(dict(
+        type="CocoFmtDataset", ann_file=str(ann), img_prefix=str(img_dir),
+        test_mode=True, pipeline=[
+            dict(type="LoadImageFromFile"),
+            dict(type="MultiScaleFlipAug", img_scale=(w, h), flip=True,
+                 transforms=[dict(type="Resize", keep_ratio=True),
+                             dict(type="RandomFlip"),
+                             dict(type="Normalize",
+                                  mean=[123.675, 116.28, 103.53],
+                                  std=[58.395, 57.12, 57.375]),
+                             dict(type="Pad", size_divisor=32),
+                             dict(type="Collect", keys=["img"])])]))
+    model = handle.model
+    collator = DetCollator(size_divisor=32)
+    merges = []
+    t_bits, t_walks, t_fwd = FirstCalls(3), FirstCalls(3), FirstCalls()
+    reset_launches()
+    t0 = time.perf_counter()
+    with nms_shapes(merges), recorded(nms_cuda, "iou_bitmask", t_bits), \
+            recorded(nms_cuda, "greedy_reduce", t_walks), \
+            recorded(roi_align_cuda, "roi_align_forward", t_fwd):
+        tta = run_tta_test(model, ds, collator)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    expect(launches, {k: 2 * v for k, v in TTA_IMAGE_LAUNCHES.items()},
+           "run_tta_test")
+    with plain_nms(), plain_roi_align():
+        tta_plain = run_tta_test(model, ds, collator)
+    for i, (r, p) in enumerate(zip(tta, tta_plain)):
+        if not len(r["bboxes"]) or not (
+                np.array_equal(r["bboxes"], p["bboxes"])
+                and np.array_equal(r["labels"], p["labels"])):
+            raise AssertionError(f"run_tta_test image {i}: no detection, or "
+                                 f"kernels vs plain differ")
+        # boxes are clipped to the collated views' extent, padded to 32
+        # (the JAX engine passes the same img_shape)
+        pad_h, pad_w = -(-h // 32) * 32, -(-w // 32) * 32
+        if not (np.isfinite(r["bboxes"]).all()
+                and (r["bboxes"][:, :4] >= -1e-3).all()
+                and (r["bboxes"][:, [0, 2]] <= pad_w + 1e-3).all()
+                and (r["bboxes"][:, [1, 3]] <= pad_h + 1e-3).all()):
+            raise AssertionError("TTA boxes outside the views' extent")
+    print(f"phase 16 (d) run_tta_test (MultiScaleFlipAug, 2 views an "
+          f"image, one batched simple_test, boxes flipped back, the merge "
+          f"on K1): launches {launches}, NMS shapes (B, N) {merges}, "
+          f"{[len(r['bboxes']) for r in tta]} merged detections, equal to "
+          f"the all-plain run's; {wall:.2f} s (host clock, first call) "
+          f"[{card}]")
+    k1 = first_k1_rows(card, ["whole-image RPN", "whole-image RoI head"],
+                       bits, walks) + first_k1_rows(
+        card, ["TTA RPN", "TTA RoI head", "TTA merge"], t_bits, t_walks)
+    k2 = [k2_forward_row(card, "whole-image rois", fwd[0]),
+          k2_forward_row(card, "TTA rois", t_fwd[0])]
+    return {"faster_rcnn_inference_detector": infer_launches,
+            "faster_rcnn_tta": launches}, k1, k2
+
+
+def phase_offline_merge(card, root):
+    """Phase 16 (e): phase 14's test set cut into its corner tiles, Adap
+    Faster R-CNN's `run_test` on every tile, and the evaluation with
+    `merge_after_infer_kwargs` (the host merge of evaluation/merge.py)."""
+    from pointtinybenchmark_tpu_torch.apis.inference import init_detector
+    from pointtinybenchmark_tpu_torch.data import build_dataset
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.test import run_test
+    from pointtinybenchmark_tpu_torch.evaluation.merge import merge_det_result
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda, roi_align_cuda
+    from pointtinybenchmark_tpu_torch.tools import test as test_cli
+
+    test_json = write_tinyperson_set(root, "merge", DATASET_TEST_FRAMES,
+                                     np.random.RandomState(14))
+    cfg = test_cli.load_config(str(FRCNN_CONFIG), [])
+    norm = next(t for t in cfg.data["test"]["pipeline"][1]["transforms"]
+                if t["type"] == "Normalize")
+    ds = build_dataset(dict(
+        type="CocoFmtDataset", ann_file=str(test_json),
+        img_prefix=str(root / "merge"), test_mode=True,
+        corner_kwargs=dict(DATASET_CORNER),
+        merge_after_infer_kwargs=dict(merge_gt_file=str(test_json),
+                                      merge_nms_th=0.5),
+        pipeline=[dict(type="LoadImageFromFile"),
+                  dict(type="NoAug", transforms=[
+                      dict(type="Resize", keep_ratio=True),
+                      dict(type="Normalize", mean=norm["mean"],
+                           std=norm["std"]),
+                      dict(type="Pad", size_divisor=32),
+                      dict(type="Collect", keys=["img"])])]))
+    model = init_detector(cfg, device=DEVICE).model.eval()
+    bits, walks, fwd = FirstCalls(2), FirstCalls(2), FirstCalls()
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded(nms_cuda, "iou_bitmask", bits), \
+            recorded(nms_cuda, "greedy_reduce", walks), \
+            recorded(roi_align_cuda, "roi_align_forward", fwd):
+        results = run_test(model, ds, DetCollator(pad_shape=(512, 640)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    expect(launches, {k: len(ds) * v for k, v in
+                      TWO_STAGE_IMAGE_LAUNCHES.items()}, "corner run_test")
+    det_json = ds.format_results(results)
+    t0 = time.perf_counter()
+    merged, _ = merge_det_result(det_json, ds.coco, str(test_json), 0.5)
+    merge_s = time.perf_counter() - t0
+    eval_kwargs, _, _ = test_cli.eval_settings(cfg)
+    metrics = ds.evaluate(results, **eval_kwargs)
+    if not (0 < len(merged) < len(det_json)) or {d["image_id"] for d in
+                                                 merged} - set(range(
+                                                     1, DATASET_TEST_FRAMES
+                                                     + 1)):
+        raise AssertionError("the merge must keep fewer detections, each of "
+                             "an original frame")
+    print(f"phase 16 (e) offline tile merge: {DATASET_TEST_FRAMES} frames in "
+          f"{len(ds)} corner tiles of {DATASET_CORNER['sub_img_w']}x"
+          f"{DATASET_CORNER['sub_img_h']}, run_test {wall:.2f} s (host "
+          f"clock), launches {launches}; {len(det_json)} tile detections -> "
+          f"{len(merged)} after the merge (host NMS at 0.5, {merge_s:.2f} "
+          f"s); the tiny evaluation against the frames' json "
+          f"{dict(metrics)} (random weights) [{card}]")
+    k1 = first_k1_rows(card, ["corner RPN", "corner RoI head"], bits, walks)
+    return {"faster_rcnn_corner_run_test": launches}, k1, [
+        k2_forward_row(card, "corner rois", fwd[0])]
+
+
+def phase_workflow(card):
+    """Phase 16: (a)-(e) in a temporary folder under build/, from which
+    the CPR config's `save_result_file` (exp/) is written."""
+    import os
+    import tempfile
+
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build, prefix="workflow_")
+    root = Path(tmp.name)
+    (root / "exp").mkdir()
+    cwd = os.getcwd()
+    os.chdir(root)
+    laps = [time.perf_counter()]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        print(f"phase 16 {what}: {laps[-1] - laps[-2]:.1f} s (host clock)")
+    try:
+        by_path, moved, k1_p2p = phase_point_workflow(card, root)
+        print(f"phase 16 (a): {moved} refined points moved off their "
+              f"coarse point")
+        lap("(a)")
+        voc_path, k1_voc, f_rows, b_rows = phase_voc(card, root)
+        lap("(b)")
+        rpn_path, k1_rpn = phase_rpn(card, root)
+        lap("(c)")
+        whole_path, k1_whole, k2_whole = phase_whole_image(card, root)
+        lap("(d)")
+        merge_path, k1_merge, k2_merge = phase_offline_merge(card, root)
+        lap("(e)")
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+        torch.cuda.empty_cache()
+    print(f"phase 16 whole: {laps[-1] - laps[0]:.1f} s (host clock) [{card}]")
+    return ({**by_path, **voc_path, **rpn_path, **whole_path, **merge_path},
+            k1_p2p + [k1_voc, k1_rpn] + k1_whole + k1_merge,
+            f_rows + k2_whole + k2_merge, b_rows)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -5366,6 +6050,8 @@ def main():
     lap("phase 14")
     sm_by_path, sm_k1, sm_fwd, sm_bwd = phase_scale_match(card)
     lap("phase 15")
+    wf_by_path, wf_k1, wf_fwd, wf_bwd = phase_workflow(card)
+    lap("phase 16")
     # the profiles last: once torch.profiler has traced the card, later
     # launches of the process can cost more host time (phase 6 times the
     # train step before and after them)
@@ -5394,14 +6080,14 @@ def main():
         records[k]["by_shape"] += [row[k] for row in p2p_k1]
         records[k]["by_shape"] += [row[k] for name, _, _ in DENSE
                                    for row in dense[name][2]]
-        records[k]["by_shape"] += [row[k] for row in sm_k1]
+        records[k]["by_shape"] += [row[k] for row in sm_k1 + wf_k1]
     records["roi_align"] = dict(
         slice_record, by_shape=roi_shapes + [slice_record] + mask_records
         + [train_fwd] + mask_train_fwd + p2b_rows[0] + [grid_record]
-        + grid_train_fwd + sm_fwd)
+        + grid_train_fwd + sm_fwd + wf_fwd)
     records["roi_align_backward"] = dict(
         train_bwd, by_shape=bwd_shapes + [train_bwd] + mask_train_bwd
-        + p2b_rows[1] + grid_train_bwd + sm_bwd)
+        + p2b_rows[1] + grid_train_bwd + sm_bwd + wf_bwd)
     # the P2BNet step's negatives, its largest launch
     records["roi_align_rois_backward"] = dict(
         p2b_rows[2][1], by_shape=rois_rows + p2b_rows[2])
@@ -5417,7 +6103,7 @@ def main():
                **{k: v[0] for k, v in dense.items()},
                "grid_rcnn": grid_launches,
                "grid_rcnn_train": grid_train_launches,
-               **dataset_launches, **sm_by_path}
+               **dataset_launches, **sm_by_path, **wf_by_path}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],

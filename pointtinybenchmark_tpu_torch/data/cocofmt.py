@@ -14,12 +14,14 @@ CocoDataset / CustomDataset machinery it inherits), host numpy:
   the pipeline's random transforms draw from;
 - `format_results` / `format_segm_results` (COCO result json) and
   `evaluate` for bbox, segm and proposal (COCOExpandEval, with the tiny
-  standard) or the location metric (evaluation/location_eval.py).
+  standard), proposal_fast (evaluation/recall.py::eval_recalls) or the
+  location metric (evaluation/location_eval.py), after the offline tile
+  merge where `merge_after_infer_kwargs` asks for it
+  (evaluation/merge.py: a corner set's detections shifted into their
+  original image and merged by a host NMS).
 
-Not ported yet (ROADMAP.md queue 2, M7): the offline tile merge before the
-evaluation (`merge_after_infer_kwargs`, evaluation/merge.py) and the
-`proposal_fast` metric (evaluation/recall.py) raise NotImplementedError;
-the LVIS, Cityscapes and DeepFashion datasets.
+Not ported yet (ROADMAP.md queue 1, item 2): the LVIS, Cityscapes and
+DeepFashion datasets.
 """
 from __future__ import annotations
 
@@ -63,11 +65,6 @@ class CocoFmtDataset:
                 img_prefix = osp.join(data_root, img_prefix)
             if proposal_file and not osp.isabs(proposal_file):
                 proposal_file = osp.join(data_root, proposal_file)
-        if merge_after_infer_kwargs is not None:
-            raise NotImplementedError(
-                "merge_after_infer_kwargs needs the offline tile merge "
-                "(evaluation/merge.py), which is not ported yet "
-                "(ROADMAP.md queue 2, M7)")
         if corner_kwargs is not None:
             from .tiling import generate_corner_json_file_if_not_exist
             ann_file = generate_corner_json_file_if_not_exist(
@@ -83,6 +80,7 @@ class CocoFmtDataset:
         self.filter_empty_gt = filter_empty_gt
         self.min_gt_size = min_gt_size
         self.train_ignore_as_bg = train_ignore_as_bg
+        self.merge_after_infer_kwargs = merge_after_infer_kwargs
         self.seed = seed
 
         self.classes = list(classes) if classes is not None else None
@@ -328,6 +326,14 @@ class CocoFmtDataset:
         det_json = self.format_results(results)
         gt_coco = self.coco
 
+        # the offline corner set's tile merge (cocofmt.py:310-317 of the fork)
+        if self.merge_after_infer_kwargs:
+            from ..evaluation.merge import merge_det_result
+            mk = self.merge_after_infer_kwargs
+            det_json, gt_coco = merge_det_result(
+                det_json, self.coco, mk.get("merge_gt_file"),
+                nms_th=mk.get("merge_nms_th", 0.5))
+
         if save_result_file:
             with open(save_result_file, "w") as f:
                 json.dump(det_json, f)
@@ -367,9 +373,26 @@ class CocoFmtDataset:
 
         for m in metrics:
             if m == "proposal_fast":
-                raise NotImplementedError(
-                    "the proposal_fast metric needs evaluation/recall.py, "
-                    "which is not ported yet (ROADMAP.md queue 2, M7)")
+                # mmdet coco.py:432-441 fast_eval_recall
+                from ..evaluation.recall import eval_recalls
+                gts = []
+                for img_id in self.img_ids:
+                    anns = gt_coco.load_anns(
+                        gt_coco.get_ann_ids(img_ids=[img_id]))
+                    boxes = [[a["bbox"][0], a["bbox"][1],
+                              a["bbox"][0] + a["bbox"][2],
+                              a["bbox"][1] + a["bbox"][3]] for a in anns
+                             if not (a.get("ignore") or a.get("iscrowd"))]
+                    gts.append(np.asarray(boxes, np.float32).reshape(-1, 4))
+                props = [np.asarray(r["bboxes"], np.float32).reshape(-1, 5)
+                         for r in results]
+                thrs = (np.asarray(iou_thrs) if iou_thrs is not None
+                        else np.arange(0.5, 0.96, 0.05))
+                nums = pn or [100, 300, 1000]
+                ar = eval_recalls(gts, props, nums, thrs).mean(axis=1)
+                for i, num in enumerate(nums):
+                    out[f"AR@{num}"] = float(ar[i])
+                continue
 
             if m == "segm":
                 segm_json = self.format_segm_results(results)

@@ -17,6 +17,13 @@ gives them: numpy arrays and scalars, Python values. Anything else raises:
 complex numbers and arrays, dtypes outside numpy's bool, integer and float
 kinds (bfloat16), the chunked form in which flax stores an array above
 2**30 bytes, orbax checkpoint directories.
+
+`optax_slots` finds what an optax state of the JAX package's
+engine/optimizer.py holds after that decoding (a tuple comes back as
+{"0": ..., "1": ...}, a namedtuple as a dict of its fields, an empty
+state as {}): the momentum `trace` trees (SGD), the `mu` and `nu` trees
+(Adam) and the update `count`s, found by field name wherever the chain's
+layout puts them.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ import numpy as np
 import torch
 
 __all__ = ["save_checkpoint", "load_checkpoint", "load_jax_checkpoint",
-           "msgpack_restore", "is_jax_checkpoint"]
+           "msgpack_restore", "is_jax_checkpoint", "optax_slots"]
 
 LATEST = "latest.pth"
 
@@ -172,3 +179,36 @@ def load_jax_checkpoint(path: str) -> Dict[str, Any]:
     if not isinstance(raw, dict) or "state" not in raw:
         raise ValueError(f"{path} holds no JAX train state")
     return {"state": raw["state"], "meta": raw.get("meta", {})}
+
+
+OPTAX_TREES = ("trace", "mu", "nu")
+
+
+def optax_slots(opt_state: Any) -> Dict[str, list]:
+    """{"trace": [...], "mu": [...], "nu": [...], "count": [...],
+    "layout": [...]}: every subtree under a field of OPTAX_TREES, every
+    `count` (as int), and the path of each, in the order found. A leaf
+    anywhere else is a state the port does not know, and raises with the
+    layout found."""
+    found: Dict[str, list] = {k: [] for k in OPTAX_TREES + ("count",
+                                                           "layout")}
+
+    def walk(node: Any, path: Tuple[str, ...]) -> None:
+        if not isinstance(node, dict):
+            raise ValueError(
+                f"optax state: a leaf at {'/'.join(path) or '<root>'} "
+                f"outside any {OPTAX_TREES} tree or count (layout so far: "
+                f"{found['layout']}); this optimizer state is not read")
+        for k, v in node.items():
+            p = path + (str(k),)
+            if k in OPTAX_TREES:
+                found[k].append(v)
+            elif k == "count":
+                found["count"].append(int(np.asarray(v)))
+            else:
+                walk(v, p)
+                continue
+            found["layout"].append("/".join(p))
+
+    walk(opt_state, ())
+    return found

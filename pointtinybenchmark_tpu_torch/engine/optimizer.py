@@ -44,7 +44,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from ..utils.jax_weights import jax_param_paths
+from ..utils import jax_weights
 
 __all__ = ["build_lr_schedule", "build_optimizer", "frozen_param_names",
            "paramwise_mults", "SGD", "Adam"]
@@ -137,7 +137,7 @@ def paramwise_mults(model: nn.Module, paramwise_cfg: dict
         if any(t in path.lower() for t in NORM_TAGS):
             return norm
         return bias if path.endswith("bias") else (1.0, 1.0)
-    return {n: mults(p) for n, p in jax_param_paths(model).items()}
+    return {n: mults(p) for n, p in jax_weights.jax_param_paths(model).items()}
 
 
 class _ClippedOptimizer:
@@ -181,6 +181,17 @@ class _ClippedOptimizer:
     def lr(self) -> torch.Tensor:
         """The learning rate of the next update."""
         return self.schedule(self.count)
+
+    def _load_count(self, slots: Dict[str, list], n: int) -> None:
+        """The optax chain's `n` update counts, which must agree: the
+        schedule's counts accepted updates only (a non-finite step keeps
+        the old state), as `count` here does."""
+        counts = slots["count"]
+        if len(counts) != n or len(set(counts)) != 1:
+            raise ValueError(f"{type(self).__name__} expects {n} equal optax "
+                             f"counts, found {counts} (layout "
+                             f"{slots['layout']})")
+        self.count.fill_(counts[0])
 
 
 class SGD(_ClippedOptimizer):
@@ -234,6 +245,27 @@ class SGD(_ClippedOptimizer):
     def state_dict(self) -> Dict[str, object]:
         return {"count": self.count.clone(),
                 "trace": [t.clone() for t in self.trace]}
+
+    def load_optax(self, slots: Dict[str, list],
+                   like: Callable[[dict], Dict[str, torch.Tensor]]) -> None:
+        """The state of the JAX package's optax SGD chain
+        (`engine/checkpoint.py::optax_slots`): one momentum `trace` (none
+        without momentum, where the trace is the gradient and needs no
+        state) and one count. `like` maps a tree of the params' layout to
+        {parameter name: tensor}. optax traces the frozen parameters too
+        (optax.masked zeroes their updates after the chain); their traces
+        are dropped."""
+        traces = slots["trace"]
+        if slots["mu"] or slots["nu"] or len(traces) > 1 or (
+                not traces and self.momentum):
+            raise ValueError(f"SGD expects one optax momentum trace, found "
+                             f"the layout {slots['layout']}")
+        self._load_count(slots, 1)
+        if traces:
+            named = like(traces[0])
+            own = [n for n, f in zip(self.names, self.is_frozen) if not f]
+            for n, t in zip(own, self.trace):
+                t.copy_(named[n])
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
         if len(state["trace"]) != len(self.trace):
@@ -292,6 +324,20 @@ class Adam(_ClippedOptimizer):
         return {"count": self.count.clone(),
                 "mu": [m.clone() for m in self.mu],
                 "nu": [v.clone() for v in self.nu]}
+
+    def load_optax(self, slots: Dict[str, list],
+                   like: Callable[[dict], Dict[str, torch.Tensor]]) -> None:
+        """The state of the JAX package's optax Adam chain: one `mu` and
+        one `nu` over every parameter, frozen ones included, and two equal
+        counts (ScaleByAdamState's and the schedule's)."""
+        if slots["trace"] or len(slots["mu"]) != 1 or len(slots["nu"]) != 1:
+            raise ValueError(f"Adam expects one optax mu and one nu, found "
+                             f"the layout {slots['layout']}")
+        self._load_count(slots, 2)
+        for trees, own in ((slots["mu"], self.mu), (slots["nu"], self.nu)):
+            named = like(trees[0])
+            for n, t in zip(self.names, own):
+                t.copy_(named[n])
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
         if len(state["mu"]) != len(self.mu):

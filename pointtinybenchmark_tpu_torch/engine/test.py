@@ -1,8 +1,8 @@
 """Inference engines: the plain test loop and tiled protocol inference.
 
 Counterpart of pointtinybenchmark_tpu/engine/test.py (`run_test`,
-`run_tiled_test`, `merge_tile_dets`, `DeviceTiledInference`,
-`run_device_tiled_test`, `run_refine_test`).
+`run_tiled_test`, `run_tta_test`, `merge_tile_dets`,
+`DeviceTiledInference`, `run_device_tiled_test`, `run_refine_test`).
 
 - `run_test`: collated batches of preprocessed images through
   `simple_test`, boxes rescaled to each original image; a Mask R-CNN's
@@ -13,6 +13,10 @@ Counterpart of pointtinybenchmark_tpu/engine/test.py (`run_test`,
   per sample, its tile views are collated into one batch through
   `simple_test`, each tile's boxes shifted by its `tile_offset`, and one
   class-aware NMS (`merge_tile_dets`, K1 on the card) merges them.
+- `run_tta_test`: test-time augmentation over a dataset whose pipeline
+  ends in MultiScaleFlipAug: a sample's views (scale x flip) through one
+  batched `simple_test`, each view's boxes flipped back and divided by its
+  scale factor, then the same class-aware merge.
 - Tiled protocol: uint8 frames in, globally merged detections out. Normalize
   and tile on the device, one batched forward over every tile of every
   frame, one batched per-tile NMS, a shift of each tile's boxes by its
@@ -23,7 +27,7 @@ Counterpart of pointtinybenchmark_tpu/engine/test.py (`run_test`,
   mask merge.
 - `run_refine_test`: CPR's inference, the refinement of each image's
   annotated points; one row per valid gt, joinable back to the
-  annotations by the JAX package's tools/result2ann.py.
+  annotations by tools/result2ann.py.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from ..data.device_pipeline import DevicePreprocessor
 from ..evaluation.mask_utils import paste_masks, rle_encode
 from ..ops.nms import batched_nms
 
-__all__ = ["run_test", "run_tiled_test", "merge_tile_dets",
+__all__ = ["run_test", "run_tiled_test", "run_tta_test", "merge_tile_dets",
            "DeviceTiledInference", "run_device_tiled_test", "run_refine_test"]
 
 logger = logging.getLogger("ptb_torch")
@@ -48,14 +52,17 @@ DEFAULT_STD = (58.395, 57.12, 57.375)
 
 
 def _to_result(bboxes: np.ndarray, labels: np.ndarray, valid: np.ndarray,
-               mask_crops: Optional[np.ndarray],
-               ori_shape) -> Dict[str, object]:
-    """One image's valid detections; with mask crops (M, s, s), also their
-    masks pasted into the original frame of shape `ori_shape` and
-    RLE-encoded (mmdet FCNMaskHead.get_seg_masks + _segm2json), the boxes
-    being in that frame already."""
+               mask_crops: Optional[np.ndarray], ori_shape,
+               points: Optional[np.ndarray] = None) -> Dict[str, object]:
+    """One image's valid detections, with a point detector's points where
+    given; with mask crops (M, s, s), also their masks pasted into
+    the original frame of shape `ori_shape` and RLE-encoded (mmdet
+    FCNMaskHead.get_seg_masks + _segm2json), the boxes being in that frame
+    already."""
     keep = valid.astype(bool)
     out = dict(bboxes=bboxes[keep], labels=labels[keep])
+    if points is not None:
+        out["points"] = points[keep]
     if mask_crops is not None:
         h, w = int(ori_shape[0]), int(ori_shape[1])
         full = paste_masks(np.asarray(mask_crops[keep], np.float32),
@@ -72,8 +79,10 @@ def run_test(model, dataset, collator, batch_size: int = 1,
     `scale_factor` and `ori_shape`), or of samples whose `views[0]` is one;
     `collator` batches them (`data/loader.py::DetCollator`). The batches go
     to the model's device. Returns per image bboxes (n, 5) and labels (n,),
-    with `rescale` in the original image's frame, and for a Mask R-CNN the
-    RLE `masks` of the original image's size."""
+    with `rescale` in the original image's frame, for a point detector
+    (P2P: `simple_test` gives the detections and their points) the
+    `points` (n, k), and for a Mask R-CNN the RLE `masks` of the original
+    image's size."""
     device = next(model.parameters()).device
     results: List[dict] = []
     n = len(dataset)
@@ -87,17 +96,21 @@ def run_test(model, dataset, collator, batch_size: int = 1,
             torch.from_numpy(batch["img"]).to(device),
             torch.from_numpy(batch["img_shape"]).to(device),
             torch.from_numpy(batch["scale_factor"]).to(device), rescale)
-        masks = None
+        masks = points = None
         if not isinstance(out, DetResult):
-            out, masks = out
-            masks = masks.cpu().numpy()
+            # (detections, mask crops (B, M, s, s) or points (B, M, k))
+            out, extra = out
+            if extra.dim() == 4:
+                masks = extra.cpu().numpy()
+            else:
+                points = extra.cpu().numpy()
         db, dl, dv = (t.cpu().numpy() for t in out)
         for i, sample in enumerate(flat):
             ori = sample.get("img_metas", {}).get("ori_shape",
                                                   sample["img"].shape[:2])
             results.append(_to_result(
                 db[i], dl[i], dv[i], masks[i] if masks is not None else None,
-                ori))
+                ori, points[i] if points is not None else None))
         if (start // batch_size) % 50 == 0:
             logger.info("test %d/%d", start + len(flat), n)
     return results
@@ -152,6 +165,68 @@ def run_tiled_test(model, dataset, collator,
                             labels=ml))
         if idx % 20 == 0:
             logger.info("tiled test %d/%d (%d tiles)", idx + 1, len(dataset),
+                        len(views))
+    return results
+
+
+def unflip_boxes(boxes: torch.Tensor, meta: dict,
+                 view_hw: Tuple[int, int]) -> torch.Tensor:
+    """A flipped view's boxes (n, 4) mapped back through its flip
+    (`flip`, `flip_direction` of its img_metas) about the resized image's
+    extent, `img_shape` of the metas (mmdet bbox_flip); `view_hw` stands in
+    where the metas have no img_shape."""
+    if not meta.get("flip"):
+        return boxes
+    h, w = (meta["img_shape"][:2] if "img_shape" in meta else view_hw)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    if meta.get("flip_direction", "horizontal") == "horizontal":
+        return torch.stack([w - x2, y1, w - x1, y2], -1)
+    return torch.stack([x1, h - y2, x2, h - y1], -1)
+
+
+@torch.no_grad()
+def run_tta_test(model, dataset, collator, merge_iou_threshold: float = 0.5,
+                 max_per_img: int = 100, rescale: bool = True) -> List[dict]:
+    """Test-time augmentation (mmdet merge_aug_bboxes path,
+    core/post_processing/merge_augs.py): each sample's `views` (one per
+    scale and flip) through one batched `simple_test` on the model's
+    device; each view's boxes flipped back (`unflip_boxes`) and, with
+    `rescale`, divided by its scale factor; then one class-aware NMS over
+    all views (`merge_tile_dets`, K1 on the card), the views' detections
+    in view order. Returns per image bboxes (n, 5) and labels (n,).
+
+    The JAX package flips about the view's padded width
+    (`view["img"].shape`); this one about the resized image's, which is
+    mmdet's: the two agree where the pipeline pads nothing."""
+    device = next(model.parameters()).device
+    results: List[dict] = []
+    for idx in range(len(dataset)):
+        sample = dataset[idx]
+        views = sample["views"] if "views" in sample else [sample]
+        batch = collator(views)
+        dets = model.simple_test(
+            torch.from_numpy(batch["img"]).to(device),
+            torch.from_numpy(batch["img_shape"]).to(device))
+        if not isinstance(dets, DetResult):       # (detections, masks)
+            dets = dets[0]
+        boxes = []
+        for vi, view in enumerate(views):
+            meta = view.get("img_metas", {})
+            b = unflip_boxes(dets.bboxes[vi, :, :4], meta,
+                             view["img"].shape[:2])
+            if rescale:
+                b = b / torch.as_tensor(
+                    np.asarray(meta.get("scale_factor", [1, 1, 1, 1]),
+                               np.float32), device=device)
+            boxes.append(b)
+        mb, ms, ml = merge_tile_dets(
+            torch.cat(boxes), dets.bboxes[..., 4].reshape(-1),
+            dets.labels.reshape(-1), dets.valid.reshape(-1),
+            merge_iou_threshold, max_per_img)
+        results.append(dict(bboxes=np.concatenate([mb, ms[:, None]], 1),
+                            labels=ml))
+        if idx % 50 == 0:
+            logger.info("tta test %d/%d (%d views)", idx + 1, len(dataset),
                         len(views))
     return results
 

@@ -34,13 +34,13 @@ import torch
 from torch import nn
 
 from ..data.loader import DataLoader, DetCollator
-from ..utils.jax_weights import load_jax_variables
+from ..utils import jax_weights
 from .checkpoint import (is_jax_checkpoint, load_checkpoint,
-                         load_jax_checkpoint, save_checkpoint)
+                         load_jax_checkpoint, optax_slots, save_checkpoint)
 from .optimizer import SGD, Adam, build_optimizer
 
 __all__ = ["make_train_step", "init_train_state", "train_detector",
-           "batch_to_device", "BATCH_KEYS"]
+           "batch_to_device", "resume_jax_checkpoint", "BATCH_KEYS"]
 
 logger = logging.getLogger("ptb_torch")
 
@@ -70,6 +70,25 @@ def batch_to_device(batch: Dict[str, Any],
                 t = t.pin_memory().to(dev, non_blocking=True)
             out[k] = t.to(dev)
     return out
+
+
+def resume_jax_checkpoint(model: nn.Module, optimizer: Union[SGD, Adam],
+                          state: Dict[str, torch.Tensor], path: str) -> dict:
+    """Continue a JAX package `.ckpt` (its engine/train.py resume_from):
+    its params and batch_stats into `model`, its optax state into
+    `optimizer` (`load_optax`: the momentum trace or moments through the
+    params' converter, the update count), its `step` and `nan_seen` into
+    `state`. Returns its meta (epoch, and iter for an IterBasedRunner)."""
+    ck = load_jax_checkpoint(path)
+    st = ck["state"]
+    jax_weights.load_jax_variables(model, st["params"],
+                                   st.get("batch_stats"))
+    optimizer.load_optax(optax_slots(st["opt_state"]),
+                         lambda tree: jax_weights.jax_params_like(model,
+                                                                  tree))
+    state["step"].fill_(int(np.asarray(st["step"])))
+    state["nan_seen"].fill_(bool(np.asarray(st.get("nan_seen", False))))
+    return dict(ck["meta"])
 
 
 def make_train_step(model: nn.Module,
@@ -164,24 +183,26 @@ def train_detector(model: nn.Module, dataset, cfg, work_dir: str,
         frozen_stages=getattr(model.backbone, "frozen_stages", -1),
         by_epoch=not iter_based)
     state = init_train_state(device)
-    start_epoch = 0
+    start_epoch, gstep = 0, 0
     if resume_from and is_jax_checkpoint(resume_from):
-        raise NotImplementedError("resume_from a JAX checkpoint (optax's "
-                                  "momentum traces) is not ported; "
-                                  "load_from takes its weights")
-    if resume_from:
+        meta = resume_jax_checkpoint(model, optimizer, state, resume_from)
+        start_epoch = int(meta.get("epoch", 0))
+        gstep = start_epoch * iters_per_epoch
+        logger.info("resumed from %s (epoch %d)", resume_from, start_epoch)
+    elif resume_from:
         ck = load_checkpoint(resume_from, map_location=device)
         model.load_state_dict(ck["state_dict"])
         optimizer.load_state_dict(ck["optimizer"])
         for k, v in ck["state"].items():
             state[k].copy_(v)
         start_epoch = int(ck["meta"].get("epoch", 0))
+        gstep = int(state["step"])
         logger.info("resumed from %s (epoch %d)", resume_from, start_epoch)
     elif load_from:
         if is_jax_checkpoint(load_from):
             jax_state = load_jax_checkpoint(load_from)["state"]
-            load_jax_variables(model, jax_state["params"],
-                               jax_state.get("batch_stats"))
+            jax_weights.load_jax_variables(model, jax_state["params"],
+                                           jax_state.get("batch_stats"))
         else:
             model.load_state_dict(load_checkpoint(
                 load_from, map_location=device)["state_dict"])
@@ -217,7 +238,6 @@ def train_detector(model: nn.Module, dataset, cfg, work_dir: str,
         save_checkpoint(path, model, optimizer, state, meta)
         logger.info("saved %s", path)
 
-    gstep = int(state["step"]) if resume_from else 0
     for epoch in range(start_epoch, max_epochs):
         loader.set_epoch(epoch)
         t0 = time.perf_counter()

@@ -36,7 +36,7 @@ from .dense_heads.rpn_head import RPNHead
 from .dense_heads.vfnet_head import VFNetHead
 from .detectors.single_stage import (BasicLocator, P2BNet, SSDDet,
                                      SingleStageDetector)
-from .detectors.two_stage import GridRCNN, MaskRCNN, TwoStageDetector
+from .detectors.two_stage import RPN, GridRCNN, MaskRCNN, TwoStageDetector
 from .necks.extra_necks import BFP
 from .necks.fpn import FPN
 from .roi_heads.bbox_head import Shared2FCBBoxHead
@@ -114,12 +114,14 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
     `test_cfg["rpn"]`, its RoI head `train_cfg["rcnn"]` and
     `test_cfg["rcnn"]` and the built bbox head and, for Mask R-CNN, mask
     head (for Grid R-CNN, grid head); the detector keeps
-    `train_cfg["rpn_proposal"]` (JAX two_stage.py:38-45). An unported
+    `train_cfg["rpn_proposal"]` (JAX two_stage.py:38-45). The standalone
+    RPN's head gets each config's "rpn" part, or the whole config where
+    it has none (JAX two_stage.py::RPN.setup). An unported
     detector type and a list of necks (see the module note) raise before
     any layer is built."""
     cfg = dict(cfg)
     kind = cfg.pop("type")
-    if kind not in SINGLE_STAGE and kind not in TWO_STAGE:
+    if kind not in SINGLE_STAGE and kind not in TWO_STAGE and kind != "RPN":
         raise KeyError(f"detector {kind} is not ported")
     train_cfg = cfg.get("train_cfg") or train_cfg
     test_cfg = cfg.get("test_cfg") or test_cfg
@@ -132,7 +134,15 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
             f"there is no JAX network to match")
     backbone = build_module(cfg["backbone"])
     neck = build_module(cfg["neck"]) if cfg.get("neck") else None
-    if kind in SINGLE_STAGE:
+    if kind == "RPN":
+        # JAX two_stage.py::RPN.setup: the rpn part of each config, or the
+        # whole config where it has none
+        rpn_cfg = dict(cfg["rpn_head"])
+        for key, c in (("train_cfg", train_cfg), ("test_cfg", test_cfg)):
+            rpn_cfg.setdefault(key, (c or {}).get("rpn", c))
+        model = RPN(backbone=backbone, neck=neck,
+                    rpn_head=build_module(rpn_cfg))
+    elif kind in SINGLE_STAGE:
         head_cfg = dict(cfg["bbox_head"])
         head_cfg.setdefault("train_cfg", train_cfg)
         head_cfg.setdefault("test_cfg", test_cfg)

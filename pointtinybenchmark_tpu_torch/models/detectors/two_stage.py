@@ -2,13 +2,13 @@
 neck -> RPN -> RoI head.
 
 Counterpart of pointtinybenchmark_tpu/models/detectors/two_stage.py::
-TwoStageDetector / FasterRCNN / MaskRCNN / GridRCNN. The RPN proposes with
-`test_cfg["rpn"]` and the RoI head detects with `test_cfg["rcnn"]` (each
-head holds its part); Mask R-CNN is the same detector with a mask head in
-its RoI head, whose results then carry the mask probabilities; Grid R-CNN
-the same detector with a `GridRoIHead`, which refines the boxes. Public
-functions take NHWC images, like the JAX model and the single-stage
-detector.
+TwoStageDetector / FasterRCNN / MaskRCNN / GridRCNN / RPN. The RPN
+proposes with `test_cfg["rpn"]` and the RoI head detects with
+`test_cfg["rcnn"]` (each head holds its part); Mask R-CNN is the same
+detector with a mask head in its RoI head, whose results then carry the
+mask probabilities; Grid R-CNN the same detector with a `GridRoIHead`,
+which refines the boxes. Public functions take NHWC images, like the JAX
+model and the single-stage detector.
 
 `forward_train` is the whole training forward: the RPN's loss (class
 agnostic: every gt is class 0), proposals from `train_cfg["rpn_proposal"]`
@@ -16,6 +16,12 @@ computed without gradient on the RPN's outputs (the proposal NMS runs
 here), then the RoI head's loss on them. The losses come back under the
 JAX package's names: loss_rpn_cls, loss_rpn_bbox, rpn_num_pos, loss_cls,
 loss_bbox, rcnn_acc, rcnn_num_pos (and Grid R-CNN's loss_grid).
+
+`RPN` is the standalone region-proposal network (mmdet
+models/detectors/rpn.py): backbone, neck and RPN head alone, trained with
+every gt as class 0; its detections are the class-agnostic proposals with
+their scores and label 0 (the NMS at IoU 0.7 unless its test config sets
+one).
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from ...core.post_processing import DetResult
 from ..dense_heads.rpn_head import RPNHead
 from ..roi_heads.standard_roi_head import StandardRoIHead
 
-__all__ = ["TwoStageDetector", "MaskRCNN", "GridRCNN"]
+__all__ = ["TwoStageDetector", "MaskRCNN", "GridRCNN", "RPN"]
 
 DEFAULT_PROPOSAL_CFG = dict(nms_pre=1000, max_per_img=1000,
                             nms=dict(iou_threshold=0.7), min_bbox_size=0)
@@ -120,3 +126,54 @@ class MaskRCNN(TwoStageDetector):
 class GridRCNN(TwoStageDetector):
     """Grid R-CNN (mmdet models/detectors/grid_rcnn.py): the grid branch
     lives in the RoI head (`roi_heads/grid_roi_head.py::GridRoIHead`)."""
+
+
+class RPN(nn.Module):
+    """The standalone RPN (JAX two_stage.py::RPN). `simple_test` proposes
+    with the head's test config (JAX: test_cfg["rpn"], or the whole
+    test_cfg without one), its NMS at IoU 0.7 unless set."""
+
+    def __init__(self, backbone: nn.Module, rpn_head: RPNHead,
+                 neck: Optional[nn.Module] = None):
+        super().__init__()
+        self.backbone = backbone
+        self.neck = neck
+        self.rpn_head = rpn_head
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for m in (self.backbone, self.neck, self.rpn_head):
+            if m is not None:
+                m.init_weights(generator)
+
+    extract_feat = TwoStageDetector.extract_feat
+
+    def forward(self, img: torch.Tensor) -> DetResult:
+        b, h, w = img.shape[:3]
+        img_shapes = torch.tensor([[h, w]], dtype=torch.int32,
+                                  device=img.device).expand(b, 2)
+        return self.simple_test(img, img_shapes)
+
+    def simple_test(self, img: torch.Tensor, img_shapes: torch.Tensor,
+                    scale_factors: Optional[torch.Tensor] = None,
+                    rescale: bool = False) -> DetResult:
+        """img (B, H, W, 3) -> the proposals as detections: bboxes
+        (B, P, 5) with the score, labels 0, valid (B, P); with `rescale`
+        divided by `scale_factors` (B, 4)."""
+        feats = self.extract_feat(img)
+        cfg = dict(self.rpn_head.test_cfg or {})
+        cfg.setdefault("nms", dict(iou_threshold=0.7))
+        proposals, scores, valid = self.rpn_head.get_proposals(
+            *self.rpn_head(feats), img_shapes, cfg)
+        if rescale and scale_factors is not None:
+            proposals = proposals / scale_factors[:, None, :]
+        return DetResult(torch.cat([proposals, scores[..., None]], -1),
+                         torch.zeros(scores.shape, dtype=torch.int32,
+                                     device=scores.device), valid)
+
+    def forward_train(self, img: torch.Tensor, batch: Dict[str, torch.Tensor],
+                      generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """The RPN head's loss, every gt of class 0."""
+        feats = self.extract_feat(img)
+        rpn_batch = dict(batch, pad_shape=tuple(img.shape[1:3]),
+                         gt_labels=torch.zeros_like(batch["gt_labels"]))
+        return self.rpn_head.loss(*self.rpn_head(feats), rpn_batch, generator)

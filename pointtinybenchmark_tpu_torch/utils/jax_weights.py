@@ -44,9 +44,11 @@ its input rows permuted: the JAX heads flatten (S, S, C) RoI features as
 tools/model_converters/torch2jax.py). Every leaf
 of the trees must be used and every entry of the model's state_dict
 filled; BN's `num_batches_tracked` has no JAX counterpart and is left as
-it is. `jax_param_paths` is the inverse for a model's parameters: each
-one's flax path, held to give the parameter's name back through the same
-map (the optimizer's `paramwise_cfg` classifies parameters by it).
+it is. `jax_params_like` maps a tree of the params' layout (an optax
+momentum trace or moment) the same way. `jax_param_paths` is the inverse
+for a model's parameters: each one's flax path, held to give the
+parameter's name back through the same map (the optimizer's
+`paramwise_cfg` classifies parameters by it).
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ import torch
 
 from ..models.backbones.resnet import BasicBlock
 
-__all__ = ["load_jax_variables", "jax_to_state_dict", "jax_param_paths"]
+__all__ = ["load_jax_variables", "jax_to_state_dict", "jax_param_paths",
+           "jax_params_like"]
 
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
@@ -289,17 +292,20 @@ def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
     return out
 
 
-def load_jax_variables(model: torch.nn.Module, params: Mapping,
-                       batch_stats: Optional[Mapping] = None) -> None:
-    """Copy JAX variables into `model` in place."""
+def _model_state_dict(model: torch.nn.Module, params: Mapping,
+                      batch_stats: Optional[Mapping]
+                      ) -> Dict[str, torch.Tensor]:
+    """`jax_to_state_dict` with the model's RoI size and block kind."""
     roi_head = getattr(model, "roi_head", None)
     roi_feat = (roi_head.bbox_head.roi_feat_size if roi_head is not None
                 else getattr(getattr(model, "bbox_head", None), "roi_size", 7))
-    sd = jax_to_state_dict(params, batch_stats, roi_feat,
-                           any(isinstance(m, BasicBlock)
-                               for m in model.modules()))
-    own = {k: v for k, v in model.state_dict().items()
-           if not k.endswith("num_batches_tracked")}
+    return jax_to_state_dict(params, batch_stats, roi_feat,
+                             any(isinstance(m, BasicBlock)
+                                 for m in model.modules()))
+
+
+def _check_against(sd: Mapping[str, torch.Tensor],
+                   own: Mapping[str, torch.Tensor]) -> None:
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))
     if missing or extra:
@@ -309,4 +315,23 @@ def load_jax_variables(model: torch.nn.Module, params: Mapping,
         if tuple(v.shape) != tuple(own[k].shape):
             raise ValueError(f"{k}: JAX shape {tuple(v.shape)} vs "
                              f"{tuple(own[k].shape)}")
+
+
+def load_jax_variables(model: torch.nn.Module, params: Mapping,
+                       batch_stats: Optional[Mapping] = None) -> None:
+    """Copy JAX variables into `model` in place."""
+    sd = _model_state_dict(model, params, batch_stats)
+    _check_against(sd, {k: v for k, v in model.state_dict().items()
+                        if not k.endswith("num_batches_tracked")})
     model.load_state_dict(sd, strict=False)
+
+
+def jax_params_like(model: torch.nn.Module, tree: Mapping
+                    ) -> Dict[str, torch.Tensor]:
+    """A tree of the JAX params' layout (an optax momentum trace or
+    moment) -> {parameter name: tensor in the parameter's layout}, through
+    the same transposes and permutations as the params; every parameter
+    of `model` must be filled."""
+    sd = _model_state_dict(model, tree, None)
+    _check_against(sd, dict(model.named_parameters()))
+    return sd

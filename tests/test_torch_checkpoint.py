@@ -261,7 +261,9 @@ def _loop_cfg(cfg_path, lr):
 def test_train_detector_loads_from_jax_checkpoint(jax_ckpt, tmp_path):
     """train_detector(load_from=<.ckpt>) at lr 0: after one step the
     weights are the checkpoint's params and batch stats, bit for bit, not
-    the seeded ones; resume_from a .ckpt is refused."""
+    the seeded ones. resume_from the .ckpt takes its weights, step and
+    optax state (one update) and restarts where JAX's loop would: at its
+    meta's epoch 2, past this run's one iteration, so no step runs."""
     cfg_path, ckpt, params, stats = jax_ckpt
     cfg = Config.fromfile(cfg_path)
     data = [dict(img=np.random.RandomState(1).randn(64, 96, 3).astype(
@@ -279,7 +281,12 @@ def test_train_detector_loads_from_jax_checkpoint(jax_ckpt, tmp_path):
     got = result["model"].state_dict()
     for k, v in want.items():
         assert torch.equal(got[k], v), k
-    with pytest.raises(NotImplementedError, match="resume_from"):
-        train_detector(fresh(), data, _loop_cfg(cfg_path, 0.0),
-                       str(tmp_path / "resume"), resume_from=ckpt,
-                       device="cpu")
+    resumed = train_detector(fresh(), data, _loop_cfg(cfg_path, 0.0),
+                             str(tmp_path / "resume"), resume_from=ckpt,
+                             device="cpu")
+    assert resumed["history"] == []
+    assert int(resumed["state"]["step"]) == 5
+    assert int(resumed["optimizer"].count) == 1
+    got = resumed["model"].state_dict()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k

@@ -17,8 +17,9 @@ packages' CocoFmtDataset:
   tile_offset included;
 - the dataset options: class discovery, `min_gt_size`, the corner and
   noise json written on the fly, a proposal file, and `format_results`;
-- the registry refuses what it does not hold, and the two not-ported
-  options raise.
+- the registry refuses what it does not hold; the options that were
+  refused before the dataset wrappers, the recall and the tile merge were
+  ported now build and give JAX's results.
 
 Both packages decode with PIL, so the images compare bit for bit.
 """
@@ -268,13 +269,15 @@ def test_refused_and_not_ported(tiny_set):
         PIPELINES.build(dict(type="PhotoMetricDistortion"))
     cfg = dict(type="CocoFmtDataset", ann_file=str(tiny_set["test"]),
                pipeline=[], test_mode=True)
-    with pytest.raises(NotImplementedError, match="merge.py"):
-        build_dataset(dict(cfg, merge_after_infer_kwargs=dict(
-            merge_gt_file="x.json")))
-    ds = build_dataset(cfg)
+    merged = build_dataset(dict(cfg, merge_after_infer_kwargs=dict(
+        merge_gt_file="x.json")))
+    assert merged.merge_after_infer_kwargs == dict(merge_gt_file="x.json")
+    jds, ds = both(cfg)
     results = [dict(bboxes=np.zeros((0, 5), np.float32),
                     labels=np.zeros(0, np.int64))] * len(ds)
-    with pytest.raises(NotImplementedError, match="recall.py"):
-        ds.evaluate(results, metric="proposal_fast")
-    with pytest.raises(NotImplementedError, match="ConcatDataset"):
-        build_dataset([cfg, cfg])
+    got = ds.evaluate(results, metric="proposal_fast")
+    assert got == jds.evaluate(results, metric="proposal_fast")
+    assert list(got) == ["AR@100", "AR@300", "AR@1000"]
+    jcat, cat = jax_build_dataset([cfg, cfg]), build_dataset([cfg, cfg])
+    assert len(cat) == len(jcat) == 2 * len(ds)
+    assert_same(jcat.flag, cat.flag)
