@@ -546,6 +546,66 @@ TTA_IMAGE_LAUNCHES = dict(NO_LAUNCHES, iou_bitmask=3, greedy_reduce=3,
 # (d)'s classifier fix: e^4 / (8 e^4 + 73) ~ 0.107 for each lifted class
 LIFT_CLASSES = 8
 LIFT_BIAS = 4.0
+# phase 17: Cascade R-CNN, the V1.x legacy configs, the last datasets and
+# transforms. (a) Cascade R-CNN on two COCO_HW images: the RPN's and the
+# final NMS, one RoIAlign a stage; a train step: the RPN's NMS, each
+# stage's RoIAlign and its backward
+CASCADE_CONFIG = REPO / "configs/coco/cascade_rcnn_r50_fpn_1x_coco.py"
+CASCADE_IMAGE_LAUNCHES = dict(NO_LAUNCHES, iou_bitmask=2, greedy_reduce=2,
+                              roi_align=3)
+CASCADE_TRAIN_LAUNCHES = dict(NO_LAUNCHES, iou_bitmask=1, greedy_reduce=1,
+                              roi_align=3, roi_align_backward=3)
+CASCADE_TRAIN_IMAGES = 2         # samples_per_gpu
+CASCADE_KINDS = ((7, "bbox s0"), (7, "bbox s1"), (7, "bbox s2"))
+# (b) the V1.x configs: RoIAlign aligned=False, the legacy coder and anchors
+LEGACY_RUNS = (
+    ("legacy_cascade", REPO / "configs/legacy_1x/"
+     "cascade_mask_rcnn_r50_fpn_1x_coco_v1.py", CASCADE_IMAGE_LAUNCHES,
+     CASCADE_TRAIN_LAUNCHES, CASCADE_KINDS),
+    ("legacy_mask_rcnn", REPO / "configs/legacy_1x/"
+     "mask_rcnn_r50_fpn_1x_coco_v1.py", dict(
+         NO_LAUNCHES, iou_bitmask=2, greedy_reduce=2, roi_align=2),
+     MASK_TRAIN_LAUNCHES, ((7, "bbox"), (14, "mask"))))
+EDGE_TILES = 2
+# (c) the train CLI: CLI_ITERS iterations of an IterBasedRunner on
+# CLI_TRAIN_IMAGES synthetic COCO-format JPEGs with masks, validation on
+# CLI_VAL_IMAGES at the end (run_test, one image a batch)
+CLI_ITERS = 4
+CLI_TRAIN_IMAGES = 4
+CLI_VAL_IMAGES = 2
+MASK_IMAGE_LAUNCHES = dict(NO_LAUNCHES, iou_bitmask=2, greedy_reduce=2,
+                           roi_align=2)
+CITYSCAPES_CLASSES = ("person", "rider", "car", "truck", "bus", "train",
+                      "motorcycle", "bicycle")
+DEEPFASHION_CLASSES = ("top", "skirt", "leggings", "dress", "outer", "pants",
+                       "bag", "neckwear", "headwear", "eyeglass", "belt",
+                       "footwear", "hair", "skin", "face")
+CLI_RUNS = (
+    ("instaboost_cascade", REPO / "configs/instaboost/cascade_mask_rcnn_r50_"
+     "fpn_instaboost_4x_coco.py", CASCADE_TRAIN_LAUNCHES,
+     CASCADE_IMAGE_LAUNCHES, None),
+    ("instaboost_mask_rcnn", REPO / "configs/instaboost/mask_rcnn_r50_fpn_"
+     "instaboost_4x_coco.py", MASK_TRAIN_LAUNCHES, MASK_IMAGE_LAUNCHES, None),
+    ("albu_mask_rcnn", REPO / "configs/albu_example/mask_rcnn_r50_fpn_albu_"
+     "1x_coco.py", MASK_TRAIN_LAUNCHES, MASK_IMAGE_LAUNCHES, None),
+    ("deepfashion_mask_rcnn", REPO / "configs/deepfashion/mask_rcnn_r50_fpn_"
+     "15e_deepfashion.py", MASK_TRAIN_LAUNCHES, MASK_IMAGE_LAUNCHES,
+     DEEPFASHION_CLASSES),
+    ("cityscapes_faster_rcnn", REPO / "configs/cityscapes/faster_rcnn_r50_"
+     "fpn_1x_cityscapes.py", TRAIN_LAUNCHES, TWO_STAGE_IMAGE_LAUNCHES,
+     CITYSCAPES_CLASSES))
+GHM_CONFIG = REPO / "configs/coco/retinanet_ghm_r50_fpn_1x_coco.py"
+# the JAX package's reasons (its GHMC takes label_weight, not weight=; its
+# SeesawLoss takes the C foreground logits, the RoI head hands it C + 1)
+GHM_REASON = "GHMC.__call__() got an unexpected keyword argument 'weight'"
+SEESAW_REASON = ("mul got incompatible shapes for broadcasting: (1024, "
+                 "1204), (1024, 1203).")
+# (d) the LVIS Seesaw config: 1,203 classes; e^8 / (8 e^8 + 1,196) ~ 0.12
+# for each lifted class, over the config's score_thr of 0.05
+LVIS_CONFIG = REPO / "configs/coco/faster_rcnn_r50_fpn_seesaw_1x_lvis.py"
+LVIS_CLASSES = 1203
+LVIS_IMAGES = 2
+LVIS_LIFT_BIAS = 8.0
 P2B_CONFIG = REPO / "configs/p2b/p2bnet_r50_fpn_1x_coco.py"
 SSD_CONFIG = REPO / "configs/ssd_det/ssd_det_r50_fpn_1x_coco.py"
 P2B_TRAIN_LAUNCHES = {"iou_bitmask": 0, "greedy_reduce": 0, "roi_align": 3,
@@ -1082,7 +1142,7 @@ def reduce_steps(order, keep, num_kept, n_valid, max_out):
                        full).tolist()
 
 
-def roi_align_bound(feats, rois, lvls, out, sr):
+def roi_align_bound(feats, rois, lvls, out, sr, aligned=True):
     """(ms, bounded by): the output written once, rois and levels read once,
     and every feature cell that an in-bounds tap reads, read once; 8 * sr^2
     float32 operations per output value (4 products and 3 sums per sample,
@@ -1092,7 +1152,7 @@ def roi_align_bound(feats, rois, lvls, out, sr):
     scale, hf, wf, base, width = roi_align.level_tables(feats, rois, lvls,
                                                         ROI_STRIDES)
     y0, y1, x0, x1, *_, inb = roi_align.sample_taps(rois, scale, hf, wf, out,
-                                                    sr, True)
+                                                    sr, aligned)
     base, width = base[:, None, None], width[:, None, None]
     cells = torch.cat([(base + yy * width + xx)[inb]
                        for yy, xx in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))])
@@ -1256,15 +1316,15 @@ def phase_kernels(card):
             for k in ("iou_bitmask", "greedy_reduce")}
 
 
-def compare_roi_align(feats, rois, lvls, out, sr):
+def compare_roi_align(feats, rois, lvls, out, sr, aligned=True):
     """Kernel vs plain on the same inputs: (kernel out, max abs err). Fails
     unless the two are equal (torch.equal)."""
     from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
 
     got = roi_align_cuda.roi_align_forward(feats, rois, lvls, ROI_STRIDES,
-                                           out, sr)
+                                           out, sr, aligned)
     want = roi_align.roi_align_multilevel_plain(feats, rois, lvls,
-                                                ROI_STRIDES, out, sr)
+                                                ROI_STRIDES, out, sr, aligned)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not torch.equal(got, want):
@@ -1272,7 +1332,7 @@ def compare_roi_align(feats, rois, lvls, out, sr):
     return got, err
 
 
-def roi_paths(feats, rois, lvls, out, sr):
+def roi_paths(feats, rois, lvls, out, sr, aligned=True):
     """{kernel path: rois that take it} for these inputs, from the kernel's
     own counts (one launch, outside any counted run)."""
     from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
@@ -1280,7 +1340,7 @@ def roi_paths(feats, rois, lvls, out, sr):
     counts = torch.zeros(len(roi_align_cuda.PATHS), dtype=torch.int32,
                          device=rois.device)
     roi_align_cuda.roi_align_forward(feats, rois, lvls, ROI_STRIDES, out, sr,
-                                     path_counts=counts)
+                                     aligned, path_counts=counts)
     return dict(zip(roi_align_cuda.PATHS, counts.tolist()))
 
 
@@ -1296,13 +1356,13 @@ def ps_per_sample(ms, feats, r, out, sr):
     return ms * 1e9 / (r * out * out * sr * sr * feats[0].shape[1])
 
 
-def time_roi_align(feats, rois, lvls, out, sr):
+def time_roi_align(feats, rois, lvls, out, sr, aligned=True):
     from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
 
     ms = time_ms(lambda: roi_align_cuda.roi_align_forward(
-        feats, rois, lvls, ROI_STRIDES, out, sr), ITERS)
+        feats, rois, lvls, ROI_STRIDES, out, sr, aligned), ITERS)
     plain_ms = time_ms(lambda: roi_align.roi_align_multilevel_plain(
-        feats, rois, lvls, ROI_STRIDES, out, sr), PLAIN_ITERS)
+        feats, rois, lvls, ROI_STRIDES, out, sr, aligned), PLAIN_ITERS)
     return ms, plain_ms
 
 
@@ -1994,7 +2054,7 @@ def roi_align_backward_bound(r, c, out, sr, shapes):
     return bound(nbytes, r * c * out * out * (1 + 8 * sr * sr))
 
 
-def compare_roi_align_backward(g, rois, lvls, shapes, out, sr):
+def compare_roi_align_backward(g, rois, lvls, shapes, out, sr, aligned=True):
     """The backward kernel against the plain backward (autograd through the
     plain forward) on the same inputs: (max abs err, worst err over the
     level's max |gradient|). Fails above BWD_TOL of a level's max."""
@@ -2002,9 +2062,9 @@ def compare_roi_align_backward(g, rois, lvls, shapes, out, sr):
 
     cl = [True] * len(shapes)
     got = roi_align_cuda.roi_align_backward(g, rois, lvls, shapes, cl,
-                                            ROI_STRIDES, out, sr)
+                                            ROI_STRIDES, out, sr, aligned)
     want = roi_align.roi_align_backward_plain(g, rois, lvls, shapes, cl,
-                                              ROI_STRIDES, out, sr)
+                                              ROI_STRIDES, out, sr, aligned)
     torch.cuda.synchronize()
     err, share = 0.0, 0.0
     for a, b in zip(got, want):
@@ -2019,20 +2079,21 @@ def compare_roi_align_backward(g, rois, lvls, shapes, out, sr):
     return err, share
 
 
-def time_roi_align_backward(g, rois, lvls, shapes, out, sr):
+def time_roi_align_backward(g, rois, lvls, shapes, out, sr, aligned=True):
     """(call ms, plain ms): whole wrapper calls between CUDA events, the
     zero fill, argument checks and ctypes call included."""
     from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
 
     cl = [True] * len(shapes)
     ms = time_ms(lambda: roi_align_cuda.roi_align_backward(
-        g, rois, lvls, shapes, cl, ROI_STRIDES, out, sr), ITERS)
+        g, rois, lvls, shapes, cl, ROI_STRIDES, out, sr, aligned), ITERS)
     plain_ms = time_ms(lambda: roi_align.roi_align_backward_plain(
-        g, rois, lvls, shapes, cl, ROI_STRIDES, out, sr), PLAIN_ITERS)
+        g, rois, lvls, shapes, cl, ROI_STRIDES, out, sr, aligned),
+        PLAIN_ITERS)
     return ms, plain_ms
 
 
-def backward_paths(g, rois, lvls, shapes, out, sr):
+def backward_paths(g, rois, lvls, shapes, out, sr, aligned=True):
     """{kernel path: rois that take it} of the backward for these inputs,
     from the kernel's own counts (one launch, outside any counted run)."""
     from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
@@ -2041,7 +2102,7 @@ def backward_paths(g, rois, lvls, shapes, out, sr):
                          device=rois.device)
     roi_align_cuda.roi_align_backward(g, rois, lvls, shapes,
                                       [True] * len(shapes), ROI_STRIDES, out,
-                                      sr, path_counts=counts)
+                                      sr, aligned, path_counts=counts)
     return dict(zip(roi_align_cuda.PATHS, counts.tolist()))
 
 
@@ -2782,28 +2843,35 @@ def step_rois(card, fwd, bwd, phase="8", label="mask_rcnn train step",
     """The K2 forward (torch.equal) and backward (within BWD_TOL) against
     their plain versions on one train step's recorded launches, with the
     rois on each kernel path, call times and bounds; `kinds` names the
-    launches by S. Returns the forward's and the backward's records and the
-    backward's inputs, one per forward launch."""
+    launches by S, one name a launch of that S in launch order (a
+    cascade's stages). The k-th forward of an S pairs with the k-th last
+    backward of that S (autograd runs the backwards in reverse). Returns
+    the forward's and the backward's records and the backward's inputs,
+    one per forward launch."""
     f_rows, b_rows, b_inputs = [], [], []
-    for (feats, rois, lvls, _, out, sr, *_), _, _ in fwd:
+    for (feats, rois, lvls, _, out, sr, *rest), _, _ in fwd:
+        aligned = rest[0] if rest else True
         feats = [f.detach() for f in feats]
-        g = next(args[0] for args, _, _ in bwd if args[0].shape[-1] == out)
+        k = sum(1 for row in f_rows if row["S"] == out)
+        g = [args[0] for args, _, _ in bwd if args[0].shape[-1] == out][
+            -1 - k]
         shapes = [tuple(f.shape) for f in feats]
-        name = f"{label} {dict(kinds)[out]} rois"
+        name = f"{label} {[n for s, n in kinds if s == out][k]} rois"
         r = rois.shape[0]
         per_level = torch.bincount(lvls, minlength=len(ROI_LEVELS)).tolist()
-        _, f_err = compare_roi_align(feats, rois, lvls, out, sr)
-        f_paths = roi_paths(feats, rois, lvls, out, sr)
+        _, f_err = compare_roi_align(feats, rois, lvls, out, sr, aligned)
+        f_paths = roi_paths(feats, rois, lvls, out, sr, aligned)
         err, share = compare_roi_align_backward(g, rois, lvls, shapes, out,
-                                                sr)
-        b_paths = backward_paths(g, rois, lvls, shapes, out, sr)
-        f_ms, f_plain = time_roi_align(feats, rois, lvls, out, sr)
-        f_bms, f_by = roi_align_bound(feats, rois, lvls, out, sr)
+                                                sr, aligned)
+        b_paths = backward_paths(g, rois, lvls, shapes, out, sr, aligned)
+        f_ms, f_plain = time_roi_align(feats, rois, lvls, out, sr, aligned)
+        f_bms, f_by = roi_align_bound(feats, rois, lvls, out, sr, aligned)
         b_ms, b_plain = time_roi_align_backward(g, rois, lvls, shapes, out,
-                                                sr)
+                                                sr, aligned)
         b_bms, b_by = roi_align_backward_bound(r, g.shape[1], out, sr, shapes)
-        print(f"phase {phase} {name} (R={r}, S={out}, sr={sr}, per level "
-              f"{per_level}): forward kernel == plain (torch.equal), paths "
+        print(f"phase {phase} {name} (R={r}, S={out}, sr={sr}, aligned "
+              f"{aligned}, per level {per_level}): forward kernel == plain "
+              f"(torch.equal), paths "
               f"{shares(f_paths)}; backward kernel vs plain {err:.3e} "
               f"({share:.3e} of the level's max, bar {BWD_TOL}), paths "
               f"{shares(b_paths)}")
@@ -2811,11 +2879,12 @@ def step_rois(card, fwd, bwd, phase="8", label="mask_rcnn train step",
               f"{f_plain:.4f}, bound {f_bms:.4f} {f_by}), backward call "
               f"{b_ms:.4f} ms (plain {b_plain:.4f}, bound {b_bms:.4f} {b_by})"
               f" [{card}]")
-        f_rows.append(dict(shape=name, R=r, S=out, sr=sr, max_abs_err=f_err,
-                           ms=f_ms, plain_ms=f_plain, bound_ms=f_bms,
-                           bound_by=f_by, per_level=per_level,
+        f_rows.append(dict(shape=name, R=r, S=out, sr=sr, aligned=aligned,
+                           max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
+                           bound_ms=f_bms, bound_by=f_by, per_level=per_level,
                            paths=f_paths))
-        b_rows.append(dict(shape=name, R=r, S=out, sr=sr, rois="train step",
+        b_rows.append(dict(shape=name, R=r, S=out, sr=sr, aligned=aligned,
+                           rois="train step",
                            max_abs_err=err, err_share=share, ms=b_ms,
                            plain_ms=b_plain, bound_ms=b_bms, bound_by=b_by,
                            per_level=per_level, paths=b_paths))
@@ -5131,15 +5200,23 @@ def phase_dataset(card):
 
 
 # ------------------------------- phase 15: Scale Match pretraining
-def write_coco_set(img_dir, path, n, rng):
+def write_coco_set(img_dir, path, n, rng, masks=False, names=None):
     """`n` JPEG images in `img_dir`, 640x480 and 480x640 in turn, each
     with SM_OBJECTS boxes of SM_SIDES px (log-uniform, bright blocks on a
-    dark noisy ground) of the 80 COCO categories, ~5% iscrowd; their COCO
-    json at `path`, the file names prefixed by its stem."""
+    dark noisy ground) of the 80 COCO categories (or of the classes
+    `names`), ~5% iscrowd; with `masks` each object's ellipse inscribed in
+    its box, a 16-gon polygon, painted brighter and kept as its
+    segmentation. Their COCO json at `path`, the file names prefixed by
+    its stem."""
     from PIL import Image
+
+    from PIL import ImageDraw
 
     img_dir.mkdir(parents=True, exist_ok=True)
     path.parent.mkdir(parents=True, exist_ok=True)
+    ids = COCO_IDS if names is None else tuple(range(1, len(names) + 1))
+    names = names or [f"class{c}" for c in COCO_IDS]
+    angles = np.linspace(0, 2 * np.pi, 16, endpoint=False)
     images, anns = [], []
     for i in range(n):
         h, w = ((480, 640), (640, 480))[i % 2]
@@ -5151,16 +5228,24 @@ def write_coco_set(img_dir, path, n, rng):
             img[int(y):int(y + bh), int(x):int(x + bw)] = rng.randint(
                 120, 256, 3)
             anns.append(dict(id=len(anns) + 1, image_id=i + 1,
-                             category_id=int(rng.choice(COCO_IDS)),
+                             category_id=int(rng.choice(ids)),
                              bbox=[round(float(v), 2) for v in (x, y, bw, bh)],
                              area=float(bw * bh),
                              iscrowd=int(rng.rand() < 0.05)))
+            if masks:
+                poly = np.stack([x + bw / 2 * (1 + np.cos(angles)),
+                                 y + bh / 2 * (1 + np.sin(angles))], 1)
+                anns[-1]["segmentation"] = [poly.round(2).ravel().tolist()]
+                pil = Image.fromarray(img)
+                ImageDraw.Draw(pil).polygon([tuple(p) for p in poly],
+                                            fill=(255, 255, 255))
+                img = np.asarray(pil).copy()
         fn = f"{path.stem}_{i}.jpg"
         Image.fromarray(img).save(img_dir / fn, quality=90)
         images.append(dict(id=i + 1, file_name=fn, width=w, height=h))
     path.write_text(json.dumps(dict(
         images=images, annotations=anns,
-        categories=[dict(id=c, name=f"class{c}") for c in COCO_IDS])))
+        categories=[dict(id=c, name=nm) for c, nm in zip(ids, names)])))
     return len(anns)
 
 
@@ -5385,7 +5470,7 @@ def expect(launches, want, what):
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
 
-def first_k1_rows(card, labels, bits, walks):
+def first_k1_rows(card, labels, bits, walks, phase="16"):
     """K1 alone against its plain version at a run's first launches, one
     row a label (launch order); a launch with no valid candidate (random
     weights whose scores all fall under score_thr) is printed, not held."""
@@ -5393,32 +5478,34 @@ def first_k1_rows(card, labels, bits, walks):
     for label, ((sboxes, thr, n_valid), _, _), ((_, ok, order, _, _), _, _) \
             in zip(labels, bits, walks):
         if int(n_valid.max()) == 0:
-            print(f"phase 16 {label}: K1 launch B={sboxes.shape[0]} "
+            print(f"phase {phase} {label}: K1 launch B={sboxes.shape[0]} "
                   f"N={sboxes.shape[1]} with no valid candidate (every "
                   f"score under score_thr)")
             continue
         rows.append(k1_row(card, label, sboxes, ok, order, n_valid, thr,
-                           phase="16"))
+                           phase=phase))
     return rows
 
 
-def k2_forward_row(card, label, call):
+def k2_forward_row(card, label, call, phase="16"):
     """K2's forward (torch.equal) against its plain version on one recorded
     inference launch, with the rois on each path, times and bound."""
-    (feats, rois, lvls, _, out, sr, *_), _, _ = call
+    (feats, rois, lvls, _, out, sr, *rest), _, _ = call
+    aligned = rest[0] if rest else True
     per_level = torch.bincount(lvls, minlength=len(ROI_LEVELS)).tolist()
-    _, err = compare_roi_align(feats, rois, lvls, out, sr)
-    paths = roi_paths(feats, rois, lvls, out, sr)
-    ms, plain_ms = time_roi_align(feats, rois, lvls, out, sr)
-    bms, by = roi_align_bound(feats, rois, lvls, out, sr)
+    _, err = compare_roi_align(feats, rois, lvls, out, sr, aligned)
+    paths = roi_paths(feats, rois, lvls, out, sr, aligned)
+    ms, plain_ms = time_roi_align(feats, rois, lvls, out, sr, aligned)
+    bms, by = roi_align_bound(feats, rois, lvls, out, sr, aligned)
     r = rois.shape[0]
-    print(f"phase 16 {label} (R={r}, S={out}, sr={sr}, per level "
+    print(f"phase {phase} {label} (R={r}, S={out}, sr={sr}, aligned "
+          f"{aligned}, per level "
           f"{per_level}): forward kernel == plain (torch.equal), paths "
           f"{shares(paths)}; kernel {ms:.4f} ms (plain {plain_ms:.4f}, "
           f"bound {bms:.4f} {by}) [{card}]")
-    return dict(shape=label, R=r, S=out, sr=sr, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                per_level=per_level, paths=paths)
+    return dict(shape=label, R=r, S=out, sr=sr, aligned=aligned,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, per_level=per_level, paths=paths)
 
 
 def phase_point_workflow(card, root):
@@ -5736,12 +5823,15 @@ def phase_rpn(card, root):
     return {"rpn_run_test": launches}, k1
 
 
-def lift_classes(model):
+def lift_classes(model, bias=LIFT_BIAS):
     """A random 81-way softmax scores every class near 1/81, under the
     config's score_thr of 0.05: raise the first LIFT_CLASSES classes'
-    logits so that the RoI head detects."""
+    logits (in every stage of a cascade) so that the RoI head detects."""
+    heads = model.roi_head.bbox_head
     with torch.no_grad():
-        model.roi_head.bbox_head.fc_cls.bias[:LIFT_CLASSES] += LIFT_BIAS
+        for head in (heads if isinstance(heads, torch.nn.ModuleList)
+                     else [heads]):
+            head.fc_cls.bias[:LIFT_CLASSES] += bias
 
 
 def phase_whole_image(card, root):
@@ -5979,6 +6069,477 @@ def phase_workflow(card):
             f_rows + k2_whole + k2_merge, b_rows)
 
 
+# ---------- phase 17: Cascade R-CNN, the V1.x configs, the last datasets
+def cascade_images(rng, n):
+    """n COCO_HW float32 images, bright blocks (`coco_objects`) on a dark
+    noisy ground."""
+    h, w = COCO_HW
+    out = []
+    for _ in range(n):
+        img = rng.randint(0, 70, (h, w, 3)).astype(np.uint8)
+        for x1, y1, x2, y2 in coco_objects(rng, (h, w)).astype(int):
+            img[y1:y2, x1:x2] = rng.randint(120, 256, 3)
+        out.append(img.astype(np.float32))
+    return out
+
+
+def detect_and_hold(card, phase, label, config, imgs, expected, names):
+    """`inference_detector` of `config`'s seeded model, fc_cls lifted in
+    every stage (`lift_classes`), on `imgs`: the launches (`expected` an
+    image), the detections equal to the all-plain run's; K1 alone at the
+    first image's RPN and RoI head NMS, and K2's forward at its RoIAlign
+    launches (`names`, in launch order), against their plain versions.
+    Returns the handle, the seeded model's detection counts, the
+    detections, the launches and the K1 and K2 rows."""
+    from pointtinybenchmark_tpu_torch.apis.inference import (
+        inference_detector, init_detector)
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda, roi_align_cuda
+
+    handle = init_detector(str(config), device=DEVICE)
+    seeded = [len(r["bboxes"]) for r in inference_detector(handle, imgs)]
+    lift_classes(handle.model)
+    bits, walks, fwd = FirstCalls(2), FirstCalls(2), FirstCalls(len(names))
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded(nms_cuda, "iou_bitmask", bits), \
+            recorded(nms_cuda, "greedy_reduce", walks), \
+            recorded(roi_align_cuda, "roi_align_forward", fwd):
+        dets = inference_detector(handle, imgs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    expect(launches, {k: len(imgs) * v for k, v in expected.items()},
+           f"{label} inference_detector")
+    with plain_nms(), plain_roi_align():
+        plain = inference_detector(handle, imgs)
+    for i, (r, p) in enumerate(zip(dets, plain)):
+        if not len(r["bboxes"]) or not (
+                np.array_equal(r["bboxes"], p["bboxes"])
+                and np.array_equal(r["labels"], p["labels"])):
+            raise AssertionError(f"{label} image {i}: no detection, or "
+                                 f"kernels vs plain differ")
+    print(f"phase {phase} {label} inference_detector ({config.name}, seeded "
+          f"weights: {seeded} detections; then fc_cls's bias raised by "
+          f"{LIFT_BIAS} on its first {LIFT_CLASSES} classes in every stage) "
+          f"on {len(imgs)} {COCO_HW[1]}x{COCO_HW[0]} image(s): launches "
+          f"{launches}, {[len(r['bboxes']) for r in dets]} detections, equal "
+          f"to the all-plain run's; {wall:.2f} s (host clock, first call) "
+          f"[{card}]")
+    k1 = first_k1_rows(card, [f"{label} RPN", f"{label} RoI head"], bits,
+                       walks, phase=phase)
+    k2 = [k2_forward_row(card, f"{label} {n} rois", call, phase=phase)
+          for n, call in zip(names, fwd)]
+    return handle, seeded, dets, launches, k1, k2
+
+
+def step_and_hold(card, phase, label, config, expected, kinds, seed):
+    """One train step of `config`'s seeded model at its samples_per_gpu on
+    synthetic COCO_HW images with masks (`coco_train_samples`), with the
+    kernels and with the plain RoIAlign, from the same weights and draws:
+    the launches, equal losses, gradients within GRAD_TOL; on the step's
+    own launches K2 forward and backward (`step_rois`) and K1 alone at
+    the RPN's NMS. Returns the model (at its seeded weights), the config,
+    the batch, the launches and the K1, K2 forward and backward rows and
+    the backward's inputs."""
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.train import batch_to_device
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda, roi_align_cuda
+    from pointtinybenchmark_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(str(config))
+    spg = int(cfg.data["samples_per_gpu"])
+    samples = coco_train_samples(np.random.RandomState(seed), spg)
+    collator = DetCollator(None, int(cfg.loader["size_divisor"]),
+                           max_gt=int(cfg.loader["max_gt"]))
+    batch = batch_to_device(collator(samples), DEVICE)
+    model = train_model(cfg)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.backends.cudnn.deterministic = True
+    fwd, bwd, bits, walks = [], [], [], []
+    reset_launches()
+    with recorded(roi_align_cuda, "roi_align_forward", fwd), \
+            recorded(roi_align_cuda, "roi_align_backward", bwd), \
+            recorded(nms_cuda, "iou_bitmask", bits), \
+            recorded(nms_cuda, "greedy_reduce", walks):
+        got, got_grads = one_step(model, cfg, batch, seed=3)
+    launches = read_launches()
+    model.load_state_dict(init)
+    reset_launches()
+    with plain_roi_align():
+        want, want_grads = one_step(model, cfg, batch, seed=3)
+    p_launches = read_launches()
+    model.load_state_dict(init)
+    torch.backends.cudnn.deterministic = False
+    keys = [k for k in want if k.startswith("loss") or "num_pos" in k]
+    worst = grad_error(got_grads, want_grads)
+    print(f"phase {phase} {label} one train step ({config.name}, "
+          f"{spg} images of {tuple(batch['img'].shape[1:3])}, "
+          f"{[len(s['gt_bboxes']) for s in samples]} objects), kernels vs "
+          f"plain RoIAlign: launches {launches} vs {p_launches}; " + ", ".join(
+              f"{k} {got[k]:.6f}" for k in keys) + f"; losses equal: "
+          f"{all(got[k] == want[k] for k in keys)}; worst gradient error "
+          f"{worst:.3e} of its parameter's max |grad| (bar {GRAD_TOL}) "
+          f"[{card}]")
+    if launches != expected or p_launches["roi_align"] \
+            or p_launches["roi_align_backward"]:
+        raise AssertionError(f"{label}: launches {launches}, plain "
+                             f"{p_launches}, expected {expected}")
+    if any(got[k] != want[k] or not np.isfinite(got[k]) for k in keys) \
+            or worst > GRAD_TOL:
+        raise AssertionError(f"{label} kernels vs plain: {got} vs {want}, "
+                             f"gradient {worst}")
+    del got_grads, want_grads
+    f_rows, b_rows, b_inputs = step_rois(card, fwd, bwd, phase=phase,
+                                         label=f"{label} train step",
+                                         kinds=kinds)
+    (sboxes, thr, n_valid), _, _ = bits[0]
+    (_, ok, order, _, _), _, _ = walks[0]
+    k1 = k1_row(card, f"{label} train RPN", sboxes, ok, order, n_valid, thr,
+                phase=phase)
+    return model, cfg, batch, launches, k1, f_rows, b_rows, b_inputs
+
+
+def phase_cascade(card):
+    """Phase 17 (a): COCO Cascade R-CNN at full width, seeded weights:
+    `inference_detector` on two COCO_HW images (launches, the kernels
+    against the plain versions, K2's forward at each stage's rois), the
+    card against the CPU on the first; a train step at samples_per_gpu 2
+    (the kernels against the plain RoIAlign, each stage's K2 forward and
+    backward on the step's rois); train-step ms, peak memory, and a
+    profile (to be run after every timing) for the idle share."""
+    from pointtinybenchmark_tpu_torch.apis.inference import (
+        inference_detector, init_detector)
+
+    imgs = cascade_images(np.random.RandomState(171), 2)
+    names = [n for _, n in CASCADE_KINDS]
+    handle, _, dets, launches, k1, k2 = detect_and_hold(
+        card, "17 (a)", "cascade_rcnn", CASCADE_CONFIG, imgs,
+        CASCADE_IMAGE_LAUNCHES, names)
+    cpu = init_detector(str(CASCADE_CONFIG), device="cpu")
+    lift_classes(cpu.model)
+    ref = inference_detector(cpu, imgs[0])
+    order = np.argsort(-dets[0]["bboxes"][:, 4], kind="stable")
+    ref_order = np.argsort(-ref["bboxes"][:, 4], kind="stable")
+    n = dets_match((ref["bboxes"][ref_order], ref["labels"][ref_order]),
+                   (dets[0]["bboxes"][order], dets[0]["labels"][order]))
+    print(f"phase 17 (a) cascade_rcnn: the CPU's {n} detections of image 0 "
+          f"matched at tests/test_detector_golden.py:88's tolerances "
+          f"[{card}]")
+    del handle, cpu, ref
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    model, cfg, batch, train_launches, k1_train, f_rows, b_rows, b_inputs = \
+        step_and_hold(card, "17 (a)", "cascade_rcnn", CASCADE_CONFIG,
+                      CASCADE_TRAIN_LAUNCHES, CASCADE_KINDS, 172)
+    numbers, step_profile = time_step(card, "17 (a)", "cascade_rcnn_train",
+                                      cfg, model, batch, held,
+                                      CASCADE_TRAIN_IMAGES)
+    del model, batch
+
+    def profile():
+        step_profile()
+        for rec, args in zip(b_rows, b_inputs):
+            add_device_ms(card, rec, *args, phase="17 (a)")
+    return ({"cascade_rcnn_inference_detector": launches,
+             "cascade_rcnn_train_step": train_launches},
+            k1 + [k1_train], k2 + f_rows, b_rows, profile)
+
+
+def phase_edge_unaligned(card):
+    """Phase 17 (b): K2 forward and backward at aligned=False against
+    their plain versions on phase 2's edge rois (`edge_rois` of EDGE_TILES
+    512x640 tiles) at S=7 and S=14, sr 2: paths, times, bounds."""
+    from pointtinybenchmark_tpu_torch.models.roi_heads.roi_extractor import \
+        map_roi_levels
+
+    gen = torch.Generator(device=DEVICE).manual_seed(173)
+    feats = [torch.randn((EDGE_TILES, h, w, ROI_CHANNELS), generator=gen,
+                         device=DEVICE).permute(0, 3, 1, 2)
+             for h, w in ROI_LEVELS]
+    shapes = [tuple(f.shape) for f in feats]
+    rois = torch.from_numpy(edge_rois(EDGE_TILES)).to(DEVICE)
+    lvls = map_roi_levels(rois, len(ROI_LEVELS))
+    r = rois.shape[0]
+    f_rows, b_rows = [], []
+    for out, sr in ((7, 2), (14, 2)):
+        g = torch.randn((r, ROI_CHANNELS, out, out), generator=gen,
+                        device=DEVICE)
+        _, f_err = compare_roi_align(feats, rois, lvls, out, sr, False)
+        err, share = compare_roi_align_backward(g, rois, lvls, shapes, out,
+                                                sr, False)
+        f_paths = roi_paths(feats, rois, lvls, out, sr, False)
+        b_paths = backward_paths(g, rois, lvls, shapes, out, sr, False)
+        f_ms, f_plain = time_roi_align(feats, rois, lvls, out, sr, False)
+        f_bms, f_by = roi_align_bound(feats, rois, lvls, out, sr, False)
+        b_ms, b_plain = time_roi_align_backward(g, rois, lvls, shapes, out,
+                                                sr, False)
+        b_bms, b_by = roi_align_backward_bound(r, ROI_CHANNELS, out, sr,
+                                               shapes)
+        name = f"edge rois aligned=False S={out}"
+        print(f"phase 17 (b) {name} (R={r}: {EDGE_TILES} tiles of "
+              f"edge_rois, sr={sr}): forward kernel == plain (torch.equal), "
+              f"paths {shares(f_paths)}; backward kernel vs plain "
+              f"{err:.3e} ({share:.3e} of the level's max, bar {BWD_TOL}), "
+              f"paths {shares(b_paths)}; forward {f_ms:.4f} ms (plain "
+              f"{f_plain:.4f}, bound {f_bms:.4f} {f_by}), backward call "
+              f"{b_ms:.4f} ms (plain {b_plain:.4f}, bound {b_bms:.4f} "
+              f"{b_by}) [{card}]")
+        f_rows.append(dict(shape=name, R=r, S=out, sr=sr, aligned=False,
+                           max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
+                           bound_ms=f_bms, bound_by=f_by, paths=f_paths))
+        b_rows.append(dict(shape=name, R=r, S=out, sr=sr, aligned=False,
+                           rois="edge", max_abs_err=err, err_share=share,
+                           ms=b_ms, plain_ms=b_plain, bound_ms=b_bms,
+                           bound_by=b_by, paths=b_paths))
+    return f_rows, b_rows
+
+
+def phase_legacy(card):
+    """Phase 17 (b): the V1.x legacy Cascade R-CNN and Mask R-CNN at full
+    width (LEGACY_RUNS): one `inference_detector` and one train step each
+    (`detect_and_hold`, `step_and_hold`: RoIAlign at aligned=False, the
+    kernels against their plain versions on the calls' own launches),
+    then K2 at aligned=False on the edge rois."""
+    imgs = cascade_images(np.random.RandomState(174), 1)
+    by_path, k1_rows, f_rows, b_rows = {}, [], [], []
+    for i, (name, config, image, step, kinds) in enumerate(LEGACY_RUNS):
+        _, _, _, launches, k1, k2 = detect_and_hold(
+            card, "17 (b)", name, config, imgs, image,
+            [n for _, n in kinds])
+        model, _, _, train_launches, k1_train, f, b, _ = step_and_hold(
+            card, "17 (b)", name, config, step, kinds, 175 + i)
+        if not all(row["aligned"] is False for row in k2 + f + b):
+            raise AssertionError(f"{name}: a RoIAlign launch was aligned")
+        by_path.update({f"{name}_inference_detector": launches,
+                        f"{name}_train_step": train_launches})
+        k1_rows += k1 + [k1_train]
+        f_rows += k2 + f
+        b_rows += b
+        del model
+        torch.cuda.empty_cache()
+    f_edge, b_edge = phase_edge_unaligned(card)
+    return by_path, k1_rows, f_rows + f_edge, b_rows + b_edge
+
+
+def train_cli_run(name, config, opts, iters):
+    """The port's train CLI on `config` with `opts` (--cfg-options), an
+    IterBasedRunner of `iters` iterations, validation at the end: the
+    launches, the logged steps, the it/s and the metrics."""
+    from pointtinybenchmark_tpu_torch.tools import train as train_cli
+
+    work = Path.cwd() / f"work_{name}"
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = train_cli.main([
+        str(config), "--work-dir", str(work), "--seed", "0", "--device",
+        DEVICE, "--cfg-options", "runner.type=IterBasedRunner",
+        f"runner.max_iters={iters}", f"checkpoint_config.interval={iters}",
+        f"evaluation.interval={iters}", "log_config.interval=1", *opts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return metrics, read_launches(), wall, work
+
+
+def phase_cli(card, root):
+    """Phase 17 (c): the train CLI (CLI_RUNS) on synthetic COCO-format sets
+    with masks (`write_coco_set`: 80 COCO, 15 DeepFashion or 8 Cityscapes
+    classes): CLI_ITERS iterations and the validation at the end, the
+    launches a step and a validation image, it/s; the GHM RetinaNet's
+    first step refuses with the JAX package's reason."""
+    rng = np.random.RandomState(176)
+    sets = {}
+    for names in {r[4] for r in CLI_RUNS}:
+        tag = "coco" if names is None else f"{len(names)}_classes"
+        img_dir = root / f"data/{tag}/images"
+        anns = [root / f"data/{tag}/{split}.json" for split in ("train",
+                                                                 "val")]
+        n = [write_coco_set(img_dir, a, k, rng, masks=True, names=names)
+             for a, k in zip(anns, (CLI_TRAIN_IMAGES, CLI_VAL_IMAGES))]
+        sets[names] = (anns, img_dir, n)
+    by_path = {}
+    for name, config, step, val, names in CLI_RUNS:
+        (train_ann, val_ann), img_dir, n = sets[names]
+        opts = [f"data.train.ann_file={train_ann}",
+                f"data.train.img_prefix={img_dir}",
+                f"data.val.ann_file={val_ann}", f"data.val.img_prefix={img_dir}"]
+        metrics, launches, wall, work = train_cli_run(name, config, opts,
+                                                      CLI_ITERS)
+        expect(launches, {k: CLI_ITERS * step[k] + CLI_VAL_IMAGES * val[k]
+                          for k in step}, f"{name} train CLI")
+        log = log_steps(work, list(range(1, CLI_ITERS + 1)))
+        if metrics is None:
+            raise AssertionError(f"{name}: no validation ran")
+        print(f"phase 17 (c) {name} train CLI ({config.name}, {n[0]} + {n[1]} "
+              f"objects in {CLI_TRAIN_IMAGES} train and {CLI_VAL_IMAGES} val "
+              f"images): {wall:.1f} s (host clock); launches {launches} = "
+              f"{CLI_ITERS} steps x {step} + {CLI_VAL_IMAGES} val images x "
+              f"{val}; losses first {log[0]['loss']:.4f} last "
+              f"{log[-1]['loss']:.4f}; {1 / log[-1]['iter_time']:.3f} it/s "
+              f"(host clock, loader included, a log sync a step); "
+              f"validation {metrics} (random weights, not a quality number) "
+              f"[{card}]")
+        by_path[f"{name}_train_cli"] = launches
+    (train_ann, val_ann), img_dir, _ = sets[None]
+    try:
+        train_cli_run("ghm_retinanet", GHM_CONFIG, [
+            f"data.train.ann_file={train_ann}",
+            f"data.train.img_prefix={img_dir}", f"data.val.ann_file={val_ann}",
+            f"data.val.img_prefix={img_dir}"], 1)
+    except TypeError as e:
+        if str(e) != GHM_REASON:
+            raise
+        print(f"phase 17 (c) ghm_retinanet train CLI ({GHM_CONFIG.name}): "
+              f"the first step refuses with the JAX package's reason: "
+              f"TypeError: {e}")
+    else:
+        raise AssertionError("the GHM RetinaNet trained; the JAX package "
+                             "refuses it")
+    return by_path
+
+
+def write_lvis_set(root, split, n, rng):
+    """An LVIS v1-format split: LVIS_CLASSES categories (frequency r, c, f
+    in turn), `n` JPEGs of 640x480 / 480x640 under root/{split}2017 named
+    by their `coco_url`, each with 3-8 objects (bright blocks), 70% of them
+    of the first 16 classes, its `neg_category_ids` (4 of the first 16
+    classes it lacks) and `not_exhaustive_category_ids` (one it has).
+    Returns the json's path and the number of objects."""
+    from PIL import Image
+
+    img_dir = root / f"{split}2017"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    for i in range(n):
+        h, w = ((480, 640), (640, 480))[i % 2]
+        img = rng.randint(0, 70, (h, w, 3)).astype(np.uint8)
+        cats = set()
+        for _ in range(rng.randint(3, 9)):
+            c = int(rng.randint(1, 17)) if rng.rand() < 0.7 else \
+                int(rng.randint(17, LVIS_CLASSES + 1))
+            bw, bh = np.exp(rng.uniform(np.log(16), np.log(256), 2))
+            x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            img[int(y):int(y + bh), int(x):int(x + bw)] = rng.randint(
+                120, 256, 3)
+            anns.append(dict(id=len(anns) + 1, image_id=i + 1, category_id=c,
+                             bbox=[float(x), float(y), float(bw), float(bh)],
+                             area=float(bw * bh), iscrowd=0))
+            cats.add(c)
+        image_id = 1000 * (split == "train") + i + 1
+        Image.fromarray(img).save(img_dir / f"{image_id:012d}.jpg",
+                                  quality=90)
+        absent = [c for c in range(1, 17) if c not in cats]
+        images.append(dict(
+            id=i + 1, width=w, height=h,
+            coco_url=f"http://images.cocodataset.org/{split}2017/"
+                     f"{image_id:012d}.jpg",
+            neg_category_ids=absent[:4],
+            not_exhaustive_category_ids=sorted(cats)[:1]))
+    path = root / f"lvis_v1_{split}.json"
+    path.write_text(json.dumps(dict(
+        images=images, annotations=anns,
+        categories=[dict(id=c, name=f"lvis{c}", frequency="rcf"[c % 3])
+                    for c in range(1, LVIS_CLASSES + 1)])))
+    return path, len(anns)
+
+
+def phase_lvis(card, root):
+    """Phase 17 (d): the LVIS Seesaw config (1,203 classes) at full width:
+    the test CLI on a synthetic LVIS val split from a checkpoint of the
+    seeded weights with fc_cls's bias raised (LVIS_LIFT_BIAS on the first
+    LIFT_CLASSES classes): launches, the LVIS metrics, K1 alone at the RoI
+    head's 1,203-class launch; the train CLI's first step refuses with the
+    JAX package's reason."""
+    from pointtinybenchmark_tpu_torch.apis.inference import init_detector
+    from pointtinybenchmark_tpu_torch.ops import nms_cuda
+    from pointtinybenchmark_tpu_torch.tools import test as test_cli
+
+    rng = np.random.RandomState(177)
+    lvis = root / "data/lvis_v1"
+    val_ann, n_val = write_lvis_set(lvis, "val", LVIS_IMAGES, rng)
+    train_ann, _ = write_lvis_set(lvis, "train", 2, rng)
+    model = init_detector(str(LVIS_CONFIG), device=DEVICE).model
+    lift_classes(model, LVIS_LIFT_BIAS)
+    ckpt = root / "lvis_lifted.pth"
+    torch.save({"state_dict": model.state_dict()}, ckpt)
+    del model
+    opts = [f"data.test.ann_file={val_ann}", f"data.test.img_prefix={lvis}/"]
+    bits, walks = FirstCalls(2), FirstCalls(2)
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded(nms_cuda, "iou_bitmask", bits), \
+            recorded(nms_cuda, "greedy_reduce", walks):
+        metrics = test_cli.main([str(LVIS_CONFIG), str(ckpt), "--device",
+                                 DEVICE, "--cfg-options", *opts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    expect(launches, {k: LVIS_IMAGES * v for k, v in
+                      TWO_STAGE_IMAGE_LAUNCHES.items()}, "LVIS test CLI")
+    want = ["mAP", "AP50", "AP75", "APs", "APm", "APl", "APr", "APc", "APf",
+            "AR@300"]
+    if list(metrics) != want or not all(-1.0 <= v <= 1.0
+                                        for v in metrics.values()):
+        raise AssertionError(f"LVIS metrics {metrics}")
+    (sboxes, thr, n_valid), _, _ = bits[1]
+    print(f"phase 17 (d) LVIS Seesaw test CLI ({LVIS_CONFIG.name}, "
+          f"{LVIS_CLASSES} classes, seeded weights with fc_cls's bias raised "
+          f"by {LVIS_LIFT_BIAS} on {LIFT_CLASSES} classes) on {LVIS_IMAGES} "
+          f"synthetic LVIS images ({n_val} objects): {wall:.1f} s (host "
+          f"clock); launches {launches}; the RoI head's NMS B="
+          f"{sboxes.shape[0]} N={sboxes.shape[1]}, {n_valid.tolist()} valid "
+          f"candidates; LVIS metrics {metrics} (random weights) [{card}]")
+    k1 = first_k1_rows(card, ["LVIS RPN", "LVIS RoI head (1,203 classes)"],
+                       bits, walks, phase="17 (d)")
+    try:
+        train_cli_run("lvis_seesaw", LVIS_CONFIG, [
+            f"data.train.ann_file={train_ann}",
+            f"data.train.img_prefix={lvis}/", "--no-validate"], 1)
+    except TypeError as e:
+        if str(e) != SEESAW_REASON:
+            raise
+        print(f"phase 17 (d) LVIS Seesaw train CLI: the first step refuses "
+              f"with the JAX package's reason: TypeError: {e}")
+    else:
+        raise AssertionError("the Seesaw config trained; the JAX package "
+                             "refuses it")
+    return {"lvis_test_cli": launches}, k1
+
+
+def phase_cascades(card):
+    """Phase 17: (a)-(d) in a temporary folder under build/."""
+    import os
+    import tempfile
+
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build, prefix="cascade_")
+    root = Path(tmp.name)
+    cwd = os.getcwd()
+    os.chdir(root)
+    laps = [time.perf_counter()]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        print(f"phase 17 {what}: {laps[-1] - laps[-2]:.1f} s (host clock)")
+    try:
+        a_path, a_k1, a_fwd, a_bwd, a_profile = phase_cascade(card)
+        lap("(a)")
+        b_path, b_k1, b_fwd, b_bwd = phase_legacy(card)
+        lap("(b)")
+        c_path = phase_cli(card, root)
+        lap("(c)")
+        d_path, d_k1 = phase_lvis(card, root)
+        lap("(d)")
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+        torch.cuda.empty_cache()
+    print(f"phase 17 whole: {laps[-1] - laps[0]:.1f} s (host clock) [{card}]")
+    return ({**a_path, **b_path, **c_path, **d_path}, a_k1 + b_k1 + d_k1,
+            a_fwd + b_fwd, a_bwd + b_bwd, a_profile)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -6052,6 +6613,8 @@ def main():
     lap("phase 15")
     wf_by_path, wf_k1, wf_fwd, wf_bwd = phase_workflow(card)
     lap("phase 16")
+    cc_by_path, cc_k1, cc_fwd, cc_bwd, cascade_profile = phase_cascades(card)
+    lap("phase 17")
     # the profiles last: once torch.profiler has traced the card, later
     # launches of the process can cost more host time (phase 6 times the
     # train step before and after them)
@@ -6074,20 +6637,21 @@ def main():
                   warm=False)
     grid_device_ms()
     grid_train_profile()
+    cascade_profile()
     lap("the profiles")
     for k in ("iou_bitmask", "greedy_reduce"):
         records[k]["by_shape"].append(mask_train_k1[k])
         records[k]["by_shape"] += [row[k] for row in p2p_k1]
         records[k]["by_shape"] += [row[k] for name, _, _ in DENSE
                                    for row in dense[name][2]]
-        records[k]["by_shape"] += [row[k] for row in sm_k1 + wf_k1]
+        records[k]["by_shape"] += [row[k] for row in sm_k1 + wf_k1 + cc_k1]
     records["roi_align"] = dict(
         slice_record, by_shape=roi_shapes + [slice_record] + mask_records
         + [train_fwd] + mask_train_fwd + p2b_rows[0] + [grid_record]
-        + grid_train_fwd + sm_fwd + wf_fwd)
+        + grid_train_fwd + sm_fwd + wf_fwd + cc_fwd)
     records["roi_align_backward"] = dict(
         train_bwd, by_shape=bwd_shapes + [train_bwd] + mask_train_bwd
-        + p2b_rows[1] + grid_train_bwd + sm_bwd + wf_bwd)
+        + p2b_rows[1] + grid_train_bwd + sm_bwd + wf_bwd + cc_bwd)
     # the P2BNet step's negatives, its largest launch
     records["roi_align_rois_backward"] = dict(
         p2b_rows[2][1], by_shape=rois_rows + p2b_rows[2])
@@ -6103,7 +6667,7 @@ def main():
                **{k: v[0] for k, v in dense.items()},
                "grid_rcnn": grid_launches,
                "grid_rcnn_train": grid_train_launches,
-               **dataset_launches, **sm_by_path, **wf_by_path}
+               **dataset_launches, **sm_by_path, **wf_by_path, **cc_by_path}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],

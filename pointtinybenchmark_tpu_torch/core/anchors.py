@@ -6,7 +6,10 @@ Counterpart of pointtinybenchmark_tpu/core/anchors.py::AnchorGenerator and
 (0, 0) (`center_offset=0`), w/h from base_size * scale * sqrt-ratio,
 octave scales `octave_base_scale * 2 ** (i / scales_per_octave)`, and
 per-level grids in (H, W, A) order. The tiny-object "Adap" recipe sets
-octave_base_scale=2. Points: (x, y, stride) at the cells' corners.
+octave_base_scale=2. `LegacyAnchorGenerator` (::LegacyAnchorGenerator,
+mmdet V1.x) centres the base anchors at center_offset * (base_size - 1),
+takes the corners with the w - 1 convention and rounds them to integers.
+Points: (x, y, stride) at the cells' corners.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["AnchorGenerator", "PointGenerator"]
+__all__ = ["AnchorGenerator", "LegacyAnchorGenerator", "PointGenerator"]
 
 
 class AnchorGenerator:
@@ -55,18 +58,22 @@ class AnchorGenerator:
     def num_base_anchors(self) -> List[int]:
         return [a.shape[0] for a in self.base_anchors]
 
-    def _single_level_base_anchors(self, base_size: float, stride) -> np.ndarray:
-        w = h = float(base_size)
-        x_c = self.center_offset * stride[0]
-        y_c = self.center_offset * stride[1]
+    def _anchor_sizes(self, base_size: float):
+        """The base anchors' widths and heights, ratio- or scale-major."""
         h_ratios = np.sqrt(self.ratios)
         w_ratios = 1.0 / h_ratios
         if self.scale_major:
-            ws = (w * w_ratios[:, None] * self.scales[None, :]).reshape(-1)
-            hs = (h * h_ratios[:, None] * self.scales[None, :]).reshape(-1)
+            ws = (base_size * w_ratios[:, None] * self.scales[None, :])
+            hs = (base_size * h_ratios[:, None] * self.scales[None, :])
         else:
-            ws = (w * self.scales[:, None] * w_ratios[None, :]).reshape(-1)
-            hs = (h * self.scales[:, None] * h_ratios[None, :]).reshape(-1)
+            ws = (base_size * self.scales[:, None] * w_ratios[None, :])
+            hs = (base_size * self.scales[:, None] * h_ratios[None, :])
+        return ws.reshape(-1), hs.reshape(-1)
+
+    def _single_level_base_anchors(self, base_size: float, stride) -> np.ndarray:
+        ws, hs = self._anchor_sizes(float(base_size))
+        x_c = self.center_offset * stride[0]
+        y_c = self.center_offset * stride[1]
         return np.stack([x_c - 0.5 * ws, y_c - 0.5 * hs,
                          x_c + 0.5 * ws, y_c + 0.5 * hs],
                         axis=-1).astype(np.float32)
@@ -102,6 +109,22 @@ class AnchorGenerator:
             flags.append(np.repeat((vy[:, None] & vx[None, :]).ravel(),
                                    self.num_base_anchors[i]))
         return flags
+
+
+class LegacyAnchorGenerator(AnchorGenerator):
+    """MMDet V1.x anchors (mmdet anchor_generator.py:474)."""
+
+    def _single_level_base_anchors(self, base_size: float, stride) -> np.ndarray:
+        ws, hs = self._anchor_sizes(float(base_size))
+        x_c = y_c = self.center_offset * (float(base_size) - 1)
+        base = np.stack([x_c - 0.5 * (ws - 1), y_c - 0.5 * (hs - 1),
+                         x_c + 0.5 * (ws - 1), y_c + 0.5 * (hs - 1)],
+                        axis=-1)
+        return np.round(base).astype(np.float32)
+
+
+ANCHOR_GENERATORS = {"AnchorGenerator": AnchorGenerator,
+                     "LegacyAnchorGenerator": LegacyAnchorGenerator}
 
 
 class PointGenerator:

@@ -20,8 +20,15 @@ CocoDataset / CustomDataset machinery it inherits), host numpy:
   (evaluation/merge.py: a corner set's detections shifted into their
   original image and merged by a host NMS).
 
-Not ported yet (ROADMAP.md queue 1, item 2): the LVIS, Cityscapes and
-DeepFashion datasets.
+Its subclasses (::LVISDataset, ::CityscapesDataset, ::DeepFashionDataset):
+- `LVISDataset`: file names from `coco_url` (its last two parts; a
+  `COCO_..._<id>.jpg` name keeps its last part) and the LVIS evaluation
+  (evaluation/lvis_eval.py: the federated drop, the not-exhaustive ignore,
+  APr / APc / APf at maxDets 300);
+- `CityscapesDataset`: the 8 Cityscapes classes, the COCO metrics; the
+  cityscapesscripts protocol (`metric="cityscapes"`) needs that package
+  and raises JAX's ImportError without it;
+- `DeepFashionDataset`: the 15 DeepFashion classes, the COCO metrics.
 """
 from __future__ import annotations
 
@@ -36,7 +43,8 @@ from ..utils.registry import DATASETS
 from .coco import COCO
 from .transforms import Compose
 
-__all__ = ["CocoFmtDataset"]
+__all__ = ["CocoFmtDataset", "CityscapesDataset", "DeepFashionDataset",
+           "LVISDataset"]
 
 
 @DATASETS.register_module()
@@ -435,3 +443,100 @@ class CocoFmtDataset:
                     stats[f"classwise_{n}"] = ap
             emit(m, stats)
         return out
+
+
+@DATASETS.register_module()
+class LVISDataset(CocoFmtDataset):
+    """LVIS v1 (mmdet datasets/lvis.py)."""
+
+    def load_annotations(self, ann_file: str) -> List[dict]:
+        infos = super().load_annotations(ann_file)
+        for info in infos:
+            if not info.get("file_name"):
+                url = info.get("coco_url", "")
+                info["file_name"] = "/".join(url.split("/")[-2:])
+                info["filename"] = info["file_name"]
+            elif info["file_name"].startswith("COCO_"):
+                info["file_name"] = info["file_name"].split("_")[-1]
+                info["filename"] = info["file_name"]
+        return infos
+
+    def evaluate(self, results: List[dict], metric="bbox", logger=None,
+                 iou_thrs=None, proposal_nums=300, classwise: bool = False,
+                 save_result_file: Optional[str] = None, native: bool = True,
+                 **kwargs) -> Dict[str, float]:
+        """The LVIS metrics of each of `metric` (bbox, segm or proposal),
+        prefixed by the metric's name when there are several, at maxDets
+        the last of `proposal_nums`. `native` picks the native matching or
+        the Python reference loops."""
+        import json
+
+        from ..evaluation.lvis_eval import LVISExpandEval
+
+        metrics = metric if isinstance(metric, (list, tuple)) else [metric]
+        out: "OrderedDict[str, float]" = OrderedDict()
+        prefix = len(metrics) > 1
+        max_det = (proposal_nums[-1] if isinstance(proposal_nums,
+                                                   (list, tuple))
+                   else int(proposal_nums))
+        for m in metrics:
+            res_json = (self.format_segm_results(results) if m == "segm"
+                        else self.format_results(results))
+            if save_result_file and m == metrics[0]:
+                with open(save_result_file, "w") as f:
+                    json.dump(res_json, f)
+            cocofmt_param = {}
+            if iou_thrs is not None:
+                cocofmt_param["iouThrs"] = list(iou_thrs)
+            ev = LVISExpandEval(self.coco, self.coco.loadRes(res_json),
+                                "segm" if m == "segm" else "bbox",
+                                max_dets=max_det,
+                                cocofmt_param=cocofmt_param, native=native)
+            if m == "proposal":
+                ev.params.useCats = 0
+            ev.evaluate()
+            ev.accumulate()
+            for k, v in ev.summarize().items():
+                out[f"{m}_{k}" if prefix else k] = v
+        return out
+
+
+@DATASETS.register_module()
+class CityscapesDataset(CocoFmtDataset):
+    """Cityscapes instances in COCO format (mmdet datasets/cityscapes.py):
+    the COCO metrics; `metric="cityscapes"` needs cityscapesscripts."""
+    CLASSES = ("person", "rider", "car", "truck", "bus", "train",
+               "motorcycle", "bicycle")
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("classes", list(self.CLASSES))
+        super().__init__(*args, **kwargs)
+
+    def evaluate(self, results: List[dict], metric="bbox",
+                 **kwargs) -> Dict[str, float]:
+        metrics = metric if isinstance(metric, (list, tuple)) else [metric]
+        if "cityscapes" in metrics:
+            try:
+                import cityscapesscripts  # noqa: F401
+            except ImportError as e:
+                raise ImportError(
+                    "metric='cityscapes' needs the cityscapesscripts "
+                    "package (pip install cityscapesscripts); use "
+                    "metric='bbox'/'segm' for the native COCO-protocol "
+                    "evaluation instead") from e
+            metrics = [m for m in metrics if m != "cityscapes"]
+        if not metrics:
+            return OrderedDict()
+        return super().evaluate(results, metric=list(metrics), **kwargs)
+
+
+@DATASETS.register_module()
+class DeepFashionDataset(CocoFmtDataset):
+    """DeepFashion In-shop in COCO format (mmdet datasets/deepfashion.py)."""
+    CLASSES = ("top", "skirt", "leggings", "dress", "outer", "pants", "bag",
+               "neckwear", "headwear", "eyeglass", "belt", "footwear",
+               "hair", "skin", "face")
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("classes", list(self.CLASSES))
+        super().__init__(*args, **kwargs)

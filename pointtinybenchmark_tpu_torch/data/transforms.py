@@ -8,7 +8,10 @@ corner crop on load (a pre-tiled dataset's image carries its tile's
 fork's `gt_true_bboxes` and `gt_anns_id`); `LoadProposals`; `Resize` in
 the fork's `scale_factor` mode (native resolution at [1.0]) and in the
 `img_scale` mode; `RandomFlip`, drawing from the sample's `_rng`;
-`Normalize`, `Pad`, `DefaultFormatBundle`, `ImageToTensor` and `Collect`.
+`Normalize`, `Pad`, `DefaultFormatBundle`, `ImageToTensor` and `Collect`;
+`Albu` (data/albu_native.py, its transform list checked when it is built)
+and `InstaBoost` (data/instaboost_native.py), both drawing from the
+sample's `_rng` as JAX's do.
 
 Transforms are dict-in, dict-out. Images flow as float32 RGB HWC numpy
 (mmcv loads BGR and converts in Normalize(to_rgb=True); loading RGB and
@@ -26,7 +29,8 @@ from ..utils.registry import PIPELINES
 
 __all__ = ["Compose", "LoadImageFromFile", "LoadAnnotations",
            "LoadProposals", "Resize", "RandomFlip", "Normalize", "Pad",
-           "Collect", "DefaultFormatBundle", "ImageToTensor"]
+           "Collect", "DefaultFormatBundle", "ImageToTensor", "Albu",
+           "InstaBoost"]
 
 
 class Compose:
@@ -426,3 +430,117 @@ class Collect:
             if k in results:
                 data[k] = results[k]
         return data
+
+
+@PIPELINES.register_module()
+class Albu:
+    """The albumentations bridge (mmdet transforms.py:1297) on the port's
+    own transforms (data/albu_native.py); a type they lack raises
+    ValueError when the transform is built. After the transforms the boxes
+    are clipped to the image and, with `bbox_params.filter_lost_elements`,
+    those whose visible area is at most `min_visibility` of their area
+    before are dropped with their labels and masks."""
+
+    def __init__(self, transforms, bbox_params=None, keymap=None,
+                 update_pad_shape=False, skip_img_without_anno=False):
+        from .albu_native import NATIVE_ALBU_OPS
+
+        self.transforms = [dict(t) for t in transforms]
+        for t in self.transforms:
+            types = [t["type"]] if t["type"] != "OneOf" else \
+                [c["type"] for c in t["transforms"]]
+            for tt in types:
+                if tt not in NATIVE_ALBU_OPS and tt not in (
+                        "HorizontalFlip", "VerticalFlip", "OneOf"):
+                    raise ValueError(
+                        f"Albu transform {tt!r} has no native "
+                        f"implementation (supported: "
+                        f"{sorted(NATIVE_ALBU_OPS)})")
+        bp = dict(bbox_params or {})
+        self.min_visibility = float(bp.get("min_visibility", 0.0))
+        self.filter_lost = bool(bp.get("filter_lost_elements", False))
+        self.update_pad_shape = update_pad_shape
+        self.skip_img_without_anno = skip_img_without_anno
+
+    def __call__(self, results: dict) -> dict:
+        from .albu_native import apply_albu_transform
+
+        rng = results.get("_rng") or np.random
+        img = results["img"]
+        float_input = np.issubdtype(np.asarray(img).dtype, np.floating)
+        img = np.clip(np.asarray(img), 0, 255).astype(np.uint8)
+        boxes = results.get("gt_bboxes")
+        masks = results.get("gt_masks")
+        orig_areas = None
+        if boxes is not None and len(boxes):
+            orig_areas = ((boxes[:, 2] - boxes[:, 0])
+                          * (boxes[:, 3] - boxes[:, 1]))
+        for t in self.transforms:
+            img, boxes, masks = apply_albu_transform(t, img, boxes, masks,
+                                                     rng)
+        h, w = img.shape[:2]
+        results["img"] = img.astype(np.float32) if float_input else img
+        if boxes is not None and len(boxes):
+            clipped = boxes.copy()
+            clipped[:, 0::2] = np.clip(clipped[:, 0::2], 0, w)
+            clipped[:, 1::2] = np.clip(clipped[:, 1::2], 0, h)
+            if self.filter_lost:
+                area = ((clipped[:, 2] - clipped[:, 0])
+                        * (clipped[:, 3] - clipped[:, 1]))
+                keep = area / np.maximum(orig_areas, 1e-6) \
+                    > self.min_visibility
+                clipped = clipped[keep]
+                if "gt_labels" in results:
+                    results["gt_labels"] = results["gt_labels"][keep]
+                if masks is not None and len(masks):
+                    masks = masks[keep]
+            results["gt_bboxes"] = clipped
+        if masks is not None:
+            results["gt_masks"] = masks
+        if self.update_pad_shape:
+            results["pad_shape"] = img.shape
+        return results
+
+
+@PIPELINES.register_module()
+class InstaBoost:
+    """InstaBoost (mmdet datasets/pipelines/instaboost.py's config keys)
+    on the port's own data/instaboost_native.py. It needs `gt_masks`
+    (LoadAnnotations with_mask=True before it); with probability
+    1 - aug_ratio, or without boxes, the sample passes unchanged.
+    `hflag` is taken and unused, as in JAX."""
+
+    def __init__(self, action_candidate=("normal", "horizontal", "skip"),
+                 action_prob=(1, 0, 0), scale=(0.8, 1.2), dx=15, dy=15,
+                 theta=(-1, 1), color_prob=0.5, hflag=False,
+                 aug_ratio=0.5):
+        self.action_candidate = tuple(action_candidate)
+        self.action_prob = tuple(action_prob)
+        self.scale = tuple(scale)
+        self.dx = float(dx)
+        self.dy = float(dy)
+        self.theta = tuple(theta)
+        self.color_prob = float(color_prob)
+        self.aug_ratio = float(aug_ratio)
+
+    def __call__(self, results: dict) -> dict:
+        from .instaboost_native import instaboost_sample
+
+        masks = results.get("gt_masks")
+        boxes = results.get("gt_bboxes")
+        if masks is None or boxes is None or len(boxes) == 0:
+            return results
+        rng: np.random.RandomState = results.get(
+            "_rng", np.random.RandomState())
+        if rng.rand() > self.aug_ratio:
+            return results
+        labels = results.get("gt_labels", np.zeros(len(boxes), np.int64))
+        img, boxes, masks, labels = instaboost_sample(
+            results["img"], boxes, masks, labels, rng,
+            self.action_candidate, self.action_prob, self.scale,
+            self.dx, self.dy, self.theta, self.color_prob)
+        results["img"] = img
+        results["gt_bboxes"] = boxes
+        results["gt_masks"] = masks
+        results["gt_labels"] = labels
+        return results

@@ -36,10 +36,12 @@ from .dense_heads.rpn_head import RPNHead
 from .dense_heads.vfnet_head import VFNetHead
 from .detectors.single_stage import (BasicLocator, P2BNet, SSDDet,
                                      SingleStageDetector)
-from .detectors.two_stage import RPN, GridRCNN, MaskRCNN, TwoStageDetector
+from .detectors.two_stage import (RPN, CascadeRCNN, GridRCNN, MaskRCNN,
+                                  TwoStageDetector)
 from .necks.extra_necks import BFP
 from .necks.fpn import FPN
 from .roi_heads.bbox_head import Shared2FCBBoxHead
+from .roi_heads.cascade_roi_head import CascadeRoIHead
 from .roi_heads.grid_roi_head import GridHead, GridRoIHead
 from .roi_heads.mask_head import FCNMaskHead
 from .roi_heads.standard_roi_head import StandardRoIHead
@@ -54,6 +56,7 @@ MODULES = {
     "RetinaHead": RetinaHead,
     "RPNHead": RPNHead,
     "StandardRoIHead": StandardRoIHead,
+    "CascadeRoIHead": CascadeRoIHead,
     "GridRoIHead": GridRoIHead,
     "GridHead": GridHead,
     "Shared2FCBBoxHead": Shared2FCBBoxHead,
@@ -79,7 +82,7 @@ SINGLE_STAGE = {"SingleStageDetector": SingleStageDetector,
                 "SSDDet": SSDDet}
 TWO_STAGE = {"TwoStageDetector": TwoStageDetector,
              "FasterRCNN": TwoStageDetector, "MaskRCNN": MaskRCNN,
-             "GridRCNN": GridRCNN}
+             "GridRCNN": GridRCNN, "CascadeRCNN": CascadeRCNN}
 
 
 def build_module(cfg: dict) -> nn.Module:
@@ -95,6 +98,18 @@ def build_module(cfg: dict) -> nn.Module:
             f"{kind}: config keys {unknown} are not ported (the port's "
             f"{cls.__name__} takes {sorted(accepted)})")
     return cls(**args)
+
+
+def _cascade_heads(roi_cfg: dict) -> list:
+    """A cascade's bbox heads: one a stage, from its list of configs or one
+    config for every stage; their box loss defaults to smooth L1 of beta
+    1 (JAX cascade_roi_head.py:_stage_forward_train)."""
+    heads = roi_cfg["bbox_head"]
+    n = int(roi_cfg.get("num_stages", 3))
+    if not isinstance(heads, (list, tuple)):
+        heads = [heads] * n
+    return [build_module(dict(dict(loss_bbox=dict(
+        type="SmoothL1Loss", beta=1.0)), **h)) for h in heads]
 
 
 def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
@@ -113,7 +128,9 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
     two-stage detector's RPN gets `train_cfg["rpn"]` and
     `test_cfg["rpn"]`, its RoI head `train_cfg["rcnn"]` and
     `test_cfg["rcnn"]` and the built bbox head and, for Mask R-CNN, mask
-    head (for Grid R-CNN, grid head); the detector keeps
+    head (for Grid R-CNN, grid head; for Cascade R-CNN a bbox head a
+    stage, `train_cfg["rcnn"]` then a list of one config a stage); the
+    detector keeps
     `train_cfg["rpn_proposal"]` (JAX two_stage.py:38-45). The standalone
     RPN's head gets each config's "rpn" part, or the whole config where
     it has none (JAX two_stage.py::RPN.setup). An unported
@@ -155,7 +172,10 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
         roi_cfg = dict(cfg["roi_head"])
         roi_cfg.setdefault("train_cfg", (train_cfg or {}).get("rcnn"))
         roi_cfg.setdefault("test_cfg", (test_cfg or {}).get("rcnn"))
-        roi_cfg["bbox_head"] = build_module(roi_cfg["bbox_head"])
+        if roi_cfg.get("type") == "CascadeRoIHead":
+            roi_cfg["bbox_head"] = _cascade_heads(roi_cfg)
+        else:
+            roi_cfg["bbox_head"] = build_module(roi_cfg["bbox_head"])
         for key in ("mask_head", "grid_head"):
             if roi_cfg.get(key):
                 roi_cfg[key] = build_module(roi_cfg[key])

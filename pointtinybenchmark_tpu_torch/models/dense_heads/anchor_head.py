@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...core.anchors import AnchorGenerator
+from ...core.anchors import ANCHOR_GENERATORS
 from ...core.assigners import MaxIoUAssigner
 from ...core.bbox import delta_coder_fns
 from ...core.post_processing import DetResult, multiclass_nms
@@ -111,9 +111,9 @@ class AnchorHead(nn.Module):
         self.feat_channels = feat_channels
         gen_cfg = dict(anchor_generator or DEFAULT_ANCHORS)
         gen_type = gen_cfg.pop("type", "AnchorGenerator")
-        if gen_type != "AnchorGenerator":
+        if gen_type not in ANCHOR_GENERATORS:
             raise NotImplementedError(f"{gen_type} is not ported")
-        self.anchor_generator = AnchorGenerator(**gen_cfg)
+        self.anchor_generator = ANCHOR_GENERATORS[gen_type](**gen_cfg)
         self.num_base_anchors = self.anchor_generator.num_base_anchors[0]
         coder = dict(bbox_coder or {})
         self.encode, self.decode = delta_coder_fns(coder)

@@ -1,8 +1,8 @@
-"""Two-stage detector (Faster R-CNN, Mask R-CNN, Grid R-CNN): backbone ->
-neck -> RPN -> RoI head.
+"""Two-stage detector (Faster R-CNN, Mask R-CNN, Grid R-CNN, Cascade R-CNN):
+backbone -> neck -> RPN -> RoI head.
 
 Counterpart of pointtinybenchmark_tpu/models/detectors/two_stage.py::
-TwoStageDetector / FasterRCNN / MaskRCNN / GridRCNN / RPN. The RPN
+TwoStageDetector / FasterRCNN / MaskRCNN / GridRCNN / CascadeRCNN / RPN. The RPN
 proposes with `test_cfg["rpn"]` and the RoI head detects with
 `test_cfg["rcnn"]` (each head holds its part); Mask R-CNN is the same
 detector with a mask head in its RoI head, whose results then carry the
@@ -34,7 +34,7 @@ from ...core.post_processing import DetResult
 from ..dense_heads.rpn_head import RPNHead
 from ..roi_heads.standard_roi_head import StandardRoIHead
 
-__all__ = ["TwoStageDetector", "MaskRCNN", "GridRCNN", "RPN"]
+__all__ = ["TwoStageDetector", "MaskRCNN", "GridRCNN", "CascadeRCNN", "RPN"]
 
 DEFAULT_PROPOSAL_CFG = dict(nms_pre=1000, max_per_img=1000,
                             nms=dict(iou_threshold=0.7), min_bbox_size=0)
@@ -126,6 +126,13 @@ class MaskRCNN(TwoStageDetector):
 class GridRCNN(TwoStageDetector):
     """Grid R-CNN (mmdet models/detectors/grid_rcnn.py): the grid branch
     lives in the RoI head (`roi_heads/grid_roi_head.py::GridRoIHead`)."""
+
+
+class CascadeRCNN(TwoStageDetector):
+    """Cascade R-CNN (mmdet models/detectors/cascade_rcnn.py): the stages
+    live in the RoI head (`roi_heads/cascade_roi_head.py::CascadeRoIHead`);
+    its losses come back as loss_s{i}_cls, loss_s{i}_bbox and
+    rcnn_s{i}_num_pos."""
 
 
 class RPN(nn.Module):

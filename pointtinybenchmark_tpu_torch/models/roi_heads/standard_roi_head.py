@@ -142,34 +142,14 @@ class StandardRoIHead(nn.Module):
         `rescale` their boxes are divided by `scale_factors` (B, 4). With a
         mask head, also the mask probabilities of every slot,
         (B, max_per_img, 2S, 2S)."""
-        cfg = self.test_cfg
         nc = self.num_classes
         b, p = proposals.shape[:2]
         cls_score, bbox_pred = self(feats, proposals)
         scores = torch.softmax(cls_score, -1).reshape(b, p, nc + 1)
-        if bbox_pred.shape[-1] == 4:
-            deltas = bbox_pred.reshape(b, p, 1, 4).expand(b, p, nc, 4)
-        else:
-            deltas = bbox_pred.reshape(b, p, nc, 4)
-        boxes = self.decode(proposals[:, :, None, :], deltas, self.means,
-                            self.stds)                           # (B, P, C, 4)
-        h = img_shapes[:, 0].to(boxes.dtype)[:, None, None]
-        w = img_shapes[:, 1].to(boxes.dtype)[:, None, None]
-        zero = boxes.new_zeros(())
-        x1, y1, x2, y2 = boxes.unbind(-1)
-        boxes = torch.stack([
-            torch.minimum(torch.maximum(x1, zero), w),
-            torch.minimum(torch.maximum(y1, zero), h),
-            torch.minimum(torch.maximum(x2, zero), w),
-            torch.minimum(torch.maximum(y2, zero), h)], dim=-1)
+        dets = self._detect(proposals, bbox_pred, scores, prop_valid,
+                            img_shapes, scale_factors, rescale,
+                            (self.decode, self.means, self.stds))
         rescale = rescale and scale_factors is not None
-        if rescale:
-            boxes = boxes / scale_factors[:, None, None, :]
-        dets = multiclass_nms(
-            boxes.reshape(b, p, nc * 4), scores,
-            float(cfg.get("score_thr", 0.05)),
-            float(cfg.get("nms", {}).get("iou_threshold", 0.5)),
-            int(cfg.get("max_per_img", 100)), valid_mask=prop_valid)
         if self.mask_head is None:
             return dets
         det_boxes = dets.bboxes[..., :4]
@@ -182,9 +162,46 @@ class StandardRoIHead(nn.Module):
                                      label])
         return dets, masks.reshape(b, m, *masks.shape[1:])
 
+    def _detect(self, proposals: torch.Tensor, bbox_pred: torch.Tensor,
+                scores: torch.Tensor, prop_valid: torch.Tensor,
+                img_shapes: torch.Tensor, scale_factors: Optional[torch.Tensor],
+                rescale: bool, coder: Tuple) -> DetResult:
+        """Class-wise decode of `bbox_pred` ((B * P, 4 or 4 * C), on the
+        proposals (B, P, 4)) by `coder` (decode, means, stds), the clip to
+        each image, with `rescale` the division by `scale_factors`, then one
+        `multiclass_nms` of the (B, P, C + 1) `scores` under the test
+        config."""
+        cfg = self.test_cfg
+        nc = self.num_classes
+        b, p = proposals.shape[:2]
+        if bbox_pred.shape[-1] == 4:
+            deltas = bbox_pred.reshape(b, p, 1, 4).expand(b, p, nc, 4)
+        else:
+            deltas = bbox_pred.reshape(b, p, nc, 4)
+        decode, means, stds = coder
+        boxes = decode(proposals[:, :, None, :], deltas, means,
+                       stds)                                    # (B, P, C, 4)
+        h = img_shapes[:, 0].to(boxes.dtype)[:, None, None]
+        w = img_shapes[:, 1].to(boxes.dtype)[:, None, None]
+        zero = boxes.new_zeros(())
+        x1, y1, x2, y2 = boxes.unbind(-1)
+        boxes = torch.stack([
+            torch.minimum(torch.maximum(x1, zero), w),
+            torch.minimum(torch.maximum(y1, zero), h),
+            torch.minimum(torch.maximum(x2, zero), w),
+            torch.minimum(torch.maximum(y2, zero), h)], dim=-1)
+        if rescale and scale_factors is not None:
+            boxes = boxes / scale_factors[:, None, None, :]
+        return multiclass_nms(
+            boxes.reshape(b, p, nc * 4), scores,
+            float(cfg.get("score_thr", 0.05)),
+            float(cfg.get("nms", {}).get("iou_threshold", 0.5)),
+            int(cfg.get("max_per_img", 100)), valid_mask=prop_valid)
+
     # ---------------------------------------------------------------- train
-    def _build_assigner(self) -> MaxIoUAssigner:
-        cfg = dict(self.train_cfg.get("assigner", dict(
+    @staticmethod
+    def _build_assigner(train_cfg: dict) -> MaxIoUAssigner:
+        cfg = dict(train_cfg.get("assigner", dict(
             type="MaxIoUAssigner", pos_iou_thr=0.5, neg_iou_thr=0.5,
             min_pos_iou=0.5, match_low_quality=False, ignore_iof_thr=-1)))
         cfg.pop("type", None)
@@ -214,20 +231,51 @@ class StandardRoIHead(nn.Module):
         scfg = dict(self.train_cfg.get("sampler", dict(
             type="RandomSampler", num=512, pos_fraction=0.25, neg_pos_ub=-1,
             add_gt_as_proposals=True)))
+        pos_budget = int(int(scfg.get("num", 512))
+                         * float(scfg.get("pos_fraction", 0.25)))
+        sel_boxes, labels, deltas, sel_pos, sel_sampled, safe = \
+            self._sample_rois(proposals, prop_valid, batch, generator,
+                              self._build_assigner(self.train_cfg), scfg,
+                              bool(scfg.get("add_gt_as_proposals", True)),
+                              self.encode, self.means, self.stds,
+                              self.num_classes)
+        cls_score, bbox_pred = self(feats, sel_boxes)
+        out = self._bbox_loss(self.bbox_head, cls_score, bbox_pred, labels,
+                              deltas, sel_pos.float(), sel_sampled.float())
+        if self.mask_head is not None and "gt_masks" in batch:
+            out["loss_mask"] = self._mask_loss(
+                feats, sel_boxes, labels, sel_pos.float(), safe,
+                batch["gt_masks"], max(1, pos_budget))
+        return out, (sel_boxes, sel_pos.float(), safe)
+
+    @classmethod
+    def _sample_rois(cls, proposals: torch.Tensor, prop_valid: torch.Tensor,
+                     batch: Dict[str, torch.Tensor],
+                     generator: torch.Generator, assigner: MaxIoUAssigner,
+                     scfg: dict, add_gt: bool, encode, means, stds,
+                     num_classes: int) -> Tuple[torch.Tensor, ...]:
+        """The sampler's fixed-size gather of `scfg["num"]` rois an image
+        (JAX's inline sampler): the gt boxes prepended when `add_gt`,
+        MaxIoU assignment, positives and negatives drawn by random
+        priorities (`_sample`), then the sampled positives, the sampled
+        negatives and the rest with zero weight. Returns their boxes
+        (B, S, 4, no gradient), labels (background num_classes), deltas
+        to the matched gts (`encode` with `means`, `stds`), positives and
+        sampled (B, S) bool and the matched gt indices (B, S)."""
         num_sample = int(scfg.get("num", 512))
         pos_budget = int(num_sample * float(scfg.get("pos_fraction", 0.25)))
         gt_bboxes = batch["gt_bboxes"]
         gt_labels = batch["gt_labels"].long()
         gt_valid = batch["gt_valid"]
-        if bool(scfg.get("add_gt_as_proposals", True)):
+        if add_gt:
             proposals = torch.cat([gt_bboxes, proposals], 1)
             prop_valid = torch.cat([gt_valid, prop_valid], 1)
         proposals = proposals.detach()
         p = proposals.shape[1]
-        assigned, _, _ = self._build_assigner().assign(
+        assigned, _, _ = assigner.assign(
             proposals, gt_bboxes, gt_valid, gt_labels, bbox_valid=prop_valid)
-        pos_sel, neg_sel = self._sample(assigned, num_sample, pos_budget,
-                                        generator)
+        pos_sel, neg_sel = cls._sample(assigned, num_sample, pos_budget,
+                                       generator)
         sampled = pos_sel | neg_sel
         # the fixed-size gather: sampled positives, sampled negatives, rest
         key = (pos_sel.float() * 2.0 + neg_sel.float()
@@ -239,17 +287,9 @@ class StandardRoIHead(nn.Module):
         sel_pos = pos_sel.gather(1, idx)
         safe = (assigned.gather(1, idx) - 1).clamp(0, gt_bboxes.shape[1] - 1)
         tgt = gt_bboxes.gather(1, safe[..., None].expand(-1, -1, 4))
-        deltas = self.encode(sel_boxes, tgt, self.means, self.stds)
-        labels = torch.where(sel_pos, gt_labels.gather(1, safe),
-                             self.num_classes)
-        cls_score, bbox_pred = self(feats, sel_boxes)
-        out = self._bbox_loss(cls_score, bbox_pred, labels, deltas,
-                              sel_pos.float(), sampled.gather(1, idx).float())
-        if self.mask_head is not None and "gt_masks" in batch:
-            out["loss_mask"] = self._mask_loss(
-                feats, sel_boxes, labels, sel_pos.float(), safe,
-                batch["gt_masks"], max(1, pos_budget))
-        return out, (sel_boxes, sel_pos.float(), safe)
+        deltas = encode(sel_boxes, tgt, means, stds)
+        labels = torch.where(sel_pos, gt_labels.gather(1, safe), num_classes)
+        return sel_boxes, labels, deltas, sel_pos, sampled.gather(1, idx), safe
 
     def _mask_loss(self, feats: Sequence[torch.Tensor], boxes: torch.Tensor,
                    labels: torch.Tensor, pos_w: torch.Tensor,
@@ -297,19 +337,20 @@ class StandardRoIHead(nn.Module):
                                                   device=dev), -1.0)
         return pos_sel, neg_cand & topk_mask(pr_neg, neg_budget)
 
-    def _bbox_loss(self, cls_score: torch.Tensor, bbox_pred: torch.Tensor,
-                   roi_labels: torch.Tensor, roi_deltas: torch.Tensor,
-                   pos_w: torch.Tensor,
+    @staticmethod
+    def _bbox_loss(bbox_head: Shared2FCBBoxHead, cls_score: torch.Tensor,
+                   bbox_pred: torch.Tensor, roi_labels: torch.Tensor,
+                   roi_deltas: torch.Tensor, pos_w: torch.Tensor,
                    samp_w: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Classification and regression losses of the gathered rois, both
-        over max(sampled, 1); acc is the sampled rois' top-1 accuracy (%),
-        num_pos the positives."""
-        nc = self.num_classes
+        """`bbox_head`'s classification and regression losses of the
+        gathered rois, both over max(sampled, 1); acc is the sampled rois'
+        top-1 accuracy (%), num_pos the positives."""
+        nc = bbox_head.num_classes
         labels = roi_labels.reshape(-1)
         samp = samp_w.reshape(-1)
         pos = pos_w.reshape(-1)
         num_sampled = samp.sum().clamp(min=1.0)
-        loss_cls = build_loss(self.bbox_head.loss_cls)(
+        loss_cls = build_loss(bbox_head.loss_cls)(
             cls_score, labels, weight=samp, avg_factor=num_sampled)
         if bbox_pred.shape[-1] == 4:
             pred = bbox_pred
@@ -317,7 +358,7 @@ class StandardRoIHead(nn.Module):
             safe = labels.clamp(0, nc - 1)
             pred = bbox_pred.reshape(-1, nc, 4).gather(
                 1, safe[:, None, None].expand(-1, 1, 4))[:, 0]
-        loss_bbox = build_loss(self.bbox_head.loss_bbox)(
+        loss_bbox = build_loss(bbox_head.loss_bbox)(
             pred, roi_deltas.reshape(-1, 4), weight=pos[:, None],
             avg_factor=num_sampled)
         acc = (cls_score.argmax(-1) == labels).float()

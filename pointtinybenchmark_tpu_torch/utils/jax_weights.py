@@ -26,7 +26,9 @@ kernels in the same tap order), FCOS's `scale{i}/scale` ->
 `bbox_head.scales_refine.{i}.scale` and RepPoints' `moment_transfer` ->
 `bbox_head.moment_transfer`;
 `rpn_head_m/rpn_conv` -> `rpn_head.rpn_conv`; `roi_head_m/bbox_head_m/
-shared_fc{i}` -> `roi_head.bbox_head.shared_fcs.{i}`; `roi_head_m/
+shared_fc{i}` -> `roi_head.bbox_head.shared_fcs.{i}` (a cascade's
+`roi_head_m/bbox_heads_{s}/shared_fc{i}`, `fc_cls`, `fc_reg` ->
+`roi_head.bbox_head.{s}.shared_fcs.{i}`, ...); `roi_head_m/
 mask_head_m/conv{i}` -> `roi_head.mask_head.convs.{i}.conv`, `upsample` and
 `conv_logits` keep their names; `roi_head_m/grid_head_m/X` -> `roi_head.
 grid_head.X` for every Grid R-CNN layer, `GroupNorm_{i}` (scale, bias) as
@@ -61,7 +63,7 @@ import torch
 from ..models.backbones.resnet import BasicBlock
 
 __all__ = ["load_jax_variables", "jax_to_state_dict", "jax_param_paths",
-           "jax_params_like"]
+           "jax_params_like", "roi_feat_size"]
 
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
@@ -154,6 +156,13 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int,
             return None
         mod = f"convs.{m[1]}.conv" if m[1] is not None else scope[1]
         return f"roi_head.mask_head.{mod}.{name}"
+    if top == "roi_head_m" and len(scope) == 2 and re.fullmatch(
+            r"bbox_heads_\d+", scope[0]):
+        m = re.fullmatch(r"shared_fc(\d+)|fc_cls|fc_reg", scope[1])
+        if m is None:
+            return None
+        mod = f"shared_fcs.{m[1]}" if m[1] is not None else scope[1]
+        return f"roi_head.bbox_head.{scope[0][11:]}.{mod}.{name}"
     if top == "roi_head_m" and len(scope) == 2 and scope[0] == "bbox_head_m":
         m = re.fullmatch(r"shared_fc(\d+)|fc_cls|fc_reg", scope[1])
         if m is None:
@@ -219,6 +228,10 @@ def _jax_module(parts: List[str], n_lateral: int,
         m = re.fullmatch(r"gn(\d+)", rest[1])
         return ("roi_head_m", "grid_head_m",
                 f"GroupNorm_{m[1]}" if m is not None else rest[1])
+    if top == "roi_head" and len(rest) >= 3 and rest[0] == "bbox_head" \
+            and rest[1].isdigit():
+        sub = f"shared_fc{rest[3]}" if rest[2] == "shared_fcs" else rest[2]
+        return ("roi_head_m", f"bbox_heads_{rest[1]}", sub)
     if top == "roi_head" and len(rest) >= 2:
         head = rest[0] + "_m"
         if rest[1] in ("shared_fcs", "convs"):
@@ -292,14 +305,21 @@ def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
     return out
 
 
+def roi_feat_size(model: torch.nn.Module) -> int:
+    """The S of the model's RoI bbox head (every stage's, in a cascade),
+    or P2BNet's `roi_size`: the first shared FC takes S * S * C."""
+    roi_head = getattr(model, "roi_head", None)
+    if roi_head is None:
+        return getattr(getattr(model, "bbox_head", None), "roi_size", 7)
+    return getattr(roi_head, "roi_feat_size", None) or \
+        roi_head.bbox_head.roi_feat_size
+
+
 def _model_state_dict(model: torch.nn.Module, params: Mapping,
                       batch_stats: Optional[Mapping]
                       ) -> Dict[str, torch.Tensor]:
     """`jax_to_state_dict` with the model's RoI size and block kind."""
-    roi_head = getattr(model, "roi_head", None)
-    roi_feat = (roi_head.bbox_head.roi_feat_size if roi_head is not None
-                else getattr(getattr(model, "bbox_head", None), "roi_size", 7))
-    return jax_to_state_dict(params, batch_stats, roi_feat,
+    return jax_to_state_dict(params, batch_stats, roi_feat_size(model),
                              any(isinstance(m, BasicBlock)
                                  for m in model.modules()))
 

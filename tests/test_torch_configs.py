@@ -4,10 +4,11 @@ lists for it (its exception type and the start of its message).
 
 `tests/test_torch_init.py::toy` cuts a config to toy width (ResNet-18 of
 base 8, necks and heads at 16 or 32 channels). It cannot shrink the
-configs without a neck, with a list of necks (Libra R-CNN) or with a list
-of RoI bbox heads (the cascades): those (FULL) go to `build_detector` at
-full width, which refuses them before it builds a layer (an unported
-detector type or backbone, a list of necks). 59 of the 118 configs build.
+configs without a neck or with a list of necks (Libra R-CNN): those
+(FULL) go to `build_detector` at full width, which refuses them before it
+builds a layer (an unported detector type or backbone, a list of necks).
+It shrinks a cascade's list of RoI bbox heads, one a stage. 65 of the 118
+configs build.
 """
 import copy
 import glob
@@ -22,15 +23,14 @@ from test_torch_init import toy
 
 BUILDS = "builds"
 FULL = "full width"
-N_BUILD = 59
+N_BUILD = 65
 TABLE = {
     "albu_example/mask_rcnn_r50_fpn_albu_1x_coco.py": BUILDS,
     "cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py": BUILDS,
     "coco/atss_r50_fpn_1x_coco.py": BUILDS,
     "coco/autoassign_r50_fpn_8x2_1x_coco.py":
         (KeyError, "detector AutoAssign is not ported"),
-    "coco/cascade_rcnn_r50_fpn_1x_coco.py":
-        (FULL, KeyError, "detector CascadeRCNN is not ported"),
+    "coco/cascade_rcnn_r50_fpn_1x_coco.py": BUILDS,
     "coco/centernet_r18_1x_coco.py":
         (KeyError, "detector CenterNet is not ported"),
     "coco/centripetalnet_hourglass104_16x6_coco.py":
@@ -42,7 +42,7 @@ TABLE = {
     "coco/deformable_detr_r50_16x2_50e_coco.py":
         (KeyError, "detector DeformableDETR is not ported"),
     "coco/detectors_htc_r50_1x_coco.py":
-        (FULL, KeyError, "detector DetectoRS is not ported"),
+        (KeyError, "detector DetectoRS is not ported"),
     "coco/detr_r50_8x2_150e_coco.py":
         (FULL, KeyError, "detector DETR is not ported"),
     "coco/double_heads_r50_fpn_1x_coco.py":
@@ -81,7 +81,7 @@ TABLE = {
     "coco/gfl_r50_fpn_1x_coco.py": (KeyError, "detector GFL is not ported"),
     "coco/grid_rcnn_r50_fpn_gn_2x_coco.py": BUILDS,
     "coco/htc_r50_fpn_1x_coco.py":
-        (FULL, KeyError, "detector HybridTaskCascade is not ported"),
+        (KeyError, "detector HybridTaskCascade is not ported"),
     "coco/ld_r18_gflv1_r101_fpn_1x_coco.py":
         (KeyError,
         "detector KnowledgeDistillationSingleStageDetector is not ported"),
@@ -125,7 +125,7 @@ TABLE = {
     "coco/sabl_retinanet_r50_fpn_1x_coco.py":
         (KeyError, "SABLRetinaHead is not ported"),
     "coco/scnet_r50_fpn_1x_coco.py":
-        (FULL, KeyError, "detector SCNet is not ported"),
+        (KeyError, "detector SCNet is not ported"),
     "coco/sparse_rcnn_r50_fpn_1x_coco.py":
         (KeyError, "detector SparseRCNN is not ported"),
     "coco/ssd300_coco.py": (FULL, KeyError, "detector SSD is not ported"),
@@ -146,19 +146,14 @@ TABLE = {
     "dota/coarse_point_refine_r50_fpns4_1x_dota.py": BUILDS,
     "dota/p2p/p2p_r50_fpn_1x_fl_sl1_dota_center.py": BUILDS,
     "dota/p2p/p2p_r50_fpn_1x_fl_sl1_dota_coarse.py": BUILDS,
-    "instaboost/cascade_mask_rcnn_r50_fpn_instaboost_4x_coco.py":
-        (FULL, KeyError, "detector CascadeRCNN is not ported"),
+    "instaboost/cascade_mask_rcnn_r50_fpn_instaboost_4x_coco.py": BUILDS,
     "instaboost/mask_rcnn_r50_fpn_instaboost_4x_coco.py": BUILDS,
-    "legacy_1x/cascade_mask_rcnn_r50_fpn_1x_coco_v1.py":
-        (FULL, KeyError, "detector CascadeRCNN is not ported"),
-    "legacy_1x/faster_rcnn_r50_fpn_1x_coco_v1.py":
-        (NotImplementedError, "LegacyAnchorGenerator is not ported"),
-    "legacy_1x/mask_rcnn_r50_fpn_1x_coco_v1.py":
-        (NotImplementedError, "LegacyAnchorGenerator is not ported"),
+    "legacy_1x/cascade_mask_rcnn_r50_fpn_1x_coco_v1.py": BUILDS,
+    "legacy_1x/faster_rcnn_r50_fpn_1x_coco_v1.py": BUILDS,
+    "legacy_1x/mask_rcnn_r50_fpn_1x_coco_v1.py": BUILDS,
     "legacy_1x/retinanet_r50_caffe_fpn_1x_coco_v1.py":
         (NotImplementedError, "ResNet: config keys ['style'] are not ported"),
-    "legacy_1x/retinanet_r50_fpn_1x_coco_v1.py":
-        (NotImplementedError, "LegacyAnchorGenerator is not ported"),
+    "legacy_1x/retinanet_r50_fpn_1x_coco_v1.py": BUILDS,
     "legacy_1x/ssd300_coco_v1.py":
         (FULL, KeyError, "detector SSD is not ported"),
     "p2b/p2bnet_r50_fpn_1x_coco.py": BUILDS,

@@ -1,6 +1,6 @@
 """The port's seeded weights against the JAX package's initialisers.
 
-For each of the fourteen configurations the port runs (PERF.md section 4),
+For each of the fifteen configurations the port runs (PERF.md section 4),
 cut to toy width (ResNet-18 at base_channels=8, FPN and heads at 16
 channels, GroupNorm of 4 groups, FCs of 32; 32 channels where a head's
 `norm_cfg=None` builds GroupNorm of 32 groups), `build_detector(seed=0)`
@@ -30,7 +30,8 @@ from pointtinybenchmark_tpu_torch.models import build_detector
 from pointtinybenchmark_tpu_torch.utils.config import Config
 from pointtinybenchmark_tpu_torch.utils.jax_weights import (_leaves,
                                                             _torch_key,
-                                                            jax_to_state_dict)
+                                                            jax_to_state_dict,
+                                                            roi_feat_size)
 
 CONFIGS = (
     "tinyperson/retinanet_r50_fpns4_1x_tinyperson640_clipg.py",
@@ -47,6 +48,7 @@ CONFIGS = (
     "tinyperson/fovea_r50_fpns4_1x_tinyperson640.py",
     "tinyperson/free_anchor_r50_fpns4_1x_tinyperson640.py",
     "tinyperson/vfnet_r50_fpns4_1x_tinyperson640.py",
+    "coco/cascade_rcnn_r50_fpn_1x_coco.py",
 )
 WIDTH, GROUPS, FC = 16, 4, 32
 # heads whose `norm_cfg=None` builds GroupNorm of 32 groups (in both
@@ -67,8 +69,10 @@ def toy(model: dict) -> dict:
     heads = [m.get("bbox_head"), m.get("rpn_head"), m["neck"]]
     roi = m.get("roi_head")
     if roi:
-        heads += [roi["bbox_head"], roi.get("mask_head"),
-                  roi.get("grid_head")]
+        bbox = roi["bbox_head"]
+        # a cascade's list of heads, one a stage
+        heads += (list(bbox) if isinstance(bbox, (list, tuple)) else [bbox])
+        heads += [roi.get("mask_head"), roi.get("grid_head")]
     for h in filter(None, heads):
         for k, v in (("in_channels", width), ("feat_channels", width),
                      ("point_feat_channels", width),
@@ -100,10 +104,8 @@ def test_seeded_weights_follow_the_jax_initialisers(name):
                           cfg.get("test_cfg"), device="cpu", seed=0)
     own = {k: v for k, v in port.state_dict().items()
            if not k.endswith("num_batches_tracked")}
-    roi_head = getattr(port, "roi_head", None)
-    roi_size = (roi_head.bbox_head.roi_feat_size if roi_head is not None
-                else getattr(port.bbox_head, "roi_size", 7))
-    want = jax_to_state_dict(params, stats, roi_size, basic_blocks=True)
+    want = jax_to_state_dict(params, stats, roi_feat_size(port),
+                             basic_blocks=True)
     assert set(want) == set(own)
     n_lateral = sum(1 for k in params["neck_m"]
                     if k.startswith("lateral_conv"))
