@@ -606,6 +606,44 @@ LVIS_CONFIG = REPO / "configs/coco/faster_rcnn_r50_fpn_seesaw_1x_lvis.py"
 LVIS_CLASSES = 1203
 LVIS_IMAGES = 2
 LVIS_LIFT_BIAS = 8.0
+# phase 18: HTC, SCNet and DetectoRS at full width. (a) inference_detector
+# on two COCO_HW images launches K1 for the RPN's and the RoI head's NMS and
+# K2 for every extraction, in this order for an image: each stage's box
+# features and, for HTC and SCNet, the semantic map's (one level at stride
+# 8), then the mask features and their semantic ones; run_test the same a
+# batch. (b) a train step launches the RPN's NMS and K2 with its backward
+# for every extraction, in this order: HTC a stage's box features, their
+# semantic ones, the mask features (at the stage's refined boxes) and
+# theirs; SCNet a stage's box features and their semantic ones (the last
+# stage's mask branch reuses both); DetectoRS a stage's box features.
+# (name, config, launches an image, launches a train step, the image's K2
+# launches, the step's K2 launches)
+_HTC_STAGES = ("s0", "s1", "s2")
+HTC_RUNS = (
+    ("htc", REPO / "configs/coco/htc_r50_fpn_1x_coco.py",
+     dict(NO_LAUNCHES, iou_bitmask=2, greedy_reduce=2, roi_align=8),
+     dict(NO_LAUNCHES, iou_bitmask=1, greedy_reduce=1, roi_align=12,
+          roi_align_backward=12),
+     [f"{k} {s}" for s in _HTC_STAGES for k in ("bbox", "semantic bbox")]
+     + ["mask", "semantic mask"],
+     tuple((7, f"{k} {s}") for s in _HTC_STAGES
+           for k in ("bbox", "semantic bbox", "mask", "semantic mask"))),
+    ("scnet", REPO / "configs/coco/scnet_r50_fpn_1x_coco.py",
+     dict(NO_LAUNCHES, iou_bitmask=2, greedy_reduce=2, roi_align=8),
+     dict(NO_LAUNCHES, iou_bitmask=1, greedy_reduce=1, roi_align=6,
+          roi_align_backward=6),
+     [f"{k} {s}" for s in _HTC_STAGES for k in ("bbox", "semantic bbox")]
+     + ["mask", "semantic mask"],
+     tuple((7, f"{k} {s}") for s in _HTC_STAGES
+           for k in ("bbox", "semantic bbox"))),
+    ("detectors", REPO / "configs/coco/detectors_htc_r50_1x_coco.py",
+     dict(NO_LAUNCHES, iou_bitmask=2, greedy_reduce=2, roi_align=3),
+     dict(NO_LAUNCHES, iou_bitmask=1, greedy_reduce=1, roi_align=3,
+          roi_align_backward=3),
+     [f"bbox {s}" for s in _HTC_STAGES],
+     tuple((7, f"bbox {s}") for s in _HTC_STAGES)),
+)
+HTC_TRAIN_IMAGES = 2             # samples_per_gpu
 P2B_CONFIG = REPO / "configs/p2b/p2bnet_r50_fpn_1x_coco.py"
 SSD_CONFIG = REPO / "configs/ssd_det/ssd_det_r50_fpn_1x_coco.py"
 P2B_TRAIN_LAUNCHES = {"iou_bitmask": 0, "greedy_reduce": 0, "roi_align": 3,
@@ -1142,15 +1180,17 @@ def reduce_steps(order, keep, num_kept, n_valid, max_out):
                        full).tolist()
 
 
-def roi_align_bound(feats, rois, lvls, out, sr, aligned=True):
+def roi_align_bound(feats, rois, lvls, out, sr, aligned=True,
+                    strides=ROI_STRIDES):
     """(ms, bounded by): the output written once, rois and levels read once,
     and every feature cell that an in-bounds tap reads, read once; 8 * sr^2
     float32 operations per output value (4 products and 3 sums per sample,
-    the sample sum, the scale)."""
+    the sample sum, the scale). `strides`: the levels' (the K2 helpers
+    take the launch's own, the FPN's by default)."""
     from pointtinybenchmark_tpu_torch.ops import roi_align
 
     scale, hf, wf, base, width = roi_align.level_tables(feats, rois, lvls,
-                                                        ROI_STRIDES)
+                                                        strides)
     y0, y1, x0, x1, *_, inb = roi_align.sample_taps(rois, scale, hf, wf, out,
                                                     sr, aligned)
     base, width = base[:, None, None], width[:, None, None]
@@ -1316,15 +1356,16 @@ def phase_kernels(card):
             for k in ("iou_bitmask", "greedy_reduce")}
 
 
-def compare_roi_align(feats, rois, lvls, out, sr, aligned=True):
+def compare_roi_align(feats, rois, lvls, out, sr, aligned=True,
+                      strides=ROI_STRIDES):
     """Kernel vs plain on the same inputs: (kernel out, max abs err). Fails
     unless the two are equal (torch.equal)."""
     from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
 
-    got = roi_align_cuda.roi_align_forward(feats, rois, lvls, ROI_STRIDES,
+    got = roi_align_cuda.roi_align_forward(feats, rois, lvls, strides,
                                            out, sr, aligned)
     want = roi_align.roi_align_multilevel_plain(feats, rois, lvls,
-                                                ROI_STRIDES, out, sr, aligned)
+                                                strides, out, sr, aligned)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not torch.equal(got, want):
@@ -1332,14 +1373,14 @@ def compare_roi_align(feats, rois, lvls, out, sr, aligned=True):
     return got, err
 
 
-def roi_paths(feats, rois, lvls, out, sr, aligned=True):
+def roi_paths(feats, rois, lvls, out, sr, aligned=True, strides=ROI_STRIDES):
     """{kernel path: rois that take it} for these inputs, from the kernel's
     own counts (one launch, outside any counted run)."""
     from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
 
     counts = torch.zeros(len(roi_align_cuda.PATHS), dtype=torch.int32,
                          device=rois.device)
-    roi_align_cuda.roi_align_forward(feats, rois, lvls, ROI_STRIDES, out, sr,
+    roi_align_cuda.roi_align_forward(feats, rois, lvls, strides, out, sr,
                                      aligned, path_counts=counts)
     return dict(zip(roi_align_cuda.PATHS, counts.tolist()))
 
@@ -1356,13 +1397,14 @@ def ps_per_sample(ms, feats, r, out, sr):
     return ms * 1e9 / (r * out * out * sr * sr * feats[0].shape[1])
 
 
-def time_roi_align(feats, rois, lvls, out, sr, aligned=True):
+def time_roi_align(feats, rois, lvls, out, sr, aligned=True,
+                   strides=ROI_STRIDES):
     from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
 
     ms = time_ms(lambda: roi_align_cuda.roi_align_forward(
-        feats, rois, lvls, ROI_STRIDES, out, sr, aligned), ITERS)
+        feats, rois, lvls, strides, out, sr, aligned), ITERS)
     plain_ms = time_ms(lambda: roi_align.roi_align_multilevel_plain(
-        feats, rois, lvls, ROI_STRIDES, out, sr, aligned), PLAIN_ITERS)
+        feats, rois, lvls, strides, out, sr, aligned), PLAIN_ITERS)
     return ms, plain_ms
 
 
@@ -2054,7 +2096,8 @@ def roi_align_backward_bound(r, c, out, sr, shapes):
     return bound(nbytes, r * c * out * out * (1 + 8 * sr * sr))
 
 
-def compare_roi_align_backward(g, rois, lvls, shapes, out, sr, aligned=True):
+def compare_roi_align_backward(g, rois, lvls, shapes, out, sr, aligned=True,
+                               strides=ROI_STRIDES):
     """The backward kernel against the plain backward (autograd through the
     plain forward) on the same inputs: (max abs err, worst err over the
     level's max |gradient|). Fails above BWD_TOL of a level's max."""
@@ -2062,9 +2105,9 @@ def compare_roi_align_backward(g, rois, lvls, shapes, out, sr, aligned=True):
 
     cl = [True] * len(shapes)
     got = roi_align_cuda.roi_align_backward(g, rois, lvls, shapes, cl,
-                                            ROI_STRIDES, out, sr, aligned)
+                                            strides, out, sr, aligned)
     want = roi_align.roi_align_backward_plain(g, rois, lvls, shapes, cl,
-                                              ROI_STRIDES, out, sr, aligned)
+                                              strides, out, sr, aligned)
     torch.cuda.synchronize()
     err, share = 0.0, 0.0
     for a, b in zip(got, want):
@@ -2079,21 +2122,23 @@ def compare_roi_align_backward(g, rois, lvls, shapes, out, sr, aligned=True):
     return err, share
 
 
-def time_roi_align_backward(g, rois, lvls, shapes, out, sr, aligned=True):
+def time_roi_align_backward(g, rois, lvls, shapes, out, sr, aligned=True,
+                            strides=ROI_STRIDES):
     """(call ms, plain ms): whole wrapper calls between CUDA events, the
     zero fill, argument checks and ctypes call included."""
     from pointtinybenchmark_tpu_torch.ops import roi_align, roi_align_cuda
 
     cl = [True] * len(shapes)
     ms = time_ms(lambda: roi_align_cuda.roi_align_backward(
-        g, rois, lvls, shapes, cl, ROI_STRIDES, out, sr, aligned), ITERS)
+        g, rois, lvls, shapes, cl, strides, out, sr, aligned), ITERS)
     plain_ms = time_ms(lambda: roi_align.roi_align_backward_plain(
-        g, rois, lvls, shapes, cl, ROI_STRIDES, out, sr, aligned),
+        g, rois, lvls, shapes, cl, strides, out, sr, aligned),
         PLAIN_ITERS)
     return ms, plain_ms
 
 
-def backward_paths(g, rois, lvls, shapes, out, sr, aligned=True):
+def backward_paths(g, rois, lvls, shapes, out, sr, aligned=True,
+                   strides=ROI_STRIDES):
     """{kernel path: rois that take it} of the backward for these inputs,
     from the kernel's own counts (one launch, outside any counted run)."""
     from pointtinybenchmark_tpu_torch.ops import roi_align_cuda
@@ -2101,13 +2146,13 @@ def backward_paths(g, rois, lvls, shapes, out, sr, aligned=True):
     counts = torch.zeros(len(roi_align_cuda.PATHS), dtype=torch.int32,
                          device=rois.device)
     roi_align_cuda.roi_align_backward(g, rois, lvls, shapes,
-                                      [True] * len(shapes), ROI_STRIDES, out,
+                                      [True] * len(shapes), strides, out,
                                       sr, aligned, path_counts=counts)
     return dict(zip(roi_align_cuda.PATHS, counts.tolist()))
 
 
 def backward_device_ms(g, rois, lvls, shapes, out, sr, label,
-                       calls=BWD_PROFILE_CALLS):
+                       calls=BWD_PROFILE_CALLS, strides=ROI_STRIDES):
     """The backward's device time per wrapper call, from a torch.profiler
     trace of `calls` warm calls (no host time in it): (the backward kernel,
     the rest of the call's device work: the zero fill of the level
@@ -2119,7 +2164,7 @@ def backward_device_ms(g, rois, lvls, shapes, out, sr, label,
 
     def run():
         roi_align_cuda.roi_align_backward(g, rois, lvls, shapes,
-                                          [True] * len(shapes), ROI_STRIDES,
+                                          [True] * len(shapes), strides,
                                           out, sr)
 
     def enough(events):
@@ -2240,13 +2285,14 @@ def phase_roi_align_backward(card):
     return records, device_times
 
 
-def add_device_ms(card, rec, g, rois, lvls, shapes, out, sr, phase="6"):
+def add_device_ms(card, rec, g, rois, lvls, shapes, out, sr,
+                  strides=ROI_STRIDES, phase="6"):
     """Put the backward's device times for these inputs into `rec`
     (device_ms: the kernel and the rest of the call's device work) and
     print them beside the call time and the bound."""
     label = rec["shape"].replace(" ", "_")
-    k_ms, rest_ms, busy_ms, how = backward_device_ms(g, rois, lvls, shapes,
-                                                     out, sr, label)
+    k_ms, rest_ms, busy_ms, how = backward_device_ms(
+        g, rois, lvls, shapes, out, sr, label, strides=strides)
     rec.update(device_ms=busy_ms, kernel_ms=k_ms, fill_ms=rest_ms)
     print(f"phase {phase} RoIAlign backward {rec['shape']} (R={rec['R']}, "
           f"S={out}, sr={sr}), device time per call from {how}: kernel {k_ms:.4f} ms, zero fill and "
@@ -2844,30 +2890,41 @@ def step_rois(card, fwd, bwd, phase="8", label="mask_rcnn train step",
     their plain versions on one train step's recorded launches, with the
     rois on each kernel path, call times and bounds; `kinds` names the
     launches by S, one name a launch of that S in launch order (a
-    cascade's stages). The k-th forward of an S pairs with the k-th last
-    backward of that S (autograd runs the backwards in reverse). Returns
-    the forward's and the backward's records and the backward's inputs,
-    one per forward launch."""
+    cascade's stages). A forward pairs with the backward given its own
+    rois tensor (autograd runs the backwards in about reverse order, not
+    exactly where branches interleave, as HTC's do). Returns the
+    forward's and the backward's records and the backward's inputs, one
+    per forward launch."""
     f_rows, b_rows, b_inputs = [], [], []
-    for (feats, rois, lvls, _, out, sr, *rest), _, _ in fwd:
+    for (feats, rois, lvls, strides, out, sr, *rest), _, _ in fwd:
         aligned = rest[0] if rest else True
         feats = [f.detach() for f in feats]
         k = sum(1 for row in f_rows if row["S"] == out)
-        g = [args[0] for args, _, _ in bwd if args[0].shape[-1] == out][
-            -1 - k]
+        # the backward given these rois (MultilevelRoIAlign saves them)
+        own = [args[0] for args, _, _ in bwd
+               if args[1].data_ptr() == rois.data_ptr()]
+        if len(own) != 1:
+            raise AssertionError(f"{label}: {len(own)} backward launches "
+                                 f"on the rois of forward launch {k} of "
+                                 f"S={out}")
+        g = own[0]
         shapes = [tuple(f.shape) for f in feats]
         name = f"{label} {[n for s, n in kinds if s == out][k]} rois"
         r = rois.shape[0]
         per_level = torch.bincount(lvls, minlength=len(ROI_LEVELS)).tolist()
-        _, f_err = compare_roi_align(feats, rois, lvls, out, sr, aligned)
-        f_paths = roi_paths(feats, rois, lvls, out, sr, aligned)
+        _, f_err = compare_roi_align(feats, rois, lvls, out, sr, aligned,
+                                     strides)
+        f_paths = roi_paths(feats, rois, lvls, out, sr, aligned, strides)
         err, share = compare_roi_align_backward(g, rois, lvls, shapes, out,
-                                                sr, aligned)
-        b_paths = backward_paths(g, rois, lvls, shapes, out, sr, aligned)
-        f_ms, f_plain = time_roi_align(feats, rois, lvls, out, sr, aligned)
-        f_bms, f_by = roi_align_bound(feats, rois, lvls, out, sr, aligned)
+                                                sr, aligned, strides)
+        b_paths = backward_paths(g, rois, lvls, shapes, out, sr, aligned,
+                                 strides)
+        f_ms, f_plain = time_roi_align(feats, rois, lvls, out, sr, aligned,
+                                       strides)
+        f_bms, f_by = roi_align_bound(feats, rois, lvls, out, sr, aligned,
+                                      strides)
         b_ms, b_plain = time_roi_align_backward(g, rois, lvls, shapes, out,
-                                                sr, aligned)
+                                                sr, aligned, strides)
         b_bms, b_by = roi_align_backward_bound(r, g.shape[1], out, sr, shapes)
         print(f"phase {phase} {name} (R={r}, S={out}, sr={sr}, aligned "
               f"{aligned}, per level {per_level}): forward kernel == plain "
@@ -2880,15 +2937,15 @@ def step_rois(card, fwd, bwd, phase="8", label="mask_rcnn train step",
               f"{b_ms:.4f} ms (plain {b_plain:.4f}, bound {b_bms:.4f} {b_by})"
               f" [{card}]")
         f_rows.append(dict(shape=name, R=r, S=out, sr=sr, aligned=aligned,
-                           max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
+                           strides=list(strides), max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
                            bound_ms=f_bms, bound_by=f_by, per_level=per_level,
                            paths=f_paths))
         b_rows.append(dict(shape=name, R=r, S=out, sr=sr, aligned=aligned,
-                           rois="train step",
+                           strides=list(strides), rois="train step",
                            max_abs_err=err, err_share=share, ms=b_ms,
                            plain_ms=b_plain, bound_ms=b_bms, bound_by=b_by,
                            per_level=per_level, paths=b_paths))
-        b_inputs.append((g, rois, lvls, shapes, out, sr))
+        b_inputs.append((g, rois, lvls, shapes, out, sr, strides))
     return f_rows, b_rows, b_inputs
 
 
@@ -5490,13 +5547,14 @@ def first_k1_rows(card, labels, bits, walks, phase="16"):
 def k2_forward_row(card, label, call, phase="16"):
     """K2's forward (torch.equal) against its plain version on one recorded
     inference launch, with the rois on each path, times and bound."""
-    (feats, rois, lvls, _, out, sr, *rest), _, _ = call
+    (feats, rois, lvls, strides, out, sr, *rest), _, _ = call
     aligned = rest[0] if rest else True
     per_level = torch.bincount(lvls, minlength=len(ROI_LEVELS)).tolist()
-    _, err = compare_roi_align(feats, rois, lvls, out, sr, aligned)
-    paths = roi_paths(feats, rois, lvls, out, sr, aligned)
-    ms, plain_ms = time_roi_align(feats, rois, lvls, out, sr, aligned)
-    bms, by = roi_align_bound(feats, rois, lvls, out, sr, aligned)
+    _, err = compare_roi_align(feats, rois, lvls, out, sr, aligned, strides)
+    paths = roi_paths(feats, rois, lvls, out, sr, aligned, strides)
+    ms, plain_ms = time_roi_align(feats, rois, lvls, out, sr, aligned,
+                                  strides)
+    bms, by = roi_align_bound(feats, rois, lvls, out, sr, aligned, strides)
     r = rois.shape[0]
     print(f"phase {phase} {label} (R={r}, S={out}, sr={sr}, aligned "
           f"{aligned}, per level "
@@ -5504,8 +5562,9 @@ def k2_forward_row(card, label, call, phase="16"):
           f"{shares(paths)}; kernel {ms:.4f} ms (plain {plain_ms:.4f}, "
           f"bound {bms:.4f} {by}) [{card}]")
     return dict(shape=label, R=r, S=out, sr=sr, aligned=aligned,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, per_level=per_level, paths=paths)
+                strides=list(strides), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                per_level=per_level, paths=paths)
 
 
 def phase_point_workflow(card, root):
@@ -6132,13 +6191,16 @@ def detect_and_hold(card, phase, label, config, imgs, expected, names):
     return handle, seeded, dets, launches, k1, k2
 
 
-def step_and_hold(card, phase, label, config, expected, kinds, seed):
+def step_and_hold(card, phase, label, config, expected, kinds, seed,
+                  after_step=None):
     """One train step of `config`'s seeded model at its samples_per_gpu on
     synthetic COCO_HW images with masks (`coco_train_samples`), with the
     kernels and with the plain RoIAlign, from the same weights and draws:
     the launches, equal losses, gradients within GRAD_TOL; on the step's
     own launches K2 forward and backward (`step_rois`) and K1 alone at
-    the RPN's NMS. Returns the model (at its seeded weights), the config,
+    the RPN's NMS; `after_step(model, start)` sees the model after the
+    kernels' step and its start state. Returns the model (at its seeded
+    weights), the config,
     the batch, the launches and the K1, K2 forward and backward rows and
     the backward's inputs."""
     from pointtinybenchmark_tpu_torch.data.loader import DetCollator
@@ -6163,6 +6225,8 @@ def step_and_hold(card, phase, label, config, expected, kinds, seed):
             recorded(nms_cuda, "greedy_reduce", walks):
         got, got_grads = one_step(model, cfg, batch, seed=3)
     launches = read_launches()
+    if after_step is not None:
+        after_step(model, init)
     model.load_state_dict(init)
     reset_launches()
     with plain_roi_align():
@@ -6540,6 +6604,156 @@ def phase_cascades(card):
             a_fwd + b_fwd, a_bwd + b_bwd, a_profile)
 
 
+def masked_run_test(card, phase, label, model, imgs, expected):
+    """`run_test` of a mask detector on `imgs` (COCO_HW float32, one batch),
+    rescale on: the launches (`expected`: a batch launches what an image
+    does), one RLE mask of the
+    image's size a detection, some not empty, and every box, label and
+    mask equal to the all-plain run's; one warm call timed (host clock,
+    the paste and the RLE encoding on the host included)."""
+    from pointtinybenchmark_tpu_torch.data.loader import DetCollator
+    from pointtinybenchmark_tpu_torch.engine.test import (DEFAULT_MEAN,
+                                                          DEFAULT_STD,
+                                                          run_test)
+    from pointtinybenchmark_tpu_torch.evaluation.mask_utils import rle_encode
+
+    h, w = COCO_HW
+    samples = [dict(img=((img - np.float32(DEFAULT_MEAN))
+                         / np.float32(DEFAULT_STD)).astype(np.float32),
+                    img_metas=dict(scale_factor=np.ones(4, np.float32),
+                                   ori_shape=(h, w))) for img in imgs]
+    collator = DetCollator(size_divisor=32)
+    reset_launches()
+    got = run_test(model, samples, collator, batch_size=len(samples))
+    launches = read_launches()
+    expect(launches, expected, f"{label} run_test")
+    with plain_nms(), plain_roi_align():
+        plain = run_test(model, samples, collator, batch_size=len(samples))
+    empty = rle_encode(np.zeros((h, w), bool))["counts"]
+    for i, (r, p) in enumerate(zip(got, plain)):
+        n, masks = len(r["bboxes"]), r["masks"]
+        filled = sum(m["counts"] != empty for m in masks)
+        same = (np.array_equal(r["bboxes"], p["bboxes"])
+                and np.array_equal(r["labels"], p["labels"])
+                and [m["counts"] for m in masks]
+                == [m["counts"] for m in p["masks"]])
+        if not n or len(masks) != n or not filled or not same \
+                or any(m["size"] != [h, w] for m in masks):
+            raise AssertionError(f"{label} run_test image {i}: {n} "
+                                 f"detections, {len(masks)} masks, {filled} "
+                                 f"not empty, equal to plain: {same}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_test(model, samples, collator, batch_size=len(samples))
+    ips = len(samples) / (time.perf_counter() - t0)
+    print(f"phase {phase} {label} run_test: {len(imgs)} {w}x{h} images in "
+          f"one batch, launches {launches}, {[len(r['bboxes']) for r in got]}"
+          f" detections, each with its RLE mask of {h}x{w} "
+          f"({[sum(m['counts'] != empty for m in r['masks']) for r in got]} "
+          f"not empty), boxes, labels and masks equal to the all-plain "
+          f"run's; {ips:.4f} img/s (one warm call, host clock, paste and "
+          f"RLE included) [{card}]")
+    return launches
+
+
+def frozen_is_jax(label):
+    """`after_step` of DetectoRS's train step: the optimizer's frozen set is
+    JAX's frozen_param_mask for frozen_stages=1, the backbone's layer1
+    (its stem_conv / stem_bn, which JAX's rule does not find, and the
+    RFP's feedback copy train): those parameters bit-identical after the
+    step, the stem and the feedback copy's layer1 changed."""
+    def check(model, start):
+        from pointtinybenchmark_tpu_torch.engine.optimizer import \
+            frozen_param_names
+
+        frozen = set(frozen_param_names(model, model.backbone.frozen_stages))
+        want = {n for n, _ in model.named_parameters()
+                if n.startswith("backbone.layer1.")}
+        params = dict(model.named_parameters())
+        moved = {n for n, p in params.items()
+                 if not torch.equal(p.detach(), start[n])}
+        if frozen != want or frozen & moved or not {
+                "backbone.stem_conv.weight",
+                "neck.rfp_backbone0.layer1.0.conv1.weight"} <= moved:
+            raise AssertionError(f"{label}: frozen {sorted(frozen)[:4]}..., "
+                                 f"moved among them "
+                                 f"{sorted(frozen & moved)[:4]}")
+        print(f"phase 18 (b) {label}: frozen_stages=1 freezes "
+              f"{len(frozen)} parameters, all of backbone.layer1 (JAX's "
+              f"layer1_block*), bit-identical after the step; "
+              f"{len(moved)} of the other {len(params) - len(frozen)} moved, "
+              f"the stem and the RFP's feedback copy among them")
+    return check
+
+
+def phase_htc(card):
+    """Phase 18: HTC, SCNet and DetectoRS (HTC_RUNS) at full width from
+    seeded weights: (a) `inference_detector` on two COCO_HW images, fc_cls
+    lifted in every stage (the launches, the kernels against the plain
+    versions, K2's forward at every launch, the card against the CPU on
+    the first image), and for HTC and SCNet `run_test` with the masks
+    pasted and RLE-encoded; (b) a train step at samples_per_gpu 2 with the
+    masks (the kernels against the plain RoIAlign, each extraction's K2
+    forward and backward on the step's rois; DetectoRS's frozen set),
+    step ms, peak memory and a profile (to be run after every timing)."""
+    from pointtinybenchmark_tpu_torch.apis.inference import (
+        inference_detector, init_detector)
+
+    t0 = time.perf_counter()
+    imgs = cascade_images(np.random.RandomState(181), 2)
+    by_path, k1_rows, fwd_rows, bwd_rows, profiles = {}, [], [], [], []
+    for i, (name, config, image_launches, train_launches, names,
+            kinds) in enumerate(HTC_RUNS):
+        handle, _, dets, launches, k1, k2 = detect_and_hold(
+            card, "18 (a)", name, config, imgs, image_launches, names)
+        by_path[f"{name}_inference_detector"] = launches
+        if name != "detectors":
+            by_path[f"{name}_run_test"] = masked_run_test(
+                card, "18 (a)", name, handle.model, imgs, image_launches)
+        cpu = init_detector(str(config), device="cpu")
+        lift_classes(cpu.model)
+        ref = inference_detector(cpu, imgs[0])
+        order = np.argsort(-dets[0]["bboxes"][:, 4], kind="stable")
+        ref_order = np.argsort(-ref["bboxes"][:, 4], kind="stable")
+        n = dets_match((ref["bboxes"][ref_order], ref["labels"][ref_order]),
+                       (dets[0]["bboxes"][order], dets[0]["labels"][order]))
+        print(f"phase 18 (a) {name}: the CPU's {n} detections of image 0 "
+              f"matched at tests/test_detector_golden.py:88's tolerances "
+              f"[{card}]")
+        k1_rows += k1
+        fwd_rows += k2
+        del handle, cpu, ref
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        model, cfg, batch, step_launches, k1_train, f_rows, b_rows, \
+            b_inputs = step_and_hold(
+                card, "18 (b)", name, config, train_launches, kinds,
+                182 + i, frozen_is_jax(name) if name == "detectors"
+                else None)
+        by_path[f"{name}_train_step"] = step_launches
+        numbers, step_profile = time_step(card, "18 (b)", f"{name}_train",
+                                          cfg, model, batch, held,
+                                          HTC_TRAIN_IMAGES)
+        k1_rows.append(k1_train)
+        fwd_rows += f_rows
+        bwd_rows += b_rows
+        profiles.append((step_profile, b_rows, b_inputs))
+        del model, batch
+        torch.cuda.empty_cache()
+        print(f"phase 18 {name}: {time.perf_counter() - t0:.1f} s so far "
+              f"(host clock)")
+
+    def profile():
+        for step_profile, rows, inputs in profiles:
+            step_profile()
+            for rec, args in zip(rows, inputs):
+                add_device_ms(card, rec, *args, phase="18 (b)")
+    print(f"phase 18 whole: {time.perf_counter() - t0:.1f} s (host clock) "
+          f"[{card}]")
+    return by_path, k1_rows, fwd_rows, bwd_rows, profile
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -6615,6 +6829,8 @@ def main():
     lap("phase 16")
     cc_by_path, cc_k1, cc_fwd, cc_bwd, cascade_profile = phase_cascades(card)
     lap("phase 17")
+    htc_by_path, htc_k1, htc_fwd, htc_bwd, htc_profile = phase_htc(card)
+    lap("phase 18")
     # the profiles last: once torch.profiler has traced the card, later
     # launches of the process can cost more host time (phase 6 times the
     # train step before and after them)
@@ -6638,20 +6854,22 @@ def main():
     grid_device_ms()
     grid_train_profile()
     cascade_profile()
+    htc_profile()
     lap("the profiles")
     for k in ("iou_bitmask", "greedy_reduce"):
         records[k]["by_shape"].append(mask_train_k1[k])
         records[k]["by_shape"] += [row[k] for row in p2p_k1]
         records[k]["by_shape"] += [row[k] for name, _, _ in DENSE
                                    for row in dense[name][2]]
-        records[k]["by_shape"] += [row[k] for row in sm_k1 + wf_k1 + cc_k1]
+        records[k]["by_shape"] += [row[k] for row in sm_k1 + wf_k1 + cc_k1
+                                   + htc_k1]
     records["roi_align"] = dict(
         slice_record, by_shape=roi_shapes + [slice_record] + mask_records
         + [train_fwd] + mask_train_fwd + p2b_rows[0] + [grid_record]
-        + grid_train_fwd + sm_fwd + wf_fwd + cc_fwd)
+        + grid_train_fwd + sm_fwd + wf_fwd + cc_fwd + htc_fwd)
     records["roi_align_backward"] = dict(
         train_bwd, by_shape=bwd_shapes + [train_bwd] + mask_train_bwd
-        + p2b_rows[1] + grid_train_bwd + sm_bwd + wf_bwd + cc_bwd)
+        + p2b_rows[1] + grid_train_bwd + sm_bwd + wf_bwd + cc_bwd + htc_bwd)
     # the P2BNet step's negatives, its largest launch
     records["roi_align_rois_backward"] = dict(
         p2b_rows[2][1], by_shape=rois_rows + p2b_rows[2])
@@ -6667,7 +6885,8 @@ def main():
                **{k: v[0] for k, v in dense.items()},
                "grid_rcnn": grid_launches,
                "grid_rcnn_train": grid_train_launches,
-               **dataset_launches, **sm_by_path, **wf_by_path, **cc_by_path}
+               **dataset_launches, **sm_by_path, **wf_by_path, **cc_by_path,
+               **htc_by_path}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],

@@ -14,8 +14,8 @@ the same order, so that a run can be held against it:
 3. the momentum trace t = g + momentum * t;
 4. the update -lr(count) * t, count being the number of updates applied so
    far (optax's step count, from 0);
-5. frozen parameters (the backbone stem and stages 1..frozen_stages) are not
-   updated at all.
+5. frozen parameters (the backbone stem and stages 1..frozen_stages, by
+   JAX's names: `frozen_param_names`) are not updated at all.
 
 Frozen parameters therefore keep requires_grad=True: their gradients are
 computed and count in the clipping norm, as in the JAX package (mmcv would
@@ -98,9 +98,12 @@ def build_lr_schedule(base_lr: float, lr_config: Optional[dict],
 
 def frozen_param_names(model: nn.Module, frozen_stages: int) -> List[str]:
     """Names of the parameters `frozen_stages` freezes (mmdet
-    ResNet._freeze_stages): with frozen_stages >= 0 the backbone's stem
-    (`backbone.conv1`, `backbone.bn1`), and its stages `backbone.layer1` ..
-    `backbone.layer{frozen_stages}`."""
+    ResNet._freeze_stages by the names JAX's `frozen_param_mask` reads):
+    with frozen_stages >= 0 the ResNet's stem (`backbone.conv1`,
+    `backbone.bn1`, JAX's `Conv_0` / `BatchNorm_0`), and the backbone's
+    stages `backbone.layer1` .. `backbone.layer{frozen_stages}`. As in
+    JAX, a DetectoRS backbone's `stem_conv` / `stem_bn` and the RFP's
+    feedback backbone under the neck stay trainable."""
     if frozen_stages < 0:
         return []
     prefixes = ["backbone.conv1.", "backbone.bn1."] + [

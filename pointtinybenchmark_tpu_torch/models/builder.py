@@ -21,6 +21,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from .backbones.detectors_resnet import DetectoRS_ResNet, DetectoRS_ResNeXt
 from .backbones.resnet import ResNet
 from .dense_heads.anchor_head import AnchorHead
 from .dense_heads.atss_head import ATSSHead
@@ -36,27 +37,40 @@ from .dense_heads.rpn_head import RPNHead
 from .dense_heads.vfnet_head import VFNetHead
 from .detectors.single_stage import (BasicLocator, P2BNet, SSDDet,
                                      SingleStageDetector)
-from .detectors.two_stage import (RPN, CascadeRCNN, GridRCNN, MaskRCNN,
+from .detectors.two_stage import (RPN, SCNet, CascadeRCNN, DetectoRS,
+                                  GridRCNN, HybridTaskCascade, MaskRCNN,
                                   TwoStageDetector)
 from .necks.extra_necks import BFP
 from .necks.fpn import FPN
+from .necks.rfp import RFP
 from .roi_heads.bbox_head import Shared2FCBBoxHead
 from .roi_heads.cascade_roi_head import CascadeRoIHead
 from .roi_heads.grid_roi_head import GridHead, GridRoIHead
+from .roi_heads.htc_roi_head import (FusedSemanticHead, HTCMaskHead,
+                                     HybridTaskCascadeRoIHead)
 from .roi_heads.mask_head import FCNMaskHead
+from .roi_heads.scnet_roi_head import GlobalContextHead, SCNetRoIHead
 from .roi_heads.standard_roi_head import StandardRoIHead
 
 __all__ = ["build_detector", "build_module", "MODULES"]
 
 MODULES = {
     "ResNet": ResNet,
+    "DetectoRS_ResNet": DetectoRS_ResNet,
+    "DetectoRS_ResNeXt": DetectoRS_ResNeXt,
     "FPN": FPN,
+    "RFP": RFP,
     "BFP": BFP,
     "AnchorHead": AnchorHead,
     "RetinaHead": RetinaHead,
     "RPNHead": RPNHead,
     "StandardRoIHead": StandardRoIHead,
     "CascadeRoIHead": CascadeRoIHead,
+    "HybridTaskCascadeRoIHead": HybridTaskCascadeRoIHead,
+    "SCNetRoIHead": SCNetRoIHead,
+    "HTCMaskHead": HTCMaskHead,
+    "FusedSemanticHead": FusedSemanticHead,
+    "GlobalContextHead": GlobalContextHead,
     "GridRoIHead": GridRoIHead,
     "GridHead": GridHead,
     "Shared2FCBBoxHead": Shared2FCBBoxHead,
@@ -82,7 +96,11 @@ SINGLE_STAGE = {"SingleStageDetector": SingleStageDetector,
                 "SSDDet": SSDDet}
 TWO_STAGE = {"TwoStageDetector": TwoStageDetector,
              "FasterRCNN": TwoStageDetector, "MaskRCNN": MaskRCNN,
-             "GridRCNN": GridRCNN, "CascadeRCNN": CascadeRCNN}
+             "GridRCNN": GridRCNN, "CascadeRCNN": CascadeRCNN,
+             "HybridTaskCascade": HybridTaskCascade, "SCNet": SCNet,
+             "DetectoRS": DetectoRS}
+HTC_HEADS = ("HybridTaskCascadeRoIHead", "SCNetRoIHead")
+CASCADES = ("CascadeRoIHead",) + HTC_HEADS
 
 
 def build_module(cfg: dict) -> nn.Module:
@@ -112,6 +130,33 @@ def _cascade_heads(roi_cfg: dict) -> list:
         type="SmoothL1Loss", beta=1.0)), **h)) for h in heads]
 
 
+def _htc_heads(roi_cfg: dict) -> None:
+    """HTC's and SCNet's branch heads, built as the JAX RoI heads build
+    them, their configs' `type` set aside (JAX htc_roi_head.py and
+    scnet_roi_head.py `setup`): an HTCMaskHead a stage for HTC, with
+    `conv_res` from stage 1 on under `mask_info_flow` (the heads the JAX
+    head hands features), one for SCNet (the one it runs); the
+    FusedSemanticHead; SCNet's GlobalContextHead, of the RoI head's
+    classes unless set."""
+    scnet = roi_cfg["type"] == "SCNetRoIHead"
+    n = 1 if scnet else int(roi_cfg.get("num_stages", 3))
+    flow = not scnet and bool(roi_cfg.get("mask_info_flow", True))
+    masks = roi_cfg.get("mask_head")
+    if masks:
+        cfgs = masks if isinstance(masks, (list, tuple)) else [masks] * n
+        roi_cfg["mask_head"] = [
+            build_module(dict(cfgs[i], type="HTCMaskHead",
+                              with_conv_res=flow and i > 0))
+            for i in range(n)]
+    if roi_cfg.get("semantic_head"):
+        roi_cfg["semantic_head"] = build_module(
+            dict(roi_cfg["semantic_head"], type="FusedSemanticHead"))
+    if scnet and roi_cfg.get("glbctx_head"):
+        cfg = dict(roi_cfg["glbctx_head"], type="GlobalContextHead")
+        cfg.setdefault("num_classes", roi_cfg["bbox_head"][0].num_classes)
+        roi_cfg["glbctx_head"] = build_module(cfg)
+
+
 def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
                    test_cfg: Optional[dict] = None, *,
                    device: Union[str, torch.device] = "cuda",
@@ -128,8 +173,9 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
     two-stage detector's RPN gets `train_cfg["rpn"]` and
     `test_cfg["rpn"]`, its RoI head `train_cfg["rcnn"]` and
     `test_cfg["rcnn"]` and the built bbox head and, for Mask R-CNN, mask
-    head (for Grid R-CNN, grid head; for Cascade R-CNN a bbox head a
-    stage, `train_cfg["rcnn"]` then a list of one config a stage); the
+    head (for Grid R-CNN, grid head; for Cascade R-CNN, HTC and SCNet a
+    bbox head a stage, `train_cfg["rcnn"]` then a list of one config a
+    stage, and HTC's and SCNet's branch heads by `_htc_heads`); the
     detector keeps
     `train_cfg["rpn_proposal"]` (JAX two_stage.py:38-45). The standalone
     RPN's head gets each config's "rpn" part, or the whole config where
@@ -172,13 +218,16 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
         roi_cfg = dict(cfg["roi_head"])
         roi_cfg.setdefault("train_cfg", (train_cfg or {}).get("rcnn"))
         roi_cfg.setdefault("test_cfg", (test_cfg or {}).get("rcnn"))
-        if roi_cfg.get("type") == "CascadeRoIHead":
+        if roi_cfg.get("type") in CASCADES:
             roi_cfg["bbox_head"] = _cascade_heads(roi_cfg)
         else:
             roi_cfg["bbox_head"] = build_module(roi_cfg["bbox_head"])
-        for key in ("mask_head", "grid_head"):
-            if roi_cfg.get(key):
-                roi_cfg[key] = build_module(roi_cfg[key])
+        if roi_cfg.get("type") in HTC_HEADS:
+            _htc_heads(roi_cfg)
+        else:
+            for key in ("mask_head", "grid_head"):
+                if roi_cfg.get(key):
+                    roi_cfg[key] = build_module(roi_cfg[key])
         model = TWO_STAGE[kind](backbone=backbone, neck=neck,
                                 rpn_head=build_module(rpn_cfg),
                                 roi_head=build_module(roi_cfg),

@@ -1,8 +1,9 @@
-"""Two-stage detector (Faster R-CNN, Mask R-CNN, Grid R-CNN, Cascade R-CNN):
-backbone -> neck -> RPN -> RoI head.
+"""Two-stage detector (Faster R-CNN, Mask R-CNN, Grid R-CNN, Cascade R-CNN,
+HTC, SCNet, DetectoRS): backbone -> neck -> RPN -> RoI head.
 
 Counterpart of pointtinybenchmark_tpu/models/detectors/two_stage.py::
-TwoStageDetector / FasterRCNN / MaskRCNN / GridRCNN / CascadeRCNN / RPN. The RPN
+TwoStageDetector / FasterRCNN / MaskRCNN / GridRCNN / CascadeRCNN /
+HybridTaskCascade / SCNet / DetectoRS / RPN. The RPN
 proposes with `test_cfg["rpn"]` and the RoI head detects with
 `test_cfg["rcnn"]` (each head holds its part); Mask R-CNN is the same
 detector with a mask head in its RoI head, whose results then carry the
@@ -34,7 +35,8 @@ from ...core.post_processing import DetResult
 from ..dense_heads.rpn_head import RPNHead
 from ..roi_heads.standard_roi_head import StandardRoIHead
 
-__all__ = ["TwoStageDetector", "MaskRCNN", "GridRCNN", "CascadeRCNN", "RPN"]
+__all__ = ["TwoStageDetector", "MaskRCNN", "GridRCNN", "CascadeRCNN",
+           "HybridTaskCascade", "SCNet", "DetectoRS", "RPN"]
 
 DEFAULT_PROPOSAL_CFG = dict(nms_pre=1000, max_per_img=1000,
                             nms=dict(iou_threshold=0.7), min_bbox_size=0)
@@ -133,6 +135,24 @@ class CascadeRCNN(TwoStageDetector):
     live in the RoI head (`roi_heads/cascade_roi_head.py::CascadeRoIHead`);
     its losses come back as loss_s{i}_cls, loss_s{i}_bbox and
     rcnn_s{i}_num_pos."""
+
+
+class HybridTaskCascade(TwoStageDetector):
+    """HTC (mmdet models/detectors/htc.py): the interleaved cascade, its
+    mask information flow and the semantic branch live in the RoI head
+    (`roi_heads/htc_roi_head.py`); with masks it returns (detections,
+    14x14 mask probabilities)."""
+
+
+class SCNet(TwoStageDetector):
+    """SCNet (mmdet models/detectors/scnet.py): the global context and
+    the feature relay live in the RoI head (`roi_heads/scnet_roi_head.py`)."""
+
+
+class DetectoRS(TwoStageDetector):
+    """DetectoRS (JAX `DetectoRS`): a `DetectoRS_ResNet` backbone with
+    `output_img` and the `RFP` neck over the RoI head of its config (the
+    repo's over Cascade R-CNN's)."""
 
 
 class RPN(nn.Module):

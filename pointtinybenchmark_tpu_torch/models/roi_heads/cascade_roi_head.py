@@ -23,11 +23,13 @@ class), the softmax scores of the stages are averaged, and the last
 stage's deltas are decoded on its input boxes with stage 0's coder (as
 JAX does; mmdet decodes with the last stage's), clipped, and go through
 one `multiclass_nms`. The JAX head has no mask branch, so neither has
-this one: `build_detector` refuses a `mask_head` key.
+this one: `build_detector` refuses a `mask_head` key. HTC's and SCNet's
+heads (htc_roi_head.py, scnet_roi_head.py) build on its stage sampling,
+losses, refinement and test loop.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -121,30 +123,44 @@ class CascadeRoIHead(nn.Module):
         and s{i}_num_pos of every stage."""
         losses: Dict[str, torch.Tensor] = {}
         for i in range(self.num_stages):
-            cfg = self.stage_cfgs[i]
-            scfg = dict(cfg.get("sampler", dict(
-                num=512, pos_fraction=0.25, add_gt_as_proposals=True)))
-            boxes, labels, deltas, pos, sampled, _ = \
-                StandardRoIHead._sample_rois(
-                    proposals, prop_valid, batch, generator,
-                    StandardRoIHead._build_assigner(cfg), scfg,
-                    bool(scfg.get("add_gt_as_proposals", i == 0)),
-                    self.coders[i][0], self.means[i], self.stds[i],
-                    self.num_classes)
+            boxes, labels, deltas, pos, sampled, _ = self._stage_sample(
+                i, proposals, prop_valid, batch, generator, i == 0)
             cls_score, bbox_pred = self.stage_forward(i, feats, boxes)
-            out = StandardRoIHead._bbox_loss(
-                self.bbox_head[i], cls_score, bbox_pred, labels, deltas,
-                pos.float(), sampled.float())
-            w = self.stage_loss_weights[i]
-            losses[f"loss_s{i}_cls"] = out["loss_cls"] * w
-            losses[f"loss_s{i}_bbox"] = out["loss_bbox"] * w
-            losses[f"s{i}_num_pos"] = out["num_pos"]
+            losses.update(self._stage_losses(i, cls_score, bbox_pred, labels,
+                                             deltas, pos, sampled))
             if i < self.num_stages - 1:
                 proposals = self._refine(i, boxes, cls_score, bbox_pred,
                                          batch["img_shape"])
                 prop_valid = torch.ones(proposals.shape[:2], dtype=torch.bool,
                                         device=proposals.device)
         return losses
+
+    def _stage_sample(self, i: int, proposals: torch.Tensor,
+                      prop_valid: torch.Tensor, batch: Dict[str, torch.Tensor],
+                      generator: torch.Generator, add_gt_default: bool):
+        """Stage i's sampled rois (`StandardRoIHead._sample_rois` under its
+        assigner and sampler; the gts prepended where the sampler's
+        `add_gt_as_proposals`, else `add_gt_default`)."""
+        cfg = self.stage_cfgs[i]
+        scfg = dict(cfg.get("sampler", dict(
+            num=512, pos_fraction=0.25, add_gt_as_proposals=True)))
+        return StandardRoIHead._sample_rois(
+            proposals, prop_valid, batch, generator,
+            StandardRoIHead._build_assigner(cfg), scfg,
+            bool(scfg.get("add_gt_as_proposals", add_gt_default)),
+            self.coders[i][0], self.means[i], self.stds[i], self.num_classes)
+
+    def _stage_losses(self, i: int, cls_score: torch.Tensor,
+                      bbox_pred: torch.Tensor, labels: torch.Tensor,
+                      deltas: torch.Tensor, pos: torch.Tensor,
+                      sampled: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = StandardRoIHead._bbox_loss(
+            self.bbox_head[i], cls_score, bbox_pred, labels, deltas,
+            pos.float(), sampled.float())
+        w = self.stage_loss_weights[i]
+        return {f"loss_s{i}_cls": out["loss_cls"] * w,
+                f"loss_s{i}_bbox": out["loss_bbox"] * w,
+                f"s{i}_num_pos": out["num_pos"]}
 
     # ----------------------------------------------------------------- test
     def simple_test(self, feats: Sequence[torch.Tensor],
@@ -154,12 +170,24 @@ class CascadeRoIHead(nn.Module):
                     rescale: bool = False) -> DetResult:
         """The detections of each image, (B, max_per_img) slots; with
         `rescale` their boxes are divided by `scale_factors` (B, 4)."""
+        return self._test_boxes(
+            lambda boxes: StandardRoIHead._extract(feats, boxes,
+                                                   self.bbox_extractor),
+            proposals, prop_valid, img_shapes, scale_factors, rescale)
+
+    def _test_boxes(self, roi_feats: Callable[[torch.Tensor], torch.Tensor],
+                    proposals: torch.Tensor, prop_valid: torch.Tensor,
+                    img_shapes: torch.Tensor,
+                    scale_factors: Optional[torch.Tensor],
+                    rescale: bool) -> DetResult:
+        """`simple_test` with `roi_feats`, boxes (B, P, 4) -> the bbox
+        heads' input (B * P, C, S, S)."""
         nc = self.num_classes
         b, p = proposals.shape[:2]
         scores_sum = 0.0
         boxes = proposals
         for i in range(self.num_stages):
-            cls_score, bbox_pred = self.stage_forward(i, feats, boxes)
+            cls_score, bbox_pred = self.bbox_head[i](roi_feats(boxes))
             scores_sum = scores_sum + torch.softmax(
                 cls_score.reshape(b, p, nc + 1), -1)
             if i < self.num_stages - 1:

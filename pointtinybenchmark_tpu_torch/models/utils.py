@@ -8,7 +8,7 @@ import torch
 from torch import nn
 
 __all__ = ["ConvModule", "bias_init_with_prob", "normal_init",
-           "lecun_normal_", "one_hot"]
+           "lecun_normal_", "he_normal_", "one_hot"]
 
 
 def bias_init_with_prob(prior_prob: float) -> float:
@@ -30,6 +30,15 @@ def normal_init(m: nn.Conv2d, std: float, generator: torch.Generator,
         nn.init.constant_(m.bias, bias)
 
 
+def _truncated_fan_in_(w: torch.Tensor, fan_in: int, scale: float,
+                       generator: torch.Generator) -> None:
+    """flax's variance_scaling(scale, "fan_in", "truncated_normal"): a
+    normal of standard deviation sqrt(scale / fan_in) / 0.8796 truncated
+    at two of them."""
+    std = math.sqrt(scale / fan_in) / .87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
 def lecun_normal_(m: nn.Module, generator: torch.Generator) -> None:
     """flax's default initialiser, which the JAX modules use wherever they
     set none: the kernel from a normal of standard deviation
@@ -43,10 +52,16 @@ def lecun_normal_(m: nn.Module, generator: torch.Generator) -> None:
         fan_in = w.shape[0] * w.shape[2] * w.shape[3]
     else:
         fan_in = w[0].numel()           # (out, in[, kh, kw])
-    std = math.sqrt(1.0 / fan_in) / .87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+    _truncated_fan_in_(w, fan_in, 1.0, generator)
     if m.bias is not None:
         nn.init.zeros_(m.bias)
+
+
+def he_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's he_normal on a conv weight (out, in / groups, kh, kw): the
+    truncated normal of `lecun_normal_` at twice its variance, fan_in
+    kh * kw * in / groups (the JAX kernel's (kh, kw, in / groups, out))."""
+    _truncated_fan_in_(w, w[0].numel(), 2.0, generator)
 
 
 class ConvModule(nn.Module):

@@ -32,7 +32,19 @@ shared_fc{i}` -> `roi_head.bbox_head.shared_fcs.{i}` (a cascade's
 mask_head_m/conv{i}` -> `roi_head.mask_head.convs.{i}.conv`, `upsample` and
 `conv_logits` keep their names; `roi_head_m/grid_head_m/X` -> `roi_head.
 grid_head.X` for every Grid R-CNN layer, `GroupNorm_{i}` (scale, bias) as
-`gn{i}` (weight, bias)), conv kernels go HWIO -> OIHW, dense
+`gn{i}` (weight, bias)); HTC's and SCNet's `roi_head_m/mask_heads_{i}/
+conv{k}` -> `roi_head.mask_head.{i}.convs.{k}.conv` (`conv_res`,
+`upsample` and `conv_logits` keep their names), `semantic_head_m/
+lateral{i}` and `conv{i}` -> `roi_head.semantic_head.lateral_convs.{i}`
+and `.convs.{i}`, `glbctx_head_m/conv{i}` -> `roi_head.glbctx_head.
+convs.{i}`, and `conv_embedding`, `conv_logits`, `fc`, `glbctx_proj`,
+`relay_conv` keep theirs; a DetectoRS backbone's `stem_conv`, `stem_bn`
+and `layer{i}_block{j}/X` -> `backbone.stem_conv`, ...,
+`backbone.layer{i}.{j}.X` (SAC's `conv2_sac/weight`, `weight_gamma`,
+`weight_beta`, `weight_diff` keep their names; gamma and beta (1, 1, 1, O)
+become (O, 1, 1, 1)), and the RFP's `neck_m/fpn/X` -> `neck.fpn.` as an
+FPN's, `rfp_weight`, `rfp_aspp/aspp{i}` and `rfp_backbone{k}/...` (a
+DetectoRS backbone) under `neck.`; conv kernels go HWIO -> OIHW, dense
 kernels (in, out) -> Linear weights (out, in), and BN (scale, bias, mean,
 var) go to (weight, bias, running_mean, running_var). The transposed
 convolutions (the mask head's `upsample`, the grid head's `deconv1_{k}`
@@ -60,6 +72,7 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.backbones.detectors_resnet import DetectoRS_ResNet
 from ..models.backbones.resnet import BasicBlock
 
 __all__ = ["load_jax_variables", "jax_to_state_dict", "jax_param_paths",
@@ -101,16 +114,57 @@ def _backbone_module(scope: Tuple[str, ...],
     return None
 
 
+_SAC_LEAVES = ("weight", "weight_gamma", "weight_beta", "weight_diff")
+_DETECTORS_LAYER = re.compile(
+    r"conv[123]|bn[123]|conv2_sac|downsample_(conv|bn)|rfp_conv")
+
+
+def _detectors_module(scope: Tuple[str, ...]) -> Optional[str]:
+    """A DetectoRS_ResNet's flax scope -> the port's module path:
+    ('stem_bn',) -> 'stem_bn'; ('layer2_block0', 'conv2_sac', 'switch')
+    -> 'layer2.0.conv2_sac.switch'."""
+    if scope in (("stem_conv",), ("stem_bn",)):
+        return scope[0]
+    if len(scope) not in (2, 3):
+        return None
+    blk = re.fullmatch(r"layer(\d+)_block(\d+)", scope[0])
+    if blk is None or not _DETECTORS_LAYER.fullmatch(scope[1]):
+        return None
+    if len(scope) == 3 and (scope[1] != "conv2_sac" or scope[2] not in (
+            "pre_context", "switch", "post_context")):
+        return None
+    return ".".join((f"layer{blk[1]}.{blk[2]}",) + scope[1:])
+
+
+def _detectors_key(prefix: str, scope: Tuple[str, ...],
+                   leaf: str) -> Optional[str]:
+    """A DetectoRS_ResNet leaf at `scope` -> its port name under
+    `prefix`: BN's scale, bias, mean and var, a conv's kernel and bias,
+    SAC's own weights under their names."""
+    mod = _detectors_module(scope)
+    if mod is None:
+        return None
+    if mod.endswith("conv2_sac"):
+        name = leaf if leaf in _SAC_LEAVES else None
+    elif leaf == "kernel":
+        name = "weight"
+    else:
+        name = _BN.get(leaf)
+    return None if name is None else f"{prefix}.{mod}.{name}"
+
+
 def _torch_key(path: Tuple[str, ...], n_lateral: int,
                basic: bool = False) -> Optional[str]:
     top, *scope, leaf = path
     if top == "backbone_m":
         mod = _backbone_module(tuple(scope), basic)
         if mod is None:
-            return None
+            return _detectors_key("backbone", tuple(scope), leaf)
         if leaf == "kernel":
             return f"backbone.{mod}.weight"
         return f"backbone.{mod}.{_BN[leaf]}" if leaf in _BN else None
+    if top == "neck_m" and scope and scope[0].startswith("rfp_backbone"):
+        return _detectors_key(f"neck.{scope[0]}", tuple(scope[1:]), leaf)
     if top == "bbox_head_m" and not scope and leaf == "moment_transfer":
         return "bbox_head.moment_transfer"
     if top == "bbox_head_m" and len(scope) == 1 and leaf == "scale":
@@ -140,16 +194,41 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int,
         return f"bbox_head.{m[1]}_convs.{m[2]}.{mod}.{name}"
     if leaf == "scale":
         return None
+    if top == "neck_m" and (scope == ["rfp_weight"] or (
+            len(scope) == 2 and scope[0] == "rfp_aspp"
+            and re.fullmatch(r"aspp\d+", scope[1]))):
+        return f"neck.{'.'.join(scope)}.{name}"
+    neck = "neck"
+    if top == "neck_m" and len(scope) == 2 and scope[0] == "fpn":
+        neck, scope = "neck.fpn", scope[1:]         # RFP's shared FPN
     if top == "neck_m" and len(scope) == 1:
         m = re.fullmatch(r"(lateral|fpn|extra)_conv(\d+)", scope[0])
         if m is None:
             return None
         i = int(m[2]) + (n_lateral if m[1] == "extra" else 0)
         group = "lateral_convs" if m[1] == "lateral" else "fpn_convs"
-        return f"neck.{group}.{i}.conv.{name}"
+        return f"{neck}.{group}.{i}.conv.{name}"
     if top == "rpn_head_m" and len(scope) == 1 and scope[0] in (
             "rpn_conv", "rpn_cls", "rpn_reg"):
         return f"rpn_head.{scope[0]}.{name}"
+    if top == "roi_head_m" and scope in (["glbctx_proj"], ["relay_conv"]):
+        return f"roi_head.{scope[0]}.{name}"
+    if top == "roi_head_m" and len(scope) == 2 and scope[0] in (
+            "semantic_head_m", "glbctx_head_m"):
+        m = re.fullmatch(r"(lateral|conv)(\d+)|conv_embedding|conv_logits|fc",
+                         scope[1])
+        if m is None:
+            return None
+        mod = (f"{'lateral_convs' if m[1] == 'lateral' else 'convs'}.{m[2]}"
+               if m[1] is not None else scope[1])
+        return f"roi_head.{scope[0][:-2]}.{mod}.{name}"
+    if top == "roi_head_m" and len(scope) == 2 and re.fullmatch(
+            r"mask_heads_\d+", scope[0]):
+        m = re.fullmatch(r"conv(\d+)|conv_res|upsample|conv_logits", scope[1])
+        if m is None:
+            return None
+        mod = f"convs.{m[1]}.conv" if m[1] is not None else scope[1]
+        return f"roi_head.mask_head.{scope[0][11:]}.{mod}.{name}"
     if top == "roi_head_m" and len(scope) == 2 and scope[0] == "mask_head_m":
         m = re.fullmatch(r"conv(\d+)|upsample|conv_logits", scope[1])
         if m is None:
@@ -185,11 +264,28 @@ def _torch_key(path: Tuple[str, ...], n_lateral: int,
     return None
 
 
-def _jax_module(parts: List[str], n_lateral: int,
-                basic: bool) -> Optional[Tuple[str, ...]]:
+def _detectors_scope(rest: List[str]) -> Tuple[str, ...]:
+    """The inverse of `_detectors_module`."""
+    if len(rest) == 1:
+        return tuple(rest)
+    return (f"{rest[0]}_block{rest[1]}",) + tuple(rest[2:])
+
+
+def _jax_module(parts: List[str], n_lateral: int, basic: bool,
+                detectors: bool = False) -> Optional[Tuple[str, ...]]:
     """The flax scope of a port module path (its name split at dots):
-    the inverse of `_torch_key`'s module rules."""
+    the inverse of `_torch_key`'s module rules; `detectors` says that the
+    backbone is a DetectoRS_ResNet."""
     top, rest = parts[0], parts[1:]
+    if top == "backbone" and detectors:
+        return ("backbone_m",) + _detectors_scope(rest)
+    if top == "neck" and rest and rest[0].startswith("rfp_backbone"):
+        return ("neck_m", rest[0]) + _detectors_scope(rest[1:])
+    if top == "neck" and rest and rest[0] in ("rfp_weight", "rfp_aspp"):
+        return ("neck_m",) + tuple(rest)
+    if top == "neck" and rest and rest[0] == "fpn":
+        scope = _jax_module(["neck"] + rest[1:], n_lateral, basic)
+        return None if scope is None else ("neck_m", "fpn") + scope[1:]
     if top == "backbone":
         if rest in (["conv1"], ["bn1"]):
             return ("backbone_m",
@@ -232,6 +328,14 @@ def _jax_module(parts: List[str], n_lateral: int,
             and rest[1].isdigit():
         sub = f"shared_fc{rest[3]}" if rest[2] == "shared_fcs" else rest[2]
         return ("roi_head_m", f"bbox_heads_{rest[1]}", sub)
+    if top == "roi_head" and len(rest) >= 3 and rest[0] == "mask_head" \
+            and rest[1].isdigit():
+        sub = f"conv{rest[3]}" if rest[2] == "convs" else rest[2]
+        return ("roi_head_m", f"mask_heads_{rest[1]}", sub)
+    if top == "roi_head" and len(rest) == 3 and rest[1] == "lateral_convs":
+        return ("roi_head_m", rest[0] + "_m", f"lateral{rest[2]}")
+    if top == "roi_head" and len(rest) == 1:
+        return ("roi_head_m", rest[0])
     if top == "roi_head" and len(rest) >= 2:
         head = rest[0] + "_m"
         if rest[1] in ("shared_fcs", "convs"):
@@ -246,19 +350,26 @@ def jax_param_paths(model: torch.nn.Module) -> Dict[str, str]:
     `bbox_head.cls_convs.0.gn.bias` -> `bbox_head_m.cls_conv0.GroupNorm_0.
     bias`. Raises if a path does not map back to its name."""
     neck = getattr(model, "neck", None)
-    n_lateral = len(neck.lateral_convs) if neck is not None else 0
+    fpn = getattr(neck, "fpn", neck)
+    n_lateral = len(fpn.lateral_convs) if fpn is not None else 0
     basic = any(isinstance(m, BasicBlock) for m in model.modules())
+    detectors = isinstance(getattr(model, "backbone", None),
+                           DetectoRS_ResNet)
     out = {}
     for name, _ in model.named_parameters():
         *mod, leaf = name.split(".")
         if mod == ["bbox_head"] and leaf == "moment_transfer":
             path: Optional[Tuple[str, ...]] = ("bbox_head_m", leaf)
         else:
-            scope = _jax_module(mod, n_lateral, basic) if mod else None
-            norm = scope is not None and scope[-1].startswith(
-                ("BatchNorm_", "GroupNorm_"))
+            scope = (_jax_module(mod, n_lateral, basic, detectors)
+                     if mod else None)
+            norm = scope is not None and re.fullmatch(
+                r"(BatchNorm|GroupNorm)_\d+|(stem_|downsample_)?bn\d?",
+                scope[-1]) is not None
             jleaf = {"weight": "scale" if norm else "kernel",
                      "bias": "bias", "scale": "scale"}.get(leaf)
+            if scope is not None and scope[-1] == "conv2_sac":
+                jleaf = leaf
             path = None if scope is None or jleaf is None else \
                 scope + (jleaf,)
         if path is None or _torch_key(path, n_lateral, basic) != name:
@@ -275,7 +386,7 @@ def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
     S * S * C); `basic_blocks`
     says that the backbone is a ResNet-18/34. Raises on any leaf it cannot
     place."""
-    n_lateral = sum(1 for k in params.get("neck_m", {})
+    n_lateral = sum(1 for k in _fpn_scope(params.get("neck_m", {}))
                     if str(k).startswith("lateral_conv"))
     out: Dict[str, torch.Tensor] = {}
     unused = []
@@ -290,8 +401,9 @@ def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
                     r"upsample|deconv[12]_\d+", path[-2]):
                 # flax ConvTranspose (kh, kw, in, out), taps the other way
                 arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
-            elif path[-1] == "kernel" and arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+            elif path[-1] in ("kernel",) + _SAC_LEAVES and arr.ndim == 4:
+                # HWIO -> OIHW; SAC's gamma and beta (1, 1, 1, O) likewise
+                arr = arr.transpose(3, 2, 0, 1)
             elif path[-1] == "kernel" and re.fullmatch(
                     r"(stage\d+_)?shared_fc0", path[-2]):
                 s = roi_feat_size                        # rows (h, w, c)
@@ -303,6 +415,11 @@ def jax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
     if unused:
         raise KeyError(f"{len(unused)} JAX leaves not consumed: {unused[:8]}")
     return out
+
+
+def _fpn_scope(neck: Mapping) -> Mapping:
+    """The neck's FPN scope: RFP's shared `fpn`, else the neck's own."""
+    return neck.get("fpn", neck)
 
 
 def roi_feat_size(model: torch.nn.Module) -> int:

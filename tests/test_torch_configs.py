@@ -3,12 +3,13 @@ the port at toy width on the CPU, or raises the refusal this file's table
 lists for it (its exception type and the start of its message).
 
 `tests/test_torch_init.py::toy` cuts a config to toy width (ResNet-18 of
-base 8, necks and heads at 16 or 32 channels). It cannot shrink the
+base 8, DetectoRS's ResNet-50 of base 16, necks and heads at 16 or 32
+channels). It cannot shrink the
 configs without a neck or with a list of necks (Libra R-CNN): those
 (FULL) go to `build_detector` at full width, which refuses them before it
 builds a layer (an unported detector type or backbone, a list of necks).
-It shrinks a cascade's list of RoI bbox heads, one a stage. 65 of the 118
-configs build.
+It shrinks a cascade's list of RoI bbox heads, one a stage, and HTC's and
+SCNet's branch heads. 68 of the 118 configs build.
 """
 import copy
 import glob
@@ -23,7 +24,7 @@ from test_torch_init import toy
 
 BUILDS = "builds"
 FULL = "full width"
-N_BUILD = 65
+N_BUILD = 68
 TABLE = {
     "albu_example/mask_rcnn_r50_fpn_albu_1x_coco.py": BUILDS,
     "cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py": BUILDS,
@@ -41,8 +42,7 @@ TABLE = {
         (KeyError, "CascadeRPNHead is not ported"),
     "coco/deformable_detr_r50_16x2_50e_coco.py":
         (KeyError, "detector DeformableDETR is not ported"),
-    "coco/detectors_htc_r50_1x_coco.py":
-        (KeyError, "detector DetectoRS is not ported"),
+    "coco/detectors_htc_r50_1x_coco.py": BUILDS,
     "coco/detr_r50_8x2_150e_coco.py":
         (FULL, KeyError, "detector DETR is not ported"),
     "coco/double_heads_r50_fpn_1x_coco.py":
@@ -80,8 +80,7 @@ TABLE = {
         (KeyError, "GARetinaHead is not ported"),
     "coco/gfl_r50_fpn_1x_coco.py": (KeyError, "detector GFL is not ported"),
     "coco/grid_rcnn_r50_fpn_gn_2x_coco.py": BUILDS,
-    "coco/htc_r50_fpn_1x_coco.py":
-        (KeyError, "detector HybridTaskCascade is not ported"),
+    "coco/htc_r50_fpn_1x_coco.py": BUILDS,
     "coco/ld_r18_gflv1_r101_fpn_1x_coco.py":
         (KeyError,
         "detector KnowledgeDistillationSingleStageDetector is not ported"),
@@ -124,8 +123,7 @@ TABLE = {
         (KeyError, "SABLHead is not ported"),
     "coco/sabl_retinanet_r50_fpn_1x_coco.py":
         (KeyError, "SABLRetinaHead is not ported"),
-    "coco/scnet_r50_fpn_1x_coco.py":
-        (KeyError, "detector SCNet is not ported"),
+    "coco/scnet_r50_fpn_1x_coco.py": BUILDS,
     "coco/sparse_rcnn_r50_fpn_1x_coco.py":
         (KeyError, "detector SparseRCNN is not ported"),
     "coco/ssd300_coco.py": (FULL, KeyError, "detector SSD is not ported"),

@@ -1,7 +1,8 @@
 """The port's seeded weights against the JAX package's initialisers.
 
-For each of the fifteen configurations the port runs (PERF.md section 4),
-cut to toy width (ResNet-18 at base_channels=8, FPN and heads at 16
+For each of the eighteen configurations the port runs (PERF.md section 4),
+cut to toy width (ResNet-18 at base_channels=8, DetectoRS's ResNet-50 of
+base 16 and its feedback copy with ASPP of 4, FPN and heads at 16
 channels, GroupNorm of 4 groups, FCs of 32; 32 channels where a head's
 `norm_cfg=None` builds GroupNorm of 32 groups), `build_detector(seed=0)`
 and the JAX twin's jitted `model.init` from its own key are paired
@@ -9,12 +10,15 @@ parameter by parameter through `utils/jax_weights.py`'s name map. The
 two RNGs differ, so the values are compared as distributions:
 
 - a parameter that JAX draws constant (biases, GN and BN scales and
-  shifts, BN's running statistics, the 0.01 prior) is equal;
+  shifts, BN's running statistics, the 0.01 prior, the zero-init RFP and
+  SAC convolutions, SAC's switch bias 1 and its `weight_gamma`, the he
+  std) is equal;
 - a random kernel of at least 1,000 entries has the JAX kernel's shape,
   a standard deviation within 10% of the JAX draw's, a mean under 0.1 of
-  it, and no entry beyond 2 sqrt(1 / fan_in) / 0.8796, the truncation of
-  flax's lecun_normal, with fan_in from the JAX kernel's layout
-  (kh * kw * in, or `in` for a dense layer).
+  it, and no entry beyond 2 sqrt(s / fan_in) / 0.8796, the truncation of
+  flax's lecun_normal (s = 1) or, for SAC's `weight`, he_normal (s = 2),
+  with fan_in from the JAX kernel's layout (kh * kw * in, or `in` for a
+  dense layer); the mask heads' conv_logits are normal(0.001) draws.
 """
 import copy
 
@@ -28,7 +32,8 @@ import jax.numpy as jnp
 from pointtinybenchmark_tpu.models import build_detector as jax_build
 from pointtinybenchmark_tpu_torch.models import build_detector
 from pointtinybenchmark_tpu_torch.utils.config import Config
-from pointtinybenchmark_tpu_torch.utils.jax_weights import (_leaves,
+from pointtinybenchmark_tpu_torch.utils.jax_weights import (_fpn_scope,
+                                                            _leaves,
                                                             _torch_key,
                                                             jax_to_state_dict,
                                                             roi_feat_size)
@@ -49,6 +54,9 @@ CONFIGS = (
     "tinyperson/free_anchor_r50_fpns4_1x_tinyperson640.py",
     "tinyperson/vfnet_r50_fpns4_1x_tinyperson640.py",
     "coco/cascade_rcnn_r50_fpn_1x_coco.py",
+    "coco/htc_r50_fpn_1x_coco.py",
+    "coco/scnet_r50_fpn_1x_coco.py",
+    "coco/detectors_htc_r50_1x_coco.py",
 )
 WIDTH, GROUPS, FC = 16, 4, 32
 # heads whose `norm_cfg=None` builds GroupNorm of 32 groups (in both
@@ -63,8 +71,19 @@ def toy(model: dict) -> dict:
     head = m.get("bbox_head") or {}
     width = (32 if head.get("type") in GN32_HEADS
              and not head.get("norm_cfg") else WIDTH)
-    m["backbone"].update(depth=18, base_channels=8)
-    m["neck"]["in_channels"] = [8, 16, 32, 64]
+    if m["backbone"]["type"].startswith("DetectoRS"):
+        # DetectoRS_ResNet has bottlenecks only (depths 50, 101, 152):
+        # ResNet-50 of base 16 (at base 8 its many 1x1 kernels hold ~1,000
+        # entries, where two draws' standard deviations lie up to ~10%
+        # apart), the RFP's feedback copy too, ASPP of 4
+        m["backbone"].update(depth=50, base_channels=16)
+        m["neck"]["in_channels"] = [64, 128, 256, 512]
+        m["neck"]["rfp_backbone"] = dict(m["neck"]["rfp_backbone"],
+                                         depth=50, base_channels=16)
+        m["neck"]["aspp_out_channels"] = 4
+    else:
+        m["backbone"].update(depth=18, base_channels=8)
+        m["neck"]["in_channels"] = [8, 16, 32, 64]
     m["neck"]["out_channels"] = width
     heads = [m.get("bbox_head"), m.get("rpn_head"), m["neck"]]
     roi = m.get("roi_head")
@@ -72,7 +91,13 @@ def toy(model: dict) -> dict:
         bbox = roi["bbox_head"]
         # a cascade's list of heads, one a stage
         heads += (list(bbox) if isinstance(bbox, (list, tuple)) else [bbox])
-        heads += [roi.get("mask_head"), roi.get("grid_head")]
+        heads += [roi.get(k) for k in ("mask_head", "grid_head",
+                                       "semantic_head", "glbctx_head")]
+        for k in ("bbox_roi_extractor", "mask_roi_extractor",
+                  "semantic_roi_extractor"):
+            if roi.get(k) and "out_channels" in roi[k]:
+                # SCNet's context projection and relay read it
+                roi[k]["out_channels"] = width
     for h in filter(None, heads):
         for k, v in (("in_channels", width), ("feat_channels", width),
                      ("point_feat_channels", width),
@@ -104,14 +129,18 @@ def test_seeded_weights_follow_the_jax_initialisers(name):
                           cfg.get("test_cfg"), device="cpu", seed=0)
     own = {k: v for k, v in port.state_dict().items()
            if not k.endswith("num_batches_tracked")}
+    basic = "DetectoRS" not in model_cfg["backbone"]["type"]
     want = jax_to_state_dict(params, stats, roi_feat_size(port),
-                             basic_blocks=True)
+                             basic_blocks=basic)
     assert set(want) == set(own)
-    n_lateral = sum(1 for k in params["neck_m"]
+    n_lateral = sum(1 for k in _fpn_scope(params["neck_m"])
                     if k.startswith("lateral_conv"))
-    fan_in = {_torch_key(path, n_lateral, basic=True):
-              int(np.prod(np.shape(v)[:-1]))
-              for path, v in _leaves(params) if path[-1] == "kernel"}
+    # (fan_in, variance scale): lecun_normal's 1, SAC's he_normal 2
+    fan_in = {_torch_key(path, n_lateral, basic=basic):
+              (int(np.prod(np.shape(v)[:-1])),
+               2.0 if path[-1] == "weight" else 1.0)
+              for path, v in _leaves(params)
+              if path[-1] in ("kernel", "weight")}
     n_random, wrong = 0, []
     for key, w in want.items():
         p = own[key]
@@ -124,7 +153,7 @@ def test_seeded_weights_follow_the_jax_initialisers(name):
             continue
         n_random += 1
         std, got = float(w.std()), float(p.std())
-        bound = 2 * np.sqrt(1.0 / fan_in[key]) / TRUNC
+        bound = 2 * np.sqrt(fan_in[key][1] / fan_in[key][0]) / TRUNC
         assert float(w.abs().max()) <= bound, (key, "JAX", bound)
         if abs(got - std) > 0.1 * std:
             wrong.append((key, "std", got, std))
